@@ -1,0 +1,24 @@
+"""PyTorch / CUDA port of the multi-FPGA DVFS system (``src/repro``).
+
+Mirrors the JAX package's layout and imports neither jax nor ``repro``:
+
+  core.characterization — delay/power term library, ``PlatformParams``
+  core.accelerators     — the paper's Table I designs and Table II targets
+  core.pll              — PLL stall model (Eqs. 4-5)
+  core.workload         — BURSE-like trace synthesis (numpy, bit-identical)
+  core.voltage          — voltage grids, technique masks, grid argmin
+  core.predictors       — markov / persistence forecasters over ``[K]`` cells
+  core.scheduler        — tenant plane and per-step scheduling math
+  core.controller       — fleet tables, the §V step loop, Table II summaries
+  kernels.grid_argmin   — the table sweep: a CUDA kernel plus its plain
+                          PyTorch version
+  convert               — JAX-side ``PlatformParams`` leaves → tensors
+
+Entry points take an explicit ``device``.  Left unset it means the CUDA
+card, and a machine without one raises instead of falling back to the CPU;
+``device="cpu"`` runs the plain PyTorch path (what the tests use).
+"""
+
+from repro_torch.device import resolve_device  # noqa: F401
+
+__all__ = ["resolve_device"]

@@ -1,0 +1,636 @@
+"""The §V DVFS controller over a fleet of platforms (paper Fig. 9).
+
+Port of the materialized fleet path of ``repro.core.controller``:
+
+  workload counter → predictor → frequency selector → voltage lookup into
+  the per-bin operating table precomputed at synthesis time → PLL → rails.
+
+* :func:`fleet_bin_tables` builds every (platform × technique) table with
+  one fused grid sweep (``kernels.grid_argmin``: the CUDA kernel on the
+  card, its plain PyTorch version on the CPU), plus the hybrid gear argmin
+  and the closed forms for nominal and power gating;
+* :func:`simulate_fleet` runs the runtime loop for every fleet cell at
+  once: a Python loop over steps whose state is ``[K]``-batched tensors
+  that never leave the device until the last step;
+* :func:`compare_all_batched` reduces the runs to the paper's
+  :class:`Summary` metrics on the host, in numpy, exactly as the JAX
+  package does.
+
+Entry points take ``device``: ``None`` means the CUDA card and raises on
+a machine without one; ``"cpu"`` runs the plain path.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, NamedTuple, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import characterization as char
+from repro_torch.core import pll as pll_mod
+from repro_torch.core import predictors as pred_mod
+from repro_torch.core import scheduler as sched_mod
+from repro_torch.core import voltage as volt_mod
+from repro_torch.core.accelerators import Accelerator
+from repro_torch.device import resolve_device
+from repro_torch.kernels.grid_argmin import grid_argmin
+
+TECHNIQUES = ("proposed", "core_only", "bram_only", "freq_only",
+              "power_gating", "nominal", "hybrid", "headroom")
+
+DEFAULT_TECHNIQUES = ("proposed", "core_only", "bram_only", "freq_only",
+                      "power_gating", "hybrid")
+
+
+# ---------------------------------------------------------------------------
+# Platforms and configuration
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class PlatformSpec:
+    """One compute node's array-parameterized delay/power model."""
+
+    name: str
+    params: char.PlatformParams
+    watts_nominal: float = 20.0
+
+
+def fpga_platform(acc: Accelerator, activity: float = 0.125,
+                  watts_nominal: float = 20.0) -> PlatformSpec:
+    """Paper's platform: one accelerator mapped on its smallest device."""
+    mix = dict(acc.core_mix or {}) or None
+    return PlatformSpec(
+        name=f"fpga:{acc.name}",
+        params=char.fpga_platform_params(acc.util, acc.device(), acc.alpha,
+                                         mix, activity, watts_nominal),
+        watts_nominal=watts_nominal)
+
+
+@dataclasses.dataclass(frozen=True)
+class ControllerConfig:
+    technique: str = "proposed"
+    n_bins: int = 25
+    margin: float = 0.05          # paper's t — additive, must exceed 1/M (§V)
+    tau: float = 1.0              # time-step length (s)
+    n_nodes: int = 8
+    f_floor: float = 0.10         # lowest selectable relative frequency
+    use_oracle: bool = False      # perfect prediction (upper bound)
+    gated_power_frac: float = 0.0  # residual power of a power-gated node
+    #: Workload forecaster: a ``PredictorConfig`` or a registered kind.
+    predictor: pred_mod.PredictorConfig | str = dataclasses.field(
+        default_factory=pred_mod.PredictorConfig)
+    #: Availability forecaster over ``avail / n_nodes`` (bins = node counts).
+    avail_predictor: pred_mod.PredictorConfig | str = "persistence"
+    #: Failure depth the ``headroom`` technique provisions spare capacity for.
+    headroom_frac: float = 0.5
+    #: Tenant scheduler: a ``SchedulerConfig`` or a registered name.
+    scheduler: sched_mod.SchedulerConfig | str = "none"
+    pll: pll_mod.PllConfig = dataclasses.field(default_factory=pll_mod.PllConfig)
+    v_step: float = char.V_STEP
+
+    def __post_init__(self):
+        if self.technique not in TECHNIQUES:
+            raise ValueError(f"unknown technique {self.technique!r}")
+        if isinstance(self.scheduler, str):
+            object.__setattr__(self, "scheduler",
+                               sched_mod.get(self.scheduler))
+        elif not isinstance(self.scheduler, sched_mod.SchedulerConfig):
+            raise TypeError(
+                f"scheduler must be a registered name or SchedulerConfig, "
+                f"got {type(self.scheduler).__name__}")
+        if self.margin < 1.0 / self.n_bins + 1e-9:
+            # §V: t must exceed 1/M so the capacity provisioned for bin i
+            # still covers a one-bin under-prediction.
+            raise ValueError(
+                f"margin {self.margin} must exceed 1/n_bins = "
+                f"{1.0 / self.n_bins:.4f} (paper §V: t > 1/M)")
+        pcfg = self.predictor
+        if isinstance(pcfg, str):
+            pcfg = pred_mod.PredictorConfig(kind=pcfg)
+        # margin_bins = ⌊t·M⌋: the whole bins the provisioned margin absorbs.
+        object.__setattr__(self, "predictor", dataclasses.replace(
+            pcfg, n_bins=self.n_bins,
+            margin_bins=int(np.floor(self.margin * self.n_bins + 1e-9))))
+        if not 0.0 <= self.headroom_frac < 1.0:
+            raise ValueError(f"headroom_frac {self.headroom_frac} must be "
+                             "in [0, 1)")
+        if int(np.ceil(self.headroom_frac * self.n_nodes - 1e-9)) \
+                >= self.n_nodes:
+            raise ValueError(
+                f"headroom_frac {self.headroom_frac} plans for the whole "
+                f"fleet lost (ceil(frac·{self.n_nodes}) = {self.n_nodes}) "
+                "— the reserve must leave at least one planned node; "
+                "lower it")
+        acfg = self.avail_predictor
+        if isinstance(acfg, str):
+            acfg = pred_mod.PredictorConfig(kind=acfg)
+        # Availability bins are usable-node counts; no margin.
+        object.__setattr__(self, "avail_predictor", dataclasses.replace(
+            acfg, n_bins=self.n_nodes, margin_bins=0))
+
+
+class BinTables(NamedTuple):
+    """Per-workload-bin operating points — the §V synthesis-time table.
+
+    Fields are ``[..., M]`` (``headroom`` is ``[...]``).  ``power`` is the
+    fleet total at the configured ``n_nodes``; with ``a`` nodes available a
+    step draws ``min(n_active, a)·node_power + max(a − n_active, 0)·
+    gated_power``.
+    """
+
+    capacity: torch.Tensor
+    power: torch.Tensor
+    v_core: torch.Tensor
+    v_bram: torch.Tensor
+    f_rel: torch.Tensor
+    n_active: torch.Tensor
+    node_power: torch.Tensor
+    gated_power: torch.Tensor
+    headroom: torch.Tensor
+
+
+def pll_standing_watts(cfg: ControllerConfig) -> float:
+    """Standing PLL power per node (two PLLs in the Fig. 9c architecture)."""
+    return (2 if cfg.pll.dual else 1) * cfg.pll.p_pll
+
+
+def _hybrid_gears(cfg: ControllerConfig
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Node-count gears: ``(gears [G], f_node [G, M], feasible [G, M])``.
+
+    Gear ``g`` keeps ``g`` of ``n_nodes`` nodes on, each running at
+    ``level·n/g`` — infeasible above 1.
+    """
+    levels = volt_mod.bin_frequency_levels(cfg.n_bins, cfg.margin, cfg.f_floor)
+    gears = torch.arange(1, cfg.n_nodes + 1, dtype=torch.float32)
+    f_need = levels[None, :] * cfg.n_nodes / gears[:, None]
+    return gears, torch.clamp(f_need, cfg.f_floor, 1.0), f_need <= 1.0 + 1e-9
+
+
+def _headroom_spare(cfg: ControllerConfig) -> int:
+    """Lost nodes ``headroom`` provisions for: ``ceil(frac·n_nodes)``."""
+    return int(np.ceil(cfg.headroom_frac * cfg.n_nodes - 1e-9))
+
+
+def _sweep_rows(cfg: ControllerConfig, techniques: Sequence[str]
+                ) -> Tuple[volt_mod.VoltageGrids, torch.Tensor, torch.Tensor,
+                           torch.Tensor]:
+    """Masked sweep rows: one per DVFS technique, then one per hybrid gear.
+
+    Returns ``(grids, levels [M], row_masks [R, C, B], row_levels [R, M])``
+    on the CPU.
+    """
+    dvfs = [t for t in techniques
+            if t not in ("nominal", "power_gating", "hybrid", "headroom")]
+    grids = volt_mod.VoltageGrids.default(cfg.v_step)
+    levels = volt_mod.bin_frequency_levels(cfg.n_bins, cfg.margin, cfg.f_floor)
+    row_masks = [volt_mod.technique_grid_mask(t, grids) for t in dvfs]
+    row_levels = [levels] * len(dvfs)
+    if "hybrid" in techniques or "headroom" in techniques:
+        gears, f_node, _ = _hybrid_gears(cfg)
+        row_masks += [volt_mod.technique_grid_mask("hybrid", grids)] * len(gears)
+        row_levels += list(f_node)
+    return grids, levels, torch.stack(row_masks), torch.stack(row_levels)
+
+
+def _nominal_watts(params: char.PlatformParams) -> torch.Tensor:
+    """Per-platform watts of one node at nominal rails and full clock [P]."""
+    return char.params_power_watts(params, char.V_CORE_NOM, char.V_BRAM_NOM, 1.0)
+
+
+def fleet_bin_tables(params: char.PlatformParams, cfg: ControllerConfig,
+                     techniques: Sequence[str] = DEFAULT_TECHNIQUES,
+                     device=None) -> BinTables:
+    """§V synthesis-time tables for a stacked fleet: fields ``[P, T, M]``.
+
+    DVFS techniques and the hybrid/headroom gears share one masked sweep
+    (one ``grid_argmin`` launch); nominal and power gating are closed
+    forms in the platform's nominal watts.
+    """
+    dev = resolve_device(device)
+    params = params.to(dev)
+    m = cfg.n_bins
+    pll_watts = pll_standing_watts(cfg)
+    stall = pll_mod.stall_fraction(cfg.pll, cfg.tau)
+    n_p = params.watts_scale.shape[0]
+
+    def full(x):
+        return torch.full((n_p, m), float(x), device=dev)
+
+    per_tech: Dict[str, BinTables] = {}
+    dvfs = [t for t in techniques
+            if t not in ("nominal", "power_gating", "hybrid", "headroom")]
+    geared = [t for t in ("hybrid", "headroom") if t in techniques]
+    if dvfs or geared:
+        grids, levels, row_masks, row_levels = _sweep_rows(cfg, techniques)
+        grids, levels = grids.to(dev), levels.to(dev)
+        pts = grid_argmin(params, row_masks.to(dev), row_levels.to(dev),
+                          grids.core, grids.bram)
+        node_w = pts.power * params.watts_scale[:, None, None]   # [P, R, M]
+        for i, t in enumerate(dvfs):
+            per_tech[t] = BinTables(
+                capacity=(levels * (1.0 - stall)).expand(n_p, m),
+                power=(node_w[:, i] + pll_watts) * cfg.n_nodes,
+                v_core=pts.v_core[:, i], v_bram=pts.v_bram[:, i],
+                f_rel=levels.expand(n_p, m), n_active=full(cfg.n_nodes),
+                node_power=node_w[:, i] + pll_watts, gated_power=full(0.0),
+                headroom=torch.zeros(n_p, device=dev))
+        # hybrid and headroom share the gear rows; headroom's reserve is a
+        # runtime policy flagged by its ``headroom`` field.
+        if geared:
+            gears, f_node, gear_ok = (x.to(dev) for x in _hybrid_gears(cfg))
+            h_w = node_w[:, len(dvfs):]                         # [P, G, M]
+            nom_w = _nominal_watts(params)                      # [P]
+            g3 = gears[None, :, None]
+            total = (g3 * (h_w + pll_watts)
+                     + (cfg.n_nodes - g3) * cfg.gated_power_frac
+                     * nom_w[:, None, None])
+            total = torch.where(gear_ok[None], total, torch.inf)
+            gi = total.argmin(1, keepdim=True)                  # [P, 1, M]
+
+            def pick(x):  # the chosen gear of a [P, G, M] field
+                return x.expand_as(h_w).gather(1, gi)[:, 0]
+
+            f_sel = pick(f_node[None])
+            n_sel = gears[gi[:, 0]]
+            for t in geared:
+                per_tech[t] = BinTables(
+                    capacity=(n_sel / cfg.n_nodes) * f_sel * (1.0 - stall),
+                    power=pick(total),
+                    v_core=pick(pts.v_core[:, len(dvfs):]),
+                    v_bram=pick(pts.v_bram[:, len(dvfs):]),
+                    f_rel=f_sel, n_active=n_sel,
+                    node_power=pick(h_w) + pll_watts,
+                    gated_power=(cfg.gated_power_frac * nom_w)[:, None]
+                    .expand(n_p, m),
+                    headroom=torch.full((n_p,), cfg.headroom_frac
+                                        if t == "headroom" else 0.0,
+                                        device=dev))
+
+    if "nominal" in techniques or "power_gating" in techniques:
+        node_w = _nominal_watts(params)                         # [P]
+        node_pll = (node_w + pll_watts)[:, None].expand(n_p, m)
+        if "nominal" in techniques:
+            per_tech["nominal"] = BinTables(
+                capacity=full(1.0),
+                power=((node_w + pll_watts) * cfg.n_nodes)[:, None].expand(n_p, m),
+                v_core=full(char.V_CORE_NOM), v_bram=full(char.V_BRAM_NOM),
+                f_rel=full(1.0), n_active=full(cfg.n_nodes),
+                node_power=node_pll, gated_power=full(0.0),
+                headroom=torch.zeros(n_p, device=dev))
+        if "power_gating" in techniques:
+            # Active nodes scale linearly with the bin's upper edge and run
+            # at nominal V/f; no extra margin (§III baseline).
+            edges = (np.arange(m) + 1.0) / m
+            n_active = torch.as_tensor(
+                np.minimum(np.ceil(edges * cfg.n_nodes), cfg.n_nodes),
+                dtype=torch.float32).to(dev)
+            gated = ((cfg.n_nodes - n_active) * cfg.gated_power_frac
+                     * node_w[:, None])
+            per_tech["power_gating"] = BinTables(
+                capacity=(n_active / cfg.n_nodes).expand(n_p, m),
+                power=n_active * (node_w[:, None] + pll_watts) + gated,
+                v_core=full(char.V_CORE_NOM), v_bram=full(char.V_BRAM_NOM),
+                f_rel=full(1.0), n_active=n_active.expand(n_p, m),
+                node_power=node_pll,
+                gated_power=(cfg.gated_power_frac * node_w)[:, None]
+                .expand(n_p, m),
+                headroom=torch.zeros(n_p, device=dev))
+
+    return BinTables(*[torch.stack([getattr(per_tech[t], f) for t in techniques],
+                                   dim=1)
+                       for f in BinTables._fields])
+
+
+# ---------------------------------------------------------------------------
+# The runtime loop
+# ---------------------------------------------------------------------------
+
+
+class TraceResult(NamedTuple):
+    power: torch.Tensor            # [..., S] platform watts per step
+    capacity: torch.Tensor         # [..., S] delivered relative throughput
+    violations: torch.Tensor       # [..., S] bool — demand exceeded capacity
+    backlog: torch.Tensor          # [..., S] carried-over work
+    predicted_bin: torch.Tensor    # [..., S]
+    actual_bin: torch.Tensor       # [..., S]
+    v_core: torch.Tensor           # [..., S]
+    v_bram: torch.Tensor           # [..., S]
+    f_rel: torch.Tensor            # [..., S]
+    n_active: torch.Tensor         # [..., S] powered-on nodes
+    mispredictions: torch.Tensor   # [...] post-warmup exact-bin misses
+    margin_misses: torch.Tensor    # [...] post-warmup beyond-margin misses
+    final_predictor: pred_mod.PredictorState
+
+
+@dataclasses.dataclass(frozen=True)
+class Summary:
+    technique: str
+    mean_power_w: float
+    #: Nominal baseline of the available fleet (the configured one here).
+    nominal_power_w: float
+    power_gain: float            # nominal / mean — the paper's headline metric
+    qos_violation_rate: float
+    served_fraction: float       # work served in-step / work offered
+    misprediction_rate: float    # post-warmup mispredictions / post-warmup steps
+    mean_backlog: float
+    margin_misprediction_rate: float = float("nan")
+    latency_p50: float = float("nan")
+    latency_p99: float = float("nan")
+    nominal_power_configured_w: float = float("nan")
+    power_gain_vs_configured: float = float("nan")
+
+
+class _StepOut(NamedTuple):
+    """Per-step ``[K]`` fields of one §V control step."""
+
+    power: torch.Tensor
+    capacity: torch.Tensor
+    violation: torch.Tensor
+    backlog: torch.Tensor
+    predicted_bin: torch.Tensor
+    actual_bin: torch.Tensor
+    v_core: torch.Tensor
+    v_bram: torch.Tensor
+    f_rel: torch.Tensor
+    n_active: torch.Tensor
+
+
+def _at(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Row-wise gather: ``tab[k, idx[k]]`` for ``[K, M]`` tables."""
+    return tab.gather(-1, idx[:, None])[:, 0]
+
+
+def availability_point(tables: BinTables, selected: torch.Tensor,
+                       avail_t: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Clamp bin ``selected``'s point to ``avail_t`` usable nodes:
+    ``(n_act, capacity, power)``.  Dead nodes draw nothing; gated-but-alive
+    nodes keep the gating residual."""
+    n_tab = _at(tables.n_active, selected)
+    n_act = torch.minimum(n_tab, avail_t)
+    cap = _at(tables.capacity, selected) * (n_act / torch.clamp(n_tab, min=1.0))
+    pwr = (n_act * _at(tables.node_power, selected)
+           + torch.clamp(avail_t - n_act, min=0.0)
+           * _at(tables.gated_power, selected))
+    return n_act, cap, pwr
+
+
+def _headroom_bump(tables: BinTables, cfg: ControllerConfig,
+                   astate: pred_mod.PredictorState, selected: torch.Tensor,
+                   backlog_agg: torch.Tensor) -> torch.Tensor:
+    """Raise ``selected`` to the lowest bin whose availability-degraded
+    delivery covers its demand plus backlog, planning for at most
+    ``ceil(headroom·n_nodes)`` lost nodes; cells without headroom keep
+    their bin."""
+    m = cfg.n_bins
+    n = float(cfg.n_nodes)
+    a_hat = torch.clamp(pred_mod.forecast_fraction(cfg.avail_predictor, astate)
+                        * cfg.n_nodes, 1.0, n)
+    spare = torch.ceil(tables.headroom * cfg.n_nodes - 1e-9)
+    a_res = torch.clamp(torch.maximum(a_hat, cfg.n_nodes - spare), max=n)
+    needed = torch.minimum((selected + 1.0) / m + backlog_agg,
+                           tables.capacity.amax(-1))
+    delivered = tables.capacity * (
+        torch.minimum(tables.n_active, a_res[:, None])
+        / torch.clamp(tables.n_active, min=1.0))
+    bins = torch.arange(m, device=selected.device)
+    cand = torch.where(delivered >= (needed - 1e-9)[:, None], bins, m)
+    bump = torch.clamp(cand.amin(-1), max=m - 1)
+    return torch.where(tables.headroom > 0,
+                       torch.maximum(selected, bump), selected)
+
+
+_Carry = Tuple[pred_mod.PredictorState, pred_mod.PredictorState, torch.Tensor,
+               torch.Tensor]
+
+
+def _control_step(tables: BinTables, cfg: ControllerConfig, carry: _Carry,
+                  w_t: torch.Tensor, avail_t: torch.Tensor,
+                  spec: sched_mod.TenantSpec, sched: torch.Tensor,
+                  any_headroom: bool) -> Tuple[_Carry, _StepOut]:
+    """One §V control step for all ``K`` cells: predict → schedule-shape →
+    select → clamp to availability → serve → observe.
+
+    ``w_t`` is ``[K, T]`` offered work per tenant and ``avail_t`` ``[K]``
+    usable nodes.  A step violates QoS when its demand (offered work plus
+    carried backlog; only admitted work with the scheduler on) exceeds the
+    delivered capacity.  ``any_headroom`` is False when no cell reserved
+    headroom, which skips a bump that would leave every bin unchanged.
+    """
+    mstate, astate, backlog_t, place = carry
+    w_agg = (w_t * spec.active).sum(-1)
+    backlog_agg = (backlog_t * spec.active).sum(-1)
+    predicted = pred_mod.predict(cfg.predictor, mstate)
+    actual = pred_mod.workload_to_bin(w_agg, cfg.n_bins)
+    base = actual if cfg.use_oracle else predicted
+    shaped = sched_mod.provision_bin(spec, base, backlog_t, cfg.n_bins)
+    shaped = sched_mod.opportunistic_bin(tables.power, tables.capacity, shaped,
+                                         backlog_agg)
+    selected = torch.where(sched[0] > 0, shaped, base)
+    if any_headroom:
+        selected = _headroom_bump(tables, cfg, astate, selected, backlog_agg)
+
+    n_act, cap, pwr = availability_point(tables, selected, avail_t)
+
+    demand = w_t + backlog_t
+    alloc = sched_mod.schedule_step(spec, sched, demand, cap, n_act, place)
+    total = (demand * spec.active).sum(-1)
+    due = (torch.clamp(demand - 0.8 * spec.slack(), min=0.0)
+           * spec.active).sum(-1)
+    violation = torch.where(sched[0] > 0, due, total) > cap + 1e-9
+
+    mstate = pred_mod.observe(cfg.predictor, mstate, w_agg, predicted)
+    # Availability bins are node counts: a count of ``a`` is observed as
+    # bin ``a − 1`` (the half-step keeps floor() off the bin edge).
+    astate = pred_mod.observe(cfg.avail_predictor, astate,
+                              (avail_t - 0.5) / cfg.n_nodes,
+                              pred_mod.predict(cfg.avail_predictor, astate))
+    out = _StepOut(power=pwr, capacity=cap, violation=violation,
+                   backlog=alloc.backlog.sum(-1), predicted_bin=predicted,
+                   actual_bin=actual, v_core=_at(tables.v_core, selected),
+                   v_bram=_at(tables.v_bram, selected),
+                   f_rel=_at(tables.f_rel, selected), n_active=n_act)
+    return (mstate, astate, alloc.backlog, alloc.place), out
+
+
+def _scan_control_loop(tables: BinTables, cfg: ControllerConfig,
+                       traces: torch.Tensor, avail: torch.Tensor
+                       ) -> TraceResult:
+    """The §V runtime loop over ``[K]`` cells: tables ``[K, M]``, traces
+    and availability ``[K, S]``.  Aggregate only: each trace rides as one
+    default tenant with the scheduler off.  Nothing leaves the device
+    inside the loop."""
+    dev = traces.device
+    k, s = traces.shape
+    spec = sched_mod.default_tenants(1).to(dev)
+    sched = sched_mod.scheduler_values(sched_mod.SCHEDULERS["none"], dev)
+    any_headroom = bool((tables.headroom > 0).any())
+    carry = (pred_mod.init_state(cfg.predictor, k, dev),
+             pred_mod.init_state(cfg.avail_predictor, k, dev),
+             torch.zeros((k, 1), device=dev), torch.zeros((k, 1), device=dev))
+    outs = []
+    for t in range(s):
+        carry, out = _control_step(tables, cfg, carry, traces[:, t, None],
+                                   avail[:, t], spec, sched, any_headroom)
+        outs.append(out)
+    mstate = carry[0]
+    steps = _StepOut(*[torch.stack(xs, dim=-1) for xs in zip(*outs)])
+    return TraceResult(power=steps.power, capacity=steps.capacity,
+                       violations=steps.violation, backlog=steps.backlog,
+                       predicted_bin=steps.predicted_bin,
+                       actual_bin=steps.actual_bin, v_core=steps.v_core,
+                       v_bram=steps.v_bram, f_rel=steps.f_rel,
+                       n_active=steps.n_active,
+                       mispredictions=mstate.mispredictions,
+                       margin_misses=mstate.margin_misses,
+                       final_predictor=mstate)
+
+
+def _broadcast_traces(traces: np.ndarray, lead: Tuple[int, ...]) -> np.ndarray:
+    """Expand traces to ``lead + (S,)`` as a zero-copy numpy view.
+
+    Accepts one shared trace ``[S]`` or per-cell traces whose leading
+    axes match ``lead`` dim for dim (1s broadcast).
+    """
+    traces = np.asarray(traces, np.float32)
+    if traces.ndim == 1:
+        return np.broadcast_to(traces, lead + traces.shape)
+    if (traces.ndim - 1 == len(lead)
+            and all(a == b or a == 1
+                    for a, b in zip(traces.shape[:-1], lead))):
+        return np.broadcast_to(traces, lead + traces.shape[-1:])
+    # No rank-extending broadcasting: [P, S] traces against [P, T, M]
+    # tables would silently line P up against T whenever P == T.
+    raise ValueError(
+        f"traces leading axes {traces.shape[:-1]} must match the "
+        f"tables' leading axes {lead} dim-for-dim (1s broadcast), or "
+        "pass a single [S] trace; expand per-platform traces to "
+        "[P, 1, S] explicitly")
+
+
+def _broadcast_avail(avail, lead: Tuple[int, ...], n_nodes: int,
+                     s: int) -> np.ndarray:
+    """Expand a usable-nodes schedule to ``lead + (S,)``; ``None`` means a
+    healthy fleet with ``n_nodes`` available every step."""
+    if avail is None:
+        return np.broadcast_to(np.float32(n_nodes), lead + (s,))
+    avail = _broadcast_traces(np.asarray(avail), lead)
+    if avail.shape[-1] != s:
+        raise ValueError(f"avail length {avail.shape[-1]} != trace "
+                         f"length {s}")
+    return avail
+
+
+def simulate_fleet(tables: BinTables, traces, cfg: ControllerConfig,
+                   avail=None, device=None) -> TraceResult:
+    """Run the §V loop for every fleet cell at once.
+
+    ``tables`` fields carry leading axes ``[..., M]`` (``[P, T, M]`` from
+    :func:`fleet_bin_tables`); ``traces`` is one shared trace ``[S]`` or
+    per-cell traces broadcastable to ``[..., S]``; ``avail`` is an
+    optional usable-nodes schedule with the same rules (``None``: all
+    ``cfg.n_nodes`` every step).  Returns ``[..., S]`` fields on
+    ``device``.
+    """
+    dev = resolve_device(device)
+    lead = tuple(tables.capacity.shape[:-1])
+    k = int(np.prod(lead, dtype=np.int64)) if lead else 1
+    flat = BinTables(*[x.to(dev).reshape((k,) + x.shape[len(lead):])
+                       for x in tables])
+    traces = _broadcast_traces(np.asarray(traces), lead)
+    s = traces.shape[-1]
+    avail = _broadcast_avail(avail, lead, cfg.n_nodes, s)
+    traces = torch.tensor(traces.reshape(k, s), device=dev)
+    avail = torch.tensor(avail.reshape(k, s), device=dev)
+    return _unflatten(_scan_control_loop(flat, cfg, traces, avail), lead)
+
+
+def _unflatten(x, lead: Tuple[int, ...]):
+    """Reshape every tensor of a (nested) NamedTuple from ``[K, ...]`` to
+    ``lead + [...]``."""
+    if isinstance(x, torch.Tensor):
+        return x.reshape(lead + x.shape[1:])
+    return type(x)(*[_unflatten(v, lead) for v in x])
+
+
+# ---------------------------------------------------------------------------
+# Fleet summaries
+# ---------------------------------------------------------------------------
+
+
+def fleet_node_nominal_watts(params: char.PlatformParams,
+                             cfg: ControllerConfig) -> np.ndarray:
+    """Per-platform nominal watts of ONE node (incl. PLLs) [P], float32."""
+    return _nominal_watts(params).cpu().numpy() + pll_standing_watts(cfg)
+
+
+def fleet_nominal_watts(params: char.PlatformParams,
+                        cfg: ControllerConfig) -> np.ndarray:
+    """Per-platform configured-fleet nominal watts [P]."""
+    return fleet_node_nominal_watts(params, cfg) * cfg.n_nodes
+
+
+def compare_all_batched(platforms: Sequence[PlatformSpec], trace,
+                        techniques: Sequence[str] = DEFAULT_TECHNIQUES,
+                        device=None, **cfg_kwargs
+                        ) -> Dict[str, Dict[str, Summary]]:
+    """Every platform × technique through the §V path at once.
+
+    Returns ``{platform.name: {technique: Summary}}``.  The tables come
+    from one grid sweep and the runs from one step loop over all cells;
+    the summaries are reduced on the host in numpy.
+    """
+    names = [p.name for p in platforms]
+    if len(set(names)) != len(names):
+        dupes = sorted({n for n in names if names.count(n) > 1})
+        raise ValueError(f"duplicate platform names {dupes}: results are "
+                         "keyed by name — pass distinct names")
+    dev = resolve_device(device)
+    cfg = ControllerConfig(**cfg_kwargs)
+    params = char.stack_platform_params([p.params for p in platforms]).to(dev)
+    tables = fleet_bin_tables(params, cfg, techniques, device=dev)  # [P, T, M]
+    res = simulate_fleet(tables, trace, cfg, device=dev)            # [P, T, S]
+    return summarize_fleet(platforms, techniques, trace, params, cfg, res)
+
+
+def summarize_fleet(platforms: Sequence[PlatformSpec],
+                    techniques: Sequence[str], trace,
+                    params: char.PlatformParams, cfg: ControllerConfig,
+                    res: TraceResult) -> Dict[str, Dict[str, Summary]]:
+    """Reduce a ``[P, T, S]`` fleet run to the paper's :class:`Summary`
+    per platform and technique, on the host in numpy (the one host sync
+    of :func:`compare_all_batched`)."""
+    nominal_w = fleet_nominal_watts(params, cfg)                    # [P]
+    offered = float(np.sum(np.asarray(trace, np.float32)))
+    power = res.power.cpu().numpy()
+    viol = res.violations.cpu().numpy()
+    backlog = res.backlog.cpu().numpy()
+    mispred = res.mispredictions.cpu().numpy()
+    margin_miss = res.margin_misses.cpu().numpy()
+    n_scored = max(power.shape[-1] - cfg.predictor.warmup_steps, 1)
+
+    out: Dict[str, Dict[str, Summary]] = {}
+    for i, plat in enumerate(platforms):
+        per_tech = {}
+        for j, tech in enumerate(techniques):
+            mean_w = float(power[i, j].mean())
+            served = offered - float(backlog[i, j, -1])
+            per_tech[tech] = Summary(
+                technique=tech,
+                mean_power_w=mean_w,
+                nominal_power_w=float(nominal_w[i]),
+                power_gain=float(nominal_w[i]) / mean_w,
+                qos_violation_rate=float(viol[i, j].mean()),
+                served_fraction=served / max(offered, 1e-9),
+                misprediction_rate=float(mispred[i, j]) / n_scored,
+                mean_backlog=float(backlog[i, j].mean()),
+                margin_misprediction_rate=float(margin_miss[i, j]) / n_scored,
+                nominal_power_configured_w=float(nominal_w[i]),
+                power_gain_vs_configured=float(nominal_w[i]) / mean_w,
+            )
+        out[plat.name] = per_tech
+    return out

@@ -1,0 +1,21 @@
+"""The one device rule every entry point of the port follows."""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device: str | torch.device | None) -> torch.device:
+    """``None`` means the CUDA card; ``"cpu"`` must be asked for.
+
+    Raises when the card is wanted but absent, so a run never falls back
+    to the CPU without the caller saying so.
+    """
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "plain PyTorch path on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev} (want 'cuda' or 'cpu')")
+    return dev

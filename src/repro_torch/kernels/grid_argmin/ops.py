@@ -1,0 +1,113 @@
+"""The ``grid_argmin`` op: the fleet table sweep's entry point.
+
+The op follows its inputs' device.  CUDA tensors launch the kernel in
+``csrc/grid_argmin.cu`` (built on first use by ``kernels._build``) on the
+current stream, without synchronizing; CPU tensors run the plain PyTorch
+version in ``ref.py``, which is how a caller asks for the CPU.  There is
+no fallback between the two: a CUDA input that the kernel cannot take
+raises.  ``grid_argmin.launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core import characterization as char
+from repro_torch.core import voltage as volt
+from repro_torch.kernels import _build
+from repro_torch.kernels.grid_argmin.ref import grid_argmin_ref
+
+#: The kernel keeps 3·C·B floats in static-sized dynamic shared memory,
+#: which needs no opt-in up to 48 KB.
+MAX_GRID_POINTS = 48 * 1024 // (3 * 4)
+
+_ARGTYPES = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 7 + [ctypes.c_float,
+                                                          ctypes.c_void_p]
+
+
+def _check(params: char.PlatformParams, masks: torch.Tensor,
+           levels: torch.Tensor, core_grid: torch.Tensor,
+           bram_grid: torch.Tensor) -> torch.device:
+    """Validate device, dtype and shape; return the common device."""
+    tensors = {**params._asdict(), "masks": masks, "levels": levels,
+               "core_grid": core_grid, "bram_grid": bram_grid}
+    devices = {t.device for t in tensors.values()}
+    if len(devices) != 1:
+        raise ValueError(f"grid_argmin inputs span devices {sorted(map(str, devices))}")
+    dev = devices.pop()
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"grid_argmin runs on 'cuda' or 'cpu', not {dev}")
+    for name, t in tensors.items():
+        want = (torch.int32 if name in char.INT_FIELDS else
+                torch.bool if name == "masks" else torch.float32)
+        if t.dtype != want:
+            raise TypeError(f"grid_argmin: {name} is {t.dtype}, want {want}")
+    n_p, n_r = params.watts_scale.shape[0], masks.shape[0]
+    c, b = core_grid.shape[0], bram_grid.shape[0]
+    shapes = {"masks": (n_r, c, b), "levels": (n_r, levels.shape[-1]),
+              "core_grid": (c,), "bram_grid": (b,), "delay_mode": (n_p,),
+              "nominal_power_arb": (n_p,), "watts_scale": (n_p,)}
+    for name in ("dl_weight", "dl_vth", "dl_alpha", "dl_v0", "dl_rail"):
+        shapes[name] = (n_p, params.dl_weight.shape[-1])
+    for name in ("pw_rail", "pw_v0", "pw_dyn", "pw_stat", "pw_kappa"):
+        shapes[name] = (n_p, params.pw_dyn.shape[-1])
+    for name, shape in shapes.items():
+        if tuple(tensors[name].shape) != shape:
+            raise ValueError(f"grid_argmin: {name} has shape "
+                             f"{tuple(tensors[name].shape)}, want {shape}")
+    if dev.type == "cuda":
+        if min(n_p, n_r, levels.shape[-1], c, b) < 1:
+            raise ValueError("grid_argmin: every axis must be non-empty")
+        if c * b > MAX_GRID_POINTS or n_p > 65535:
+            raise ValueError(f"grid_argmin kernel takes at most {MAX_GRID_POINTS} "
+                             f"grid points and 65535 platforms (got {c * b}, {n_p})")
+        for name, t in tensors.items():
+            if not t.is_contiguous():
+                raise ValueError(f"grid_argmin: {name} must be contiguous")
+    return dev
+
+
+def grid_argmin(params: char.PlatformParams, masks: torch.Tensor,
+                levels: torch.Tensor, core_grid: torch.Tensor,
+                bram_grid: torch.Tensor, *,
+                slack_eps: float = 1e-6) -> volt.OperatingPoint:
+    """Fused masked grid sweep + per-bin argmin over a stacked fleet.
+
+    ``params`` leaves ``[P, ...]``; ``masks`` ``[R, C, B]`` bool (one row
+    per DVFS technique / hybrid gear); ``levels`` ``[R, M]`` float32;
+    ``core_grid``/``bram_grid`` the shared ascending grids.  Returns an
+    :class:`~repro_torch.core.voltage.OperatingPoint` with ``[P, R, M]``
+    fields: the first flat-index minimum among feasible points, or the
+    nominal corner when none is feasible.
+    """
+    dev = _check(params, masks, levels, core_grid, bram_grid)
+    if dev.type == "cpu":
+        return grid_argmin_ref(params, masks, levels, core_grid, bram_grid,
+                               slack_eps=slack_eps)
+
+    fn = _build.load("grid_argmin").grid_argmin_launch
+    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    n_p, (n_r, m) = params.watts_scale.shape[0], levels.shape
+    c, b = core_grid.shape[0], bram_grid.shape[0]
+    v_core, v_bram, power = (torch.empty((n_p, n_r, m), dtype=torch.float32,
+                                         device=dev) for _ in range(3))
+    feasible = torch.empty((n_p, n_r, m), dtype=torch.bool, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(*[t.data_ptr() for t in params[:11]], masks.data_ptr(),
+                levels.data_ptr(), core_grid.data_ptr(), bram_grid.data_ptr(),
+                v_core.data_ptr(), v_bram.data_ptr(), power.data_ptr(),
+                feasible.data_ptr(), n_p, n_r, m, c, b,
+                params.dl_weight.shape[-1], params.pw_dyn.shape[-1],
+                1.0 + slack_eps, stream)
+    if rc != 0:
+        raise RuntimeError(f"grid_argmin kernel launch failed: CUDA error {rc}")
+    grid_argmin.launches += 1
+    return volt.OperatingPoint(v_core=v_core, v_bram=v_bram,
+                               f_rel=levels[None].expand(n_p, n_r, m),
+                               power=power, feasible=feasible)
+
+
+grid_argmin.launches = 0

@@ -1,0 +1,104 @@
+"""Package rules of the PyTorch port.
+
+* ``src/repro_torch`` and ``chip_smoke.py`` import neither jax nor the JAX
+  package ``repro`` (the machine with the card has no jax);
+* the entry points run on the CUDA card unless the caller passes
+  ``device="cpu"``, and raise on a machine without a card instead of
+  falling back to the CPU;
+* the kernel build is keyed by its sources and needs no card to plan.
+"""
+
+import ast
+import os
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+from repro_torch import convert
+from repro_torch.core import characterization as tchar
+from repro_torch.core import controller as tctl
+from repro_torch.core import workload as twl
+from repro_torch.core.accelerators import ACCELERATORS
+from repro_torch.kernels import _build
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported_roots(path: pathlib.Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0], node.lineno
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0], node.lineno
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_port_imports_neither_jax_nor_reference(path):
+    bad = [(root, line) for root, line in _imported_roots(path) if root in FORBIDDEN]
+    assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+def test_port_package_covers_the_slice():
+    names = {str(p.relative_to(REPO / "src" / "repro_torch")) for p in PORT_FILES[:-1]}
+    for want in ("core/characterization.py", "core/accelerators.py", "core/pll.py",
+                 "core/workload.py", "core/voltage.py", "core/predictors/base.py",
+                 "core/predictors/markov.py", "core/scheduler.py",
+                 "core/controller.py", "kernels/_build.py",
+                 "kernels/grid_argmin/ops.py", "kernels/grid_argmin/ref.py",
+                 "convert.py"):
+        assert want in names, want
+    assert (REPO / "src/repro_torch/kernels/grid_argmin/csrc/grid_argmin.cu").exists()
+
+
+def _no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_resolve_device_rule(monkeypatch):
+    _no_cuda(monkeypatch)
+    assert repro_torch.resolve_device("cpu") == torch.device("cpu")
+    for dev in (None, "cuda", torch.device("cuda", 0)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            repro_torch.resolve_device(dev)
+    with pytest.raises(ValueError, match="unsupported"):
+        repro_torch.resolve_device("meta")
+
+
+def test_entry_points_raise_without_a_card(monkeypatch):
+    _no_cuda(monkeypatch)
+    platforms = [tctl.fpga_platform(ACCELERATORS["tabla"])]
+    params = tchar.stack_platform_params([p.params for p in platforms])
+    cfg = tctl.ControllerConfig()
+    trace = twl.generate_trace(twl.WorkloadConfig(n_steps=64, seed=0))
+    tables = tctl.fleet_bin_tables(params, cfg, ("proposed",), device="cpu")
+    calls = {
+        "compare_all_batched": lambda: tctl.compare_all_batched(platforms, trace),
+        "fleet_bin_tables": lambda: tctl.fleet_bin_tables(params, cfg),
+        "simulate_fleet": lambda: tctl.simulate_fleet(tables, trace, cfg),
+        "platform_params_from_numpy": lambda: convert.platform_params_from_numpy(
+            {f: x.numpy() for f, x in zip(params._fields, params)}, device=None),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    # asked for explicitly, the CPU runs the plain path
+    res = tctl.simulate_fleet(tables, trace, cfg, device="cpu")
+    assert res.power.device.type == "cpu" and res.power.shape == (1, 1, 64)
+    assert np.isfinite(res.power.numpy()).all()
+
+
+def test_kernel_build_is_keyed_by_source():
+    path = _build.library_path("grid_argmin")
+    assert path.parent.parent == _build.BUILD_DIR
+    assert path.parent.name.startswith("grid_argmin-")
+    assert path == _build.library_path("grid_argmin")  # stable for one source
+    assert "--use_fast_math" not in _build.NVCC_FLAGS
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    ignored = (REPO / ".gitignore").read_text().split()
+    assert os.path.relpath(_build.BUILD_DIR, REPO) + "/" in ignored
