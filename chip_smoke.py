@@ -3,19 +3,37 @@
 
   python3 chip_smoke.py
 
-Run from the root of a checkout.  Phases, each raising on failure:
+Run from the root of a checkout.  Phases, each raising on failure and
+printing its seconds:
 
 1. device — the card's name and power limit; TF32 off for matmul and cuDNN;
-2. build — compile the port's CUDA kernels from this checkout's sources;
-3. kernels — each kernel against its plain PyTorch version on the card, on
-   the Table II sweep (both grid shapes), a roofline (max-delay) platform and
-   an infeasible row; times the kernel, its plain version and its bound;
+2. build — compile the port's CUDA kernels from this checkout's sources,
+   one ``nvcc`` per source, all started together;
+3. kernels — ``grid_argmin`` against its plain PyTorch version on the card,
+   on the Table II sweep (both grid shapes), a roofline (max-delay)
+   platform and an infeasible row; times the kernel, its plain version and
+   its bound;
 4. main path — ``compare_all_batched`` on ``cuda`` for Table II (five
    accelerators × six techniques, 8 nodes, 25 bins) at 2048 and 1024 steps:
    the kernel launch count of each run, the per-accelerator gains, the
    1024-step gains against ``BENCH_fleet.json``, the same calls on the CPU,
    the warm wall time with the step loop's share of it, and the device's
-   busy time per step of the loop (``torch.profiler``).
+   busy time per step of the loop (``torch.profiler``);
+5. flash kernels — ``flash_attention`` against its plain version on the
+   card in fp32 and bf16 (the cases of ``tests/test_kernels_flash.py``, two
+   ragged lengths, the serving shape); at the serving shape (B = 4,
+   S = 2048, 32 query / 8 KV heads, D = 64, bf16, causal) the kernel's,
+   the plain version's and ``scaled_dot_product_attention``'s times and
+   the bound;
+6. serving path — ``python -m repro_torch.launch.serve --no-reduced`` on
+   ``cuda``; ``ServeEngine`` on full-width llama3.2-1b (random weights from
+   a seed, bf16 activations) at B = 4, a 2048-token prompt and 32 new
+   tokens: prefill time, decode time per token, tokens per second, the
+   flash-attention launches of one ``generate`` (one per layer), the
+   attention share of prefill and the decode loop's device busy share
+   (``torch.profiler``); the same weights in float32 on ``cuda`` and on
+   the CPU (B = 1, S = 128, 4 tokens); ``DvfsServingSimulator.run_trace``
+   for the six default techniques on ``cuda`` against the CPU.
 
 It ends with a ``{"kernels": [...]}`` line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}`` as the last line.  Without a
@@ -25,6 +43,7 @@ and prints no result.  It imports neither jax nor the JAX package.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -38,9 +57,11 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-# The H100 SXM's published peaks: HBM3 bandwidth and non-tensor-core fp32.
+# The H100 SXM's published peaks: HBM3 bandwidth, non-tensor-core fp32 and
+# dense bf16 tensor-core.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 POWER_RTOL = 1e-5
 NEAR_TIE_RTOL = 1e-6
 SUMMARY_RTOL = 1e-5
@@ -49,6 +70,27 @@ SUMMARY_FIELDS = ("mean_power_w", "nominal_power_w", "power_gain",
                   "qos_violation_rate", "served_fraction", "mean_backlog",
                   "nominal_power_configured_w", "power_gain_vs_configured")
 MISS_FIELDS = ("misprediction_rate", "margin_misprediction_rate")
+# tests/test_kernels_flash.py's tolerances: fp32 differs from the plain
+# version only in summation order; bf16 adds one rounding of the output.
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+FLASH_CASES = [
+    # B, S, KV, G, D, causal, window, softcap: tests/test_kernels_flash.py's CASES
+    (1, 128, 1, 1, 64, True, None, None),
+    (2, 256, 2, 2, 64, True, None, None),
+    (1, 256, 1, 4, 32, True, 64, None),
+    (2, 128, 4, 1, 64, False, None, None),
+    (1, 256, 2, 2, 64, True, None, 50.0),
+    (1, 512, 2, 4, 128, True, 128, 30.0),
+    # ragged lengths (no multiple of the 64-row tiles)
+    (1, 1000, 2, 4, 64, True, None, None),
+    (2, 77, 2, 2, 64, True, 16, None),
+]
+SERVING_SHAPE = (4, 2048, 8, 4, 64, True, None, None)   # llama3.2-1b prefill, bf16
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 2048, 32
+# Float32 logits of full-width llama3.2-1b, card vs CPU: the same weights
+# and arithmetic with sums in other orders through 16 layers; logits are
+# O(1), and the differences are expected near 1e-5.
+F32_LOGIT_ATOL = 2e-3
 
 
 def check(cond: bool, msg: str) -> None:
@@ -104,8 +146,8 @@ def phase_build() -> None:
     for name, lib in libs.items():
         log = (lib.parent / "build.log").read_text()
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {name}: {line.strip()}")
+            if "registers" in line or "spill" in line or "entry function" in line:
+                print(f"[build] {name}: {line.strip()[:140]}")
 
 
 def _sweep_cases(dev):
@@ -212,12 +254,19 @@ def phase_kernels(dev) -> dict:
           f"medians: kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, bound "
           f"{bound_ms * 1e3:.4f} us ({bound_by}), launch floor (one-element add_) "
           f"{floor_ms * 1e3:.2f} us; {grid_argmin.launches - launches_before} timing launches")
-    return {"name": "grid_argmin", "route": "cuda",
-            "source": "src/repro_torch/kernels/grid_argmin/csrc/grid_argmin.cu",
-            "replaces": "src/repro/kernels/grid_argmin/kernel.py:40",
-            "launches": None, "max_abs_err": max_err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None}
+    return _record("grid_argmin", "src/repro/kernels/grid_argmin/kernel.py:40",
+                   max_err, ms, plain_ms, bound_ms, bound_by, None)
+
+
+def _record(name: str, replaces: str, max_err: float, ms: float, plain_ms: float,
+            bound_ms: float, bound_by: str, library_ms) -> dict:
+    """One kernel's entry of the ``{"kernels": [...]}`` line; ``launches``
+    is filled in from its path's run."""
+    return {"name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/{name}/csrc/{name}.cu",
+            "replaces": replaces, "launches": None, "max_abs_err": max_err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
 
 
 def _bench_gains() -> dict:
@@ -344,15 +393,8 @@ def phase_main_path(dev) -> int:
 
 def phase_profile(ctl, tables, trace, cfg, dev, step_s: float) -> None:
     """Device busy time of a short window of the step loop (torch.profiler)."""
-    from torch.profiler import ProfilerActivity, profile
-
     ctl.simulate_fleet(tables, trace, cfg, device=dev)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        ctl.simulate_fleet(tables, trace, cfg, device=dev)
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = _device_kernels(lambda: ctl.simulate_fleet(tables, trace, cfg, device=dev))
     n = len(trace)
     if not kernels:
         print("[profile] the profiler saw no device work: device busy share not measured")
@@ -363,18 +405,286 @@ def phase_profile(ctl, tables, trace, cfg, dev, step_s: float) -> None:
           f"of the unprofiled {step_s * 1e6:.1f} us step")
 
 
+def _device_kernels(fn):
+    """CUDA kernel events of one run of ``fn`` under ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def _top_kernels(events, n_calls: int, k: int = 5) -> str:
+    """The ``k`` kernels with the most device time, per call of the
+    profiled function: ``name ×launches time``."""
+    by_name = {}
+    for e in events:
+        count, us = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (count + 1, us + e.time_range.elapsed_us())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:k]
+    return "; ".join(f"{name[:48]} x{count / n_calls:g} {us / n_calls / 1e3:.3f} ms"
+                     for name, (count, us) in top)
+
+
+def _flash_inputs(case, dtype, gen, dev):
+    b, s, kv, g, d = case[:5]
+    return tuple(torch.randn(shape, generator=gen, device=dev).to(dtype)
+                 for shape in ((b, s, kv * g, d), (b, s, kv, d), (b, s, kv, d)))
+
+
+def _causal_flops(q) -> int:
+    """4·B·H·D per visible score of causal self-attention, S(S+1)/2 scores."""
+    b, s, h, d = q.shape
+    return 4 * b * h * d * (s * (s + 1) // 2)
+
+
+def _flash_bound(q, k, v, out) -> tuple[float, str]:
+    """Least time on an H100 for causal attention: q, k, v and out moved
+    once over HBM vs its FLOPs at the dtype's peak."""
+    n_bytes = sum(t.numel() * t.element_size() for t in (q, k, v, out))
+    flops = _causal_flops(q)
+    peak = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else FP32_OPS_PER_S
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / peak
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_flash_kernels(dev) -> dict:
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    max_err = 0.0
+    cases = [(c, dt) for c in FLASH_CASES for dt in (torch.float32, torch.bfloat16)]
+    for case, dtype in cases + [(SERVING_SHAPE, torch.bfloat16)]:
+        _, _, _, _, _, causal, window, cap = case
+        q, k, v = _flash_inputs(case, dtype, gen, dev)
+        out = flash_attention(q, k, v, causal=causal, window=window, softcap=cap)
+        ref = flash_attention_ref(q, k, v, causal=causal, window=window, softcap=cap)
+        torch.cuda.synchronize()
+        check(out.dtype == dtype and out.shape == q.shape, f"{case}: bad output")
+        err = (out.float() - ref.float()).abs().max().item()
+        check(err <= FLASH_TOL[dtype], f"flash_attention {case} {dtype}: max|Δ| {err} "
+              f"> {FLASH_TOL[dtype]}")
+        max_err = max(max_err, err)
+        print(f"[flash] {case} {str(dtype)[6:]}: max|Δ| vs plain {err:.3g} "
+              f"(tol {FLASH_TOL[dtype]})")
+
+    q, k, v = _flash_inputs(SERVING_SHAPE, torch.bfloat16, gen, dev)
+    out = flash_attention(q, k, v)
+    launches_before = flash_attention.launches
+    ms = device_time_ms(lambda: flash_attention(q, k, v), 20)
+    plain_ms = device_time_ms(lambda: flash_attention_ref(q, k, v), 5)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+    lib_ms = device_time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), 20)
+    sdpa_err = (sdpa.transpose(1, 2).float() - out.float()).abs().max().item()
+    bound_ms, bound_by = _flash_bound(q, k, v, out)
+    tflops = _causal_flops(q) / (ms * 1e-3) / 1e12
+    print(f"[flash] serving shape q {tuple(q.shape)} k/v {tuple(k.shape)} bf16 causal, "
+          f"medians: kernel {ms:.4f} ms ({tflops:.2f} TFLOP/s), plain {plain_ms:.4f} ms, "
+          f"scaled_dot_product_attention {lib_ms:.4f} ms (max|Δ| vs kernel {sdpa_err:.3g}), "
+          f"bound {bound_ms:.4f} ms ({bound_by}); "
+          f"{flash_attention.launches - launches_before} timing launches")
+    return _record("flash_attention", "src/repro/kernels/flash_attention/kernel.py:38",
+                   max_err, ms, plain_ms, bound_ms, bound_by, lib_ms)
+
+
+def _median_s(fn, n: int) -> float:
+    """Median host seconds of ``fn`` over ``n`` runs, each ending in a sync."""
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times))
+
+
+def phase_serving(dev) -> int:
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.grid_argmin import grid_argmin
+    from repro_torch.launch import serve
+    from repro_torch.models import common, transformer
+
+    # 6a. the serving launcher at full width, as a user runs it
+    flash_attention.launches = grid_argmin.launches = 0
+    t0 = time.perf_counter()
+    check(serve.main(["--no-reduced", "--device", "cuda"]) == 0, "serve.main failed")
+    torch.cuda.synchronize()
+    fa, ga = flash_attention.launches, grid_argmin.launches
+    print(f"[serve] launch.serve --no-reduced --device cuda: {time.perf_counter() - t0:.2f} s, "
+          f"flash_attention launches {fa}, grid_argmin launches {ga}")
+    check(fa > 0 and ga > 0, "the serving launcher launched no flash_attention or grid_argmin")
+
+    cfg = get_config("llama3.2-1b")
+    t0 = time.perf_counter()
+    params = common.init_params(torch.Generator(device=dev).manual_seed(0),
+                                transformer.model_layout(cfg))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for _, t in common.tree_leaves(params))
+    print(f"[serve] {cfg.name} full width: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.attention.n_heads}/{cfg.attention.n_kv_heads} heads, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}: {n_params} float32 parameters drawn in "
+          f"{time.perf_counter() - t0:.2f} s")
+    launches = phase_generate(cfg, params, dev)
+    phase_float32_cuda_vs_cpu(cfg, params, dev)
+    phase_run_trace(dev)
+    return launches
+
+
+def phase_generate(cfg, params, dev) -> int:
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.serving.engine import ServeEngine
+
+    b, s, n_new = SERVE_BATCH, SERVE_PROMPT, SERVE_NEW
+    engine = ServeEngine(cfg=cfg, params=params, capacity=s + n_new, batch_size=b,
+                         device=dev)
+    prompts = torch.randint(0, cfg.vocab_size, (b, s), device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(1))
+    engine.generate(prompts, n_new)                     # warm
+    flash_attention.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = engine.generate(prompts, n_new)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches = flash_attention.launches
+    check(launches == cfg.n_layers, f"one generate launched flash_attention {launches} "
+          f"times, want one per layer ({cfg.n_layers})")
+    check(tuple(toks.shape) == (b, n_new) and int(toks.min()) >= 0
+          and int(toks.max()) < cfg.vocab_size, f"bad tokens {tuple(toks.shape)}")
+    batch = {"tokens": prompts}
+    with torch.inference_mode():
+        prefill_s = _median_s(lambda: engine._prefill(engine._params, batch), 3)
+        logits, cache = engine._prefill(engine._params, batch)
+    decode_s = (gen_s - prefill_s) / (n_new - 1)
+    print(f"[serve] ServeEngine.generate B={b} prompt={s} new={n_new} (bf16): "
+          f"{gen_s:.4f} s, {b * n_new / gen_s:.1f} tokens/s; prefill {prefill_s * 1e3:.2f} ms "
+          f"(median of 3), decode {decode_s * 1e3:.3f} ms per token; flash_attention "
+          f"launches per generate {launches}; sample {toks[0, :8].tolist()}")
+
+    # where the device time of one prefill goes, and how busy a decode step keeps it
+    with torch.inference_mode():
+        pre = _device_kernels(lambda: engine._prefill(engine._params, batch))
+        tok = logits.argmax(-1).to(torch.int32)[:, None]
+        n_steps = 4
+
+        def steps():
+            c = cache
+            for i in range(n_steps):
+                pos = torch.full((b,), s + i, dtype=torch.int32, device=dev)
+                _, c = engine._decode_step(engine._params, c, tok, pos)
+        dec = _device_kernels(steps)
+    if not pre or not dec:
+        print("[serve] the profiler saw no device work: busy shares not measured")
+        return launches
+    busy = sum(e.time_range.elapsed_us() for e in pre)
+    attn = sum(e.time_range.elapsed_us() for e in pre if "flash_attention" in e.name)
+    print(f"[serve] prefill profile: {len(pre)} device kernels, {busy / 1e3:.2f} ms busy "
+          f"({busy / 1e3 / (prefill_s * 1e3):.1%} of the unprofiled prefill); "
+          f"flash_attention {attn / 1e3:.2f} ms = {attn / busy:.1%} of busy time")
+    print(f"[serve] prefill top kernels: {_top_kernels(pre, 1)}")
+    busy_d = sum(e.time_range.elapsed_us() for e in dec) / n_steps
+    print(f"[serve] decode profile, {n_steps} steps: {len(dec) / n_steps:.1f} device kernels "
+          f"per step, {busy_d:.1f} us device busy per step = "
+          f"{busy_d / (decode_s * 1e6):.1%} of the unprofiled {decode_s * 1e3:.3f} ms step")
+    print(f"[serve] decode top kernels per step: {_top_kernels(dec, n_steps)}")
+    return launches
+
+
+def phase_float32_cuda_vs_cpu(cfg, params, dev) -> None:
+    """The same full-width weights in float32, card vs CPU, in lockstep:
+    the CPU's token feeds both, logits agree within F32_LOGIT_ATOL at every
+    step, tokens are equal unless the CPU's top-two gap is below it."""
+    from repro_torch.models import common
+    from repro_torch.serving.engine import ServeEngine, greedy_sample
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    s, n_tok = 128, 4
+    t0 = time.perf_counter()
+    engines = {d: ServeEngine(cfg=cfg32, batch_size=1, capacity=s + n_tok, device=d,
+                              params=common.tree_map(lambda t: t.to(d), params))
+               for d in (dev, torch.device("cpu"))}
+    prompts = torch.randint(0, cfg.vocab_size, (1, s),
+                            generator=torch.Generator().manual_seed(2))
+    out = {d: e._prefill(e._params, {"tokens": prompts.to(d)}) for d, e in engines.items()}
+    worst, flips, toks = 0.0, 0, []
+    with torch.inference_mode():
+        for step in range(n_tok):
+            lg, lc = out[dev][0].cpu(), out[torch.device("cpu")][0]
+            diff = (lg - lc).abs().max().item()
+            worst = max(worst, diff)
+            check(diff <= F32_LOGIT_ATOL, f"float32 step {step}: logits cuda vs cpu "
+                  f"max|Δ| {diff} > {F32_LOGIT_ATOL}")
+            tc, tg = greedy_sample(lc), greedy_sample(lg)
+            top2 = lc.topk(2, dim=-1).values
+            gap = (top2[:, 0] - top2[:, 1]).min().item()
+            if not torch.equal(tc, tg):
+                check(gap <= F32_LOGIT_ATOL, f"float32 step {step}: tokens differ with "
+                      f"a top-two gap of {gap}")
+                flips += 1
+            toks.append(int(tc[0]))
+            if step + 1 == n_tok:
+                break
+            for d, e in engines.items():
+                pos = torch.full((1,), s + step, dtype=torch.int32, device=d)
+                _, cache = out[d]
+                out[d] = e._decode_step(e._params, cache, tc.to(d)[:, None], pos)
+    print(f"[serve] float32 full width B=1 S={s}, {n_tok} tokens, cuda vs cpu: logits "
+          f"max|Δ| {worst:.3g} (tol {F32_LOGIT_ATOL}), token flips {flips}, tokens {toks}; "
+          f"{time.perf_counter() - t0:.2f} s")
+
+
+def phase_run_trace(dev) -> None:
+    from repro_torch.core import controller as ctl
+    from repro_torch.core import workload as wl
+    from repro_torch.serving.autoscale import DvfsServingSimulator, RooflineTerms
+
+    terms = RooflineTerms(t_compute=0.002, t_memory=0.012, t_collective=0.001)
+    trace = wl.generate_trace(wl.WorkloadConfig(n_steps=512, seed=3))
+    res = {}
+    for d in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        res[d] = {"tpu": {t: DvfsServingSimulator(terms=terms, technique=t, device=d)
+                          .run_trace(trace) for t in ctl.DEFAULT_TECHNIQUES}}
+        print(f"[serve] run_trace {d}, {len(ctl.DEFAULT_TECHNIQUES)} techniques x 512 "
+              f"steps: {time.perf_counter() - t0:.2f} s")
+    worst = _compare_summaries(res["cuda"], res["cpu"], "run_trace")
+    print(f"[serve] run_trace cuda vs cpu: every Summary field within {SUMMARY_RTOL} "
+          f"(worst rel {worst:.3g}), miss rates equal; " + " ".join(
+              f"{t}={s.power_gain:.3f}x" for t, s in res["cuda"]["tpu"].items()))
+
+
+def _timed(label: str, fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"[time] phase {label}: {time.perf_counter() - t0:.2f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs only on the card",
               file=sys.stderr)
         return 2
     dev = torch.device("cuda")
-    smi, name = phase_device()
-    phase_build()
-    kernel = phase_kernels(dev)
-    kernel["launches"] = phase_main_path(dev)
-    print("kernels: grid_argmin")
-    print(json.dumps({"kernels": [kernel]}))
+    t0 = time.perf_counter()
+    smi, name = _timed("1 device", phase_device)
+    _timed("2 build", phase_build)
+    argmin = _timed("3 kernels", phase_kernels, dev)
+    argmin["launches"] = _timed("4 main path", phase_main_path, dev)
+    flash = _timed("5 flash kernels", phase_flash_kernels, dev)
+    flash["launches"] = _timed("6 serving path", phase_serving, dev)
+    records = [argmin, flash]
+    print(f"[time] all phases: {time.perf_counter() - t0:.2f} s")
+    print("kernels: " + ", ".join(r["name"] for r in records))
+    print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                             "count": torch.cuda.device_count()}}))

@@ -1,0 +1,47 @@
+"""Architecture registry of the port: ``--arch <id>`` resolution.
+
+Only the architectures whose every layer the port can run are registered;
+the JAX package's other nine (``repro.configs.ARCH_NAMES``) raise a
+``KeyError`` that says they are not ported yet (ROADMAP A10).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List
+
+from repro_torch.configs import llama3_2_1b
+from repro_torch.configs.base import (SHAPES, AttentionConfig, ModelConfig,
+                                      MoEConfig, OptimizerConfig, ShapeConfig,
+                                      SSMConfig, TrainConfig, count_params,
+                                      shape_applicable)
+
+_MODULES = {
+    "llama3.2-1b": llama3_2_1b,
+}
+
+ARCH_NAMES: List[str] = list(_MODULES)
+
+#: Architectures of the JAX package that the port cannot run yet.
+NOT_PORTED = ("gemma2-2b", "llama3-405b", "gemma3-27b", "internvl2-1b",
+              "qwen3-moe-235b-a22b", "deepseek-v2-236b", "falcon-mamba-7b",
+              "zamba2-2.7b", "hubert-xlarge")
+
+
+def get_config(name: str, reduced: bool = False) -> ModelConfig:
+    if name in NOT_PORTED:
+        raise KeyError(f"arch {name!r} is not ported yet; the port runs "
+                       f"{ARCH_NAMES}")
+    if name not in _MODULES:
+        raise KeyError(f"unknown arch {name!r}; known: {ARCH_NAMES}")
+    mod = _MODULES[name]
+    return mod.REDUCED if reduced else mod.CONFIG
+
+
+def all_configs(reduced: bool = False) -> Dict[str, ModelConfig]:
+    return {n: get_config(n, reduced) for n in ARCH_NAMES}
+
+
+__all__ = ["AttentionConfig", "ModelConfig", "MoEConfig", "OptimizerConfig",
+           "ShapeConfig", "SHAPES", "SSMConfig", "TrainConfig", "ARCH_NAMES",
+           "NOT_PORTED", "get_config", "all_configs", "count_params",
+           "shape_applicable"]

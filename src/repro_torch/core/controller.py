@@ -14,7 +14,10 @@ Port of the materialized fleet path of ``repro.core.controller``:
   that never leave the device until the last step;
 * :func:`compare_all_batched` reduces the runs to the paper's
   :class:`Summary` metrics on the host, in numpy, exactly as the JAX
-  package does.
+  package does;
+* the single-platform path — :func:`build_bin_tables`, :func:`simulate`,
+  :func:`summarize` — is the fleet path on a one-platform fleet (the JAX
+  package's closure path, which it holds equal to its fleet path).
 
 Entry points take ``device``: ``None`` means the CUDA card and raises on
 a machine without one; ``"cpu"`` runs the plain path.
@@ -66,6 +69,18 @@ def fpga_platform(acc: Accelerator, activity: float = 0.125,
         name=f"fpga:{acc.name}",
         params=char.fpga_platform_params(acc.util, acc.device(), acc.alpha,
                                          mix, activity, watts_nominal),
+        watts_nominal=watts_nominal)
+
+
+def tpu_platform(t_compute: float, t_memory: float, t_collective: float,
+                 name: str = "tpu", composition: str = "max",
+                 watts_nominal: float = 200.0) -> PlatformSpec:
+    """TPU adaptation: roofline terms (seconds) from the compiled dry-run;
+    core and ICI ride the core rail, HBM the second rail."""
+    return PlatformSpec(
+        name=f"tpu:{name}",
+        params=char.tpu_platform_params(t_compute, t_memory, t_collective,
+                                        composition, watts_nominal),
         watts_nominal=watts_nominal)
 
 
@@ -150,6 +165,12 @@ class BinTables(NamedTuple):
     node_power: torch.Tensor
     gated_power: torch.Tensor
     headroom: torch.Tensor
+
+
+def nominal_node_watts(platform: PlatformSpec) -> float:
+    """One node's watts at nominal rails and full frequency — the
+    denominator of the paper's power-reduction factor."""
+    return float(_nominal_watts(char.stack_platform_params([platform.params]))[0])
 
 
 def pll_standing_watts(cfg: ControllerConfig) -> float:
@@ -303,6 +324,17 @@ def fleet_bin_tables(params: char.PlatformParams, cfg: ControllerConfig,
     return BinTables(*[torch.stack([getattr(per_tech[t], f) for t in techniques],
                                    dim=1)
                        for f in BinTables._fields])
+
+
+def build_bin_tables(platform: PlatformSpec, cfg: ControllerConfig,
+                     device=None) -> BinTables:
+    """The optimal operating point for every workload bin of one platform
+    and ``cfg.technique``: fields ``[M]`` (``headroom`` ``[]``), through
+    :func:`fleet_bin_tables` on a one-platform fleet (one ``grid_argmin``
+    launch on the card for a DVFS or geared technique)."""
+    params = char.stack_platform_params([platform.params])
+    tables = fleet_bin_tables(params, cfg, (cfg.technique,), device=device)
+    return BinTables(*[x[0, 0] for x in tables])
 
 
 # ---------------------------------------------------------------------------
@@ -547,6 +579,51 @@ def simulate_fleet(tables: BinTables, traces, cfg: ControllerConfig,
     traces = torch.tensor(traces.reshape(k, s), device=dev)
     avail = torch.tensor(avail.reshape(k, s), device=dev)
     return _unflatten(_scan_control_loop(flat, cfg, traces, avail), lead)
+
+
+def simulate(platform: PlatformSpec, cfg: ControllerConfig, trace,
+             avail=None, device=None) -> TraceResult:
+    """Run the §V control loop over one workload trace ``[S]``.
+
+    ``avail`` is an optional per-step usable-node trace; ``None`` means a
+    healthy fleet.  Returns ``[S]`` fields on ``device``.
+    """
+    tables = build_bin_tables(platform, cfg, device=device)
+    return simulate_fleet(tables, np.asarray(trace, np.float32), cfg,
+                          avail=avail, device=device)
+
+
+def summarize(platform: PlatformSpec, cfg: ControllerConfig, trace,
+              result: TraceResult, avail=None) -> Summary:
+    """Reduce a :func:`simulate` run to the paper's :class:`Summary`.
+
+    ``power_gain`` is priced against the *available* fleet's nominal
+    watts (dead nodes earn no baseline credit),
+    ``power_gain_vs_configured`` against the configured one; both
+    coincide on healthy runs.
+    """
+    node_nom = nominal_node_watts(platform) + pll_standing_watts(cfg)
+    nominal_cfg_w = node_nom * cfg.n_nodes
+    mean_avail = (float(cfg.n_nodes) if avail is None
+                  else float(np.mean(np.asarray(avail))))
+    nominal_w = node_nom * mean_avail
+    mean_w = float(result.power.mean())
+    offered = float(np.sum(np.asarray(trace, np.float32)))
+    served = offered - float(result.backlog[-1])
+    n_scored = max(result.power.shape[0] - cfg.predictor.warmup_steps, 1)
+    return Summary(
+        technique=cfg.technique,
+        mean_power_w=mean_w,
+        nominal_power_w=nominal_w,
+        power_gain=nominal_w / mean_w,
+        qos_violation_rate=float(result.violations.float().mean()),
+        served_fraction=served / max(offered, 1e-9),
+        misprediction_rate=float(result.mispredictions) / n_scored,
+        mean_backlog=float(result.backlog.mean()),
+        margin_misprediction_rate=float(result.margin_misses) / n_scored,
+        nominal_power_configured_w=nominal_cfg_w,
+        power_gain_vs_configured=nominal_cfg_w / mean_w,
+    )
 
 
 def _unflatten(x, lead: Tuple[int, ...]):

@@ -32,6 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: Kernel name → its CUDA source, relative to this directory.
 SOURCES: Dict[str, str] = {
     "grid_argmin": "grid_argmin/csrc/grid_argmin.cu",
+    "flash_attention": "flash_attention/csrc/flash_attention.cu",
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}

@@ -1,0 +1,12 @@
+"""Model zoo of the port, the dense GQA family (``repro.models`` in PyTorch).
+
+Public API:
+  transformer.model_layout(cfg)      → ParamDef tree (shapes + logical axes)
+  common.init_params(generator, layout) → parameter tree of tensors
+  transformer.forward(params, cfg, batch, ...) → (logits, cache, aux)
+  transformer.cache_layout(cfg, batch, seq)    → decode-cache layout
+"""
+
+from repro_torch.models import attention, common, ffn, transformer
+
+__all__ = ["attention", "common", "ffn", "transformer"]

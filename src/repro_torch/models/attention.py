@@ -1,0 +1,226 @@
+"""Attention, the GQA half (port of ``repro.models.attention``).
+
+GQA with RoPE, sliding-window layers, logit softcap, QK-norm and qkv
+bias, in two compute paths:
+
+* prefill — ``kernels.flash_attention`` on the un-repeated k, v: GQA is
+  folded into the kernel (query head ``h`` reads KV head ``h // G``), the
+  causal / window band skips whole KV tiles, and the online softmax
+  keeps p in fp32 as the Pallas kernel does.  On CPU tensors the op runs
+  its plain version.  (The JAX package's XLA twin ``full_attention``
+  casts p to the activation dtype before p·v, so in bf16 the two agree
+  to bf16 rounding, not bit for bit.)
+* decode — ``decode_attention``: single-token queries against a padded
+  linear KV cache with position tags (a ring buffer for window layers),
+  plain PyTorch as in the JAX package.
+
+MLA, ``windowed_attention`` (which no GQA path of the JAX package calls)
+and the attention backward are not ported yet (ROADMAP A10).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.models import common
+from repro_torch.models.common import ParamDef, fan_in_def
+
+NEG_INF = -2.0e38
+
+
+# ---------------------------------------------------------------------------
+# Layouts
+# ---------------------------------------------------------------------------
+
+
+def gqa_layout(cfg: ModelConfig) -> Dict[str, ParamDef]:
+    a = cfg.attention
+    d = cfg.d_model
+    out = {
+        "wq": fan_in_def((d, a.n_heads, a.head_dim),
+                         ("embed", "heads", "head_dim")),
+        # K and V fused into one projection
+        "wkv": fan_in_def((d, 2, a.n_kv_heads, a.head_dim),
+                          ("embed", None, "kv_heads", "head_dim")),
+        "wo": fan_in_def((a.n_heads, a.head_dim, d),
+                         ("heads", "head_dim", "embed"),
+                         n_in=a.n_heads * a.head_dim),
+    }
+    if a.attn_bias:
+        out["bq"] = ParamDef((a.n_heads, a.head_dim), ("heads", "head_dim"), "zeros")
+        out["bk"] = ParamDef((a.n_kv_heads, a.head_dim), ("kv_heads", "head_dim"), "zeros")
+        out["bv"] = ParamDef((a.n_kv_heads, a.head_dim), ("kv_heads", "head_dim"), "zeros")
+    if a.qk_norm:
+        out["q_norm"] = ParamDef((a.head_dim,), (None,), "ones")
+        out["k_norm"] = ParamDef((a.head_dim,), (None,), "ones")
+    return out
+
+
+def _gqa_only(cfg: ModelConfig) -> None:
+    if cfg.attention.kind != "gqa":
+        raise NotImplementedError(f"{cfg.name}: {cfg.attention.kind} attention is not "
+                                  "ported yet (ROADMAP A10); the port runs GQA")
+
+
+def attention_layout(cfg: ModelConfig) -> Dict[str, ParamDef]:
+    _gqa_only(cfg)
+    return gqa_layout(cfg)
+
+
+# ---------------------------------------------------------------------------
+# Decode
+# ---------------------------------------------------------------------------
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                     valid: torch.Tensor, *, scale: float,
+                     cap: Optional[float] = None) -> torch.Tensor:
+    """Single-step attention over a cache.
+
+    q: [B,1,H,D]; caches: [B,T,KV,D] with ``H = KV·G`` (``KV = H`` is the
+    JAX package's repeated form); valid: [B,T] bool.  Scores and softmax
+    in fp32, p rounded to the cache dtype before p·v, which accumulates in
+    fp32, as the JAX package's einsums with ``preferred_element_type``.
+    GQA is folded (query head ``h`` reads KV head ``h // G``), which gives
+    the same dot products as repeating the cache.
+    """
+    b, _, h, d = q.shape
+    kv = k_cache.shape[2]
+    qg = q[:, 0].reshape(b, kv, h // kv, d).float()
+    s = torch.einsum("bkgd,btkd->bkgt", qg, k_cache.float()) * scale
+    s = common.softcap(s, cap)
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgt,btkd->bkgd", p.to(v_cache.dtype).float(), v_cache.float())
+    return o.reshape(b, 1, h, d).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# GQA block
+# ---------------------------------------------------------------------------
+
+
+def _prefill_gqa_cache(k: torch.Tensor, v: torch.Tensor, *, window: Optional[int],
+                       capacity: int) -> Dict[str, torch.Tensor]:
+    """Build a decode cache from prefill K/V.
+
+    Global layers: K/V padded to ``capacity`` with position tags (-1 for
+    empty slots).  Local layers: ring buffer of ``min(window, capacity)``
+    — the last ``T`` keys scattered to slot ``pos % T`` so subsequent
+    decode writes land consistently.  The cache is freshly allocated:
+    decode writes into it in place.
+    """
+    b, s = k.shape[:2]
+    dev = k.device
+    if window is not None:
+        t = min(window, capacity)
+        n_tail = min(s, t)
+        pos_tail = torch.arange(s - n_tail, s, dtype=torch.int32, device=dev)
+        slots = (pos_tail % t).long()
+        ck = k.new_zeros((b, t) + k.shape[2:])
+        cv = v.new_zeros((b, t) + v.shape[2:])
+        ck[:, slots] = k[:, s - n_tail:]
+        cv[:, slots] = v[:, s - n_tail:]
+        cpos = torch.full((t,), -1, dtype=torch.int32, device=dev)
+        cpos[slots] = pos_tail
+        return {"k": ck, "v": cv, "pos": cpos.repeat(b, 1)}
+    assert s <= capacity, (s, capacity)
+    ck = k.new_zeros((b, capacity) + k.shape[2:])
+    cv = v.new_zeros((b, capacity) + v.shape[2:])
+    ck[:, :s] = k
+    cv[:, :s] = v
+    idx = torch.arange(capacity, dtype=torch.int32, device=dev)
+    cpos = torch.where(idx < s, idx, -1)
+    return {"k": ck, "v": cv, "pos": cpos.repeat(b, 1)}
+
+
+def gqa_apply(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig, *,
+              positions: torch.Tensor, is_local: bool,
+              cache: Optional[Dict[str, torch.Tensor]] = None,
+              cache_pos: Optional[torch.Tensor] = None,
+              return_state: bool = False,
+              cache_capacity: Optional[int] = None
+              ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """One GQA attention block (no residual/norm — the layer wraps those).
+
+    Prefill: ``cache`` is None (``return_state=True`` additionally builds
+    the decode cache).  Decode: ``cache`` holds k/v/pos (a ring buffer of
+    size ``window`` for local layers); the step's k, v and position are
+    written into it **in place** (the JAX package returns an updated
+    copy) and the same dict comes back.
+    """
+    a = cfg.attention
+    b, s, d = x.shape
+    scale = 1.0 / math.sqrt(a.head_dim)
+    theta = a.rope_local_theta if (is_local and a.rope_local_theta) else a.rope_theta
+
+    q = (x @ params["wq"].to(x.dtype).reshape(d, -1)).unflatten(-1, (a.n_heads, a.head_dim))
+    kv = (x @ params["wkv"].to(x.dtype).reshape(d, -1)) \
+        .unflatten(-1, (2, a.n_kv_heads, a.head_dim))
+    k, v = kv[:, :, 0], kv[:, :, 1]
+    if a.attn_bias:
+        q = q + params["bq"].to(x.dtype)
+        k = k + params["bk"].to(x.dtype)
+        v = v + params["bv"].to(x.dtype)
+    if a.qk_norm:
+        q = common.rms_norm(q, params["q_norm"], cfg.norm_eps)
+        k = common.rms_norm(k, params["k_norm"], cfg.norm_eps)
+    q = common.apply_rope(q, positions, theta)
+    k = common.apply_rope(k, positions, theta)
+
+    window = a.sliding_window if is_local else None
+    new_cache = None
+    if cache is None:
+        eff_window = window if (window is not None and window < s) else None
+        o = flash_attention(q, k, v, causal=cfg.causal, scale=scale,
+                            softcap=a.attn_softcap, window=eff_window)
+        if return_state:
+            new_cache = _prefill_gqa_cache(k, v, window=window,
+                                           capacity=cache_capacity or s)
+    else:
+        # --- decode: write the new k/v in place, then attend over the cache
+        assert s == 1 and cache_pos is not None
+        t = cache["k"].shape[1]
+        slot = (cache_pos % t).long()                      # ring for local
+        bidx = torch.arange(b, device=x.device)
+        cache["k"][bidx, slot] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][bidx, slot] = v[:, 0].to(cache["v"].dtype)
+        cache["pos"][bidx, slot] = cache_pos.to(torch.int32)
+        new_cache = cache
+        cpos = cache["pos"]
+        valid = (cpos >= 0) & (cpos <= cache_pos[:, None])
+        if window is not None:
+            valid &= (cache_pos[:, None] - cpos) < window
+        o = decode_attention(q, cache["k"].to(q.dtype), cache["v"].to(q.dtype), valid,
+                             scale=scale, cap=a.attn_softcap)
+
+    y = o.reshape(b, s, -1) @ params["wo"].to(x.dtype).reshape(-1, d)
+    return y, new_cache
+
+
+def gqa_cache_layout(cfg: ModelConfig, batch: int, seq_len: int,
+                     is_local: bool) -> Dict[str, ParamDef]:
+    """Per-layer decode cache (ring buffer of ``window`` for local layers)."""
+    a = cfg.attention
+    t = min(a.sliding_window, seq_len) if (is_local and a.sliding_window) else seq_len
+    kv_axes = ("batch", "kv_seq", "kv_heads", "head_dim")
+    return {
+        "k": ParamDef((batch, t, a.n_kv_heads, a.head_dim), kv_axes, "zeros"),
+        "v": ParamDef((batch, t, a.n_kv_heads, a.head_dim), kv_axes, "zeros"),
+        "pos": ParamDef((batch, t), ("batch", "kv_seq"), "constant", scale=-1.0),
+    }
+
+
+def attention_apply(params, x, cfg, **kw):
+    _gqa_only(cfg)
+    return gqa_apply(params, x, cfg, **kw)
+
+
+def attention_cache_layout(cfg, batch, seq_len, is_local):
+    _gqa_only(cfg)
+    return gqa_cache_layout(cfg, batch, seq_len, is_local)

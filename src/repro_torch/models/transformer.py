@@ -1,0 +1,209 @@
+"""Top-level model, the dense family (port of ``repro.models.transformer``).
+
+Layers are grouped into *periods* (the local:global pattern length, 1
+otherwise); each period slot's parameters are stacked ``[n_per, ...]``,
+and the remainder layers keep their own, so the parameter tree has the
+JAX package's ``prefix`` / ``slots`` / ``rem`` structure leaf for leaf.
+The JAX ``lax.scan`` over periods is a Python loop over the stacked axis
+here.  MoE, Mamba, the hybrid shared block and the VLM/audio frontends are
+not ported yet (ROADMAP A10): their configs raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import common
+from repro_torch.models import ffn as ffn_mod
+from repro_torch.models.common import ParamDef, fan_in_def, stacked
+
+
+# ---------------------------------------------------------------------------
+# Structure
+# ---------------------------------------------------------------------------
+
+
+def _dense_only(cfg: ModelConfig) -> None:
+    if (cfg.family != "dense" or cfg.moe is not None or cfg.ssm is not None
+            or cfg.frontend is not None or cfg.shared_attn_every):
+        raise NotImplementedError(f"{cfg.name}: the {cfg.family} family is not ported "
+                                  "yet (ROADMAP A10); the port runs dense GQA models")
+
+
+def period_of(cfg: ModelConfig) -> int:
+    if cfg.family == "hybrid" and cfg.shared_attn_every:
+        return cfg.shared_attn_every
+    a = cfg.attention
+    if a is not None and a.pattern_period:
+        return a.pattern_period
+    return 1
+
+
+def scanned_layers(cfg: ModelConfig) -> Tuple[int, int, int]:
+    """(prefix_layers, n_periods, remainder_layers)."""
+    prefix = cfg.moe.first_dense_layers if cfg.moe else 0
+    rest = cfg.n_layers - prefix
+    p = period_of(cfg)
+    return prefix, rest // p, rest % p
+
+
+def _is_local(cfg: ModelConfig, global_idx: int) -> bool:
+    a = cfg.attention
+    return a.is_local(global_idx) if a is not None else False
+
+
+# ---------------------------------------------------------------------------
+# Layouts
+# ---------------------------------------------------------------------------
+
+
+def _dense_layer_layout(cfg: ModelConfig) -> Dict[str, Any]:
+    return {
+        "ln1": ParamDef((cfg.d_model,), (None,), "ones"),
+        "attn": attn_mod.attention_layout(cfg),
+        "ln2": ParamDef((cfg.d_model,), (None,), "ones"),
+        "ffn": ffn_mod.ffn_layout(cfg.d_model, cfg.d_ff),
+    }
+
+
+def model_layout(cfg: ModelConfig) -> Dict[str, Any]:
+    _dense_only(cfg)
+    d = cfg.d_model
+    prefix, n_per, rem = scanned_layers(cfg)
+    p = period_of(cfg)
+    out: Dict[str, Any] = {
+        "embed": ParamDef((cfg.padded_vocab, d), ("vocab", "embed"), "normal",
+                          scale=0.02),
+        "final_norm": ParamDef((d,), (None,), "ones"),
+    }
+    if not cfg.tie_embeddings:
+        out["lm_head"] = fan_in_def((d, cfg.padded_vocab), ("embed", "vocab"))
+    out["prefix"] = [_dense_layer_layout(cfg) for _ in range(prefix)]
+    out["slots"] = [stacked(_dense_layer_layout(cfg), n_per)
+                    for _ in range(p)] if n_per else []
+    out["rem"] = [_dense_layer_layout(cfg) for _ in range(rem)]
+    return out
+
+
+def cache_layout(cfg: ModelConfig, batch: int, seq_len: int) -> Dict[str, Any]:
+    """Decode-cache layout mirroring the layer structure."""
+    _dense_only(cfg)
+    prefix, n_per, rem = scanned_layers(cfg)
+    p = period_of(cfg)
+
+    def layer_cache(global_idx: int):
+        return attn_mod.attention_cache_layout(cfg, batch, seq_len,
+                                               _is_local(cfg, global_idx))
+
+    return {
+        "prefix": [layer_cache(i) for i in range(prefix)],
+        "slots": [stacked(layer_cache(prefix + s), n_per)
+                  for s in range(p)] if n_per else [],
+        "rem": [layer_cache(prefix + n_per * p + i) for i in range(rem)],
+    }
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+
+def _apply_dense(lp, x, cfg, *, is_local, positions, cache, cache_pos,
+                 return_state, cache_capacity):
+    h = common.rms_norm(x, lp["ln1"], cfg.norm_eps)
+    h, new_cache = attn_mod.attention_apply(
+        lp["attn"], h, cfg, positions=positions, is_local=is_local,
+        cache=cache, cache_pos=cache_pos, return_state=return_state,
+        cache_capacity=cache_capacity)
+    x = x + h
+    h = common.rms_norm(x, lp["ln2"], cfg.norm_eps)
+    return x + ffn_mod.ffn_apply(lp["ffn"], h, cfg), new_cache
+
+
+def _embed_inputs(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    dt = getattr(torch, cfg.dtype)
+    x = params["embed"][batch["tokens"].long()].to(dt)
+    if cfg.embed_scale:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dt, device=x.device)
+    return x
+
+
+def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
+            cache: Optional[Dict[str, Any]] = None,
+            cache_pos: Optional[torch.Tensor] = None,
+            return_state: bool = False,
+            cache_capacity: Optional[int] = None,
+            last_only: bool = False
+            ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]], Dict[str, torch.Tensor]]:
+    """Returns (logits, new_cache_or_None, aux_losses).
+
+    ``cache`` drives decode mode (tokens are [B, 1]; the cache is updated
+    in place and returned).  ``return_state`` makes a prefill pass
+    additionally build the decode cache sized ``cache_capacity`` (default:
+    prefill length).  ``last_only`` computes logits for the final position
+    only (serving prefill — skips the O(S·V) head over the prompt).  The
+    dense family has no auxiliary losses: ``aux_losses`` is ``{}``.
+    """
+    _dense_only(cfg)
+    x = _embed_inputs(params, cfg, batch)
+    s = x.shape[1]
+    decoding = cache is not None
+    if decoding:
+        positions = cache_pos[:, None]
+    else:
+        positions = torch.arange(s, device=x.device)[None, :]
+    prefix, n_per, rem = scanned_layers(cfg)
+    p = period_of(cfg)
+    collect = decoding or return_state
+    new_cache: Dict[str, Any] = {"prefix": [], "rem": []}
+
+    def run_layer(lp, x, gidx, layer_cache):
+        return _apply_dense(lp, x, cfg, is_local=_is_local(cfg, gidx),
+                            positions=positions, cache=layer_cache,
+                            cache_pos=cache_pos, return_state=return_state,
+                            cache_capacity=cache_capacity)
+
+    for i in range(prefix):
+        x, nc = run_layer(params["prefix"][i], x, i,
+                          cache["prefix"][i] if decoding else None)
+        new_cache["prefix"].append(nc)
+
+    if n_per:
+        slot_caches = [[] for _ in range(p)]
+        for i in range(n_per):                 # the scan over periods
+            for si in range(p):
+                lp = common.tree_map(lambda t: t[i], params["slots"][si])
+                lc = (common.tree_map(lambda t: t[i], cache["slots"][si])
+                      if decoding else None)   # views: decode writes through
+                x, nc = run_layer(lp, x, prefix + si, lc)
+                slot_caches[si].append(nc)
+        if decoding:
+            new_cache["slots"] = cache["slots"]
+        elif return_state:
+            new_cache["slots"] = [{k: torch.stack([c[k] for c in per])
+                                   for k in per[0]} for per in slot_caches]
+
+    for i in range(rem):
+        gidx = prefix + n_per * p + i
+        x, nc = run_layer(params["rem"][i], x, gidx,
+                          cache["rem"][i] if decoding else None)
+        new_cache["rem"].append(nc)
+
+    if last_only:
+        x = x[:, -1:]
+    x = common.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if cfg.tie_embeddings and "lm_head" not in params:
+        logits = x @ params["embed"].to(x.dtype).T
+    else:
+        logits = x @ params["lm_head"].to(x.dtype)
+    logits = common.softcap(logits, cfg.final_softcap)
+    if cfg.padded_vocab != cfg.vocab_size:
+        # padding columns exist only so the JAX vocab dim shards; mask them
+        valid = torch.arange(cfg.padded_vocab, device=x.device) < cfg.vocab_size
+        logits = torch.where(valid, logits,
+                             torch.tensor(-1e9, dtype=logits.dtype, device=x.device))
+    return logits, (new_cache if collect else None), {}

@@ -21,8 +21,14 @@ from repro_torch import convert
 from repro_torch.core import characterization as tchar
 from repro_torch.core import controller as tctl
 from repro_torch.core import workload as twl
+from repro_torch.configs import get_config
 from repro_torch.core.accelerators import ACCELERATORS
 from repro_torch.kernels import _build
+from repro_torch.launch import serve as tserve
+from repro_torch.models import common as tcommon
+from repro_torch.models import transformer as ttf
+from repro_torch.serving import autoscale as tauto
+from repro_torch.serving.engine import ServeEngine
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
@@ -51,9 +57,15 @@ def test_port_package_covers_the_slice():
                  "core/predictors/markov.py", "core/scheduler.py",
                  "core/controller.py", "kernels/_build.py",
                  "kernels/grid_argmin/ops.py", "kernels/grid_argmin/ref.py",
-                 "convert.py"):
+                 "convert.py", "configs/base.py", "configs/llama3_2_1b.py",
+                 "configs/__init__.py", "models/common.py", "models/ffn.py",
+                 "models/attention.py", "models/transformer.py",
+                 "kernels/flash_attention/ops.py", "kernels/flash_attention/ref.py",
+                 "serving/engine.py", "serving/autoscale.py", "launch/serve.py"):
         assert want in names, want
-    assert (REPO / "src/repro_torch/kernels/grid_argmin/csrc/grid_argmin.cu").exists()
+    for name, src in _build.SOURCES.items():
+        assert (_build.KERNELS_DIR / src).exists(), name
+    assert set(_build.SOURCES) == {"grid_argmin", "flash_attention"}
 
 
 def _no_cuda(monkeypatch):
@@ -84,6 +96,19 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         "platform_params_from_numpy": lambda: convert.platform_params_from_numpy(
             {f: x.numpy() for f, x in zip(params._fields, params)}, device=None),
     }
+    cfg_llama = get_config("llama3.2-1b", reduced=True)
+    llama = tcommon.init_params(torch.Generator().manual_seed(0),
+                                ttf.model_layout(cfg_llama))
+    sim = tauto.DvfsServingSimulator(terms=tauto.RooflineTerms(0.002, 0.012, 0.001))
+    calls.update({
+        "ServeEngine": lambda: ServeEngine(cfg=cfg_llama, params=llama, capacity=16,
+                                           batch_size=1),
+        "DvfsServingSimulator.run_trace": lambda: sim.run_trace(trace),
+        "compare_techniques": lambda: tauto.compare_techniques(sim.terms, trace),
+        "serve.main": lambda: tserve.main([]),
+        "model_params_from_numpy": lambda: convert.model_params_from_numpy(
+            {p: x.numpy() for p, x in tcommon.tree_leaves(llama)}, cfg_llama, None),
+    })
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
@@ -93,11 +118,14 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     assert np.isfinite(res.power.numpy()).all()
 
 
-def test_kernel_build_is_keyed_by_source():
-    path = _build.library_path("grid_argmin")
+@pytest.mark.parametrize("name", sorted(_build.SOURCES))
+def test_kernel_build_is_keyed_by_source(name):
+    path = _build.library_path(name)
     assert path.parent.parent == _build.BUILD_DIR
-    assert path.parent.name.startswith("grid_argmin-")
-    assert path == _build.library_path("grid_argmin")  # stable for one source
+    assert path.parent.name.startswith(f"{name}-") and path.name == f"lib{name}.so"
+    assert path == _build.library_path(name)  # stable for one source
+    others = {_build.library_path(n).parent for n in _build.SOURCES if n != name}
+    assert path.parent not in others
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     ignored = (REPO / ".gitignore").read_text().split()
