@@ -33,7 +33,19 @@ printing its seconds:
    attention share of prefill and the decode loop's device busy share
    (``torch.profiler``); the same weights in float32 on ``cuda`` and on
    the CPU (B = 1, S = 128, 4 tokens); ``DvfsServingSimulator.run_trace``
-   for the six default techniques on ``cuda`` against the CPU.
+   for the six default techniques on ``cuda`` against the CPU;
+7. scan kernels — ``selective_scan`` against its plain version on the card
+   (the cases of ``tests/test_kernels_ssm.py`` in fp32 and with bf16
+   inputs, a ragged S and D, the serving shape); at the serving shape
+   (B = 4, S = 2048, d_inner 8192, d_state 16, fp32) the kernel's and the
+   plain version's times and the bound;
+8. Mamba serving path — ``launch.serve --arch falcon-mamba-7b --no-reduced``
+   on ``cuda``; ``ServeEngine`` on full-width falcon-mamba-7b (64 Mamba-1
+   layers, 7.27 B float32 parameters from a seed, bf16 activations) at the
+   shapes of phase 6, with one scan launch per layer; the prefill profile
+   with the scan's share and a 4-step decode profile; the first 2 of the
+   64 layers in float32 on ``cuda`` and on the CPU (a 64-layer float32
+   forward on the host's CPU would not fit the run's time).
 
 It ends with a ``{"kernels": [...]}`` line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}`` as the last line.  Without a
@@ -91,6 +103,25 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 2048, 32
 # and arithmetic with sums in other orders through 16 layers; logits are
 # O(1), and the differences are expected near 1e-5.
 F32_LOGIT_ATOL = 2e-3
+# tests/test_kernels_ssm.py's tolerances: fp32 differs from the plain version
+# in the order of the N-term dot product and FMA contraction; bf16 inputs
+# add one rounding of y.
+SCAN_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+SCAN_CASES = [
+    # b, S, D, N, dtype: tests/test_kernels_ssm.py's CASES and bf16 case
+    (2, 128, 128, 16, torch.float32),
+    (1, 64, 256, 8, torch.float32),
+    (2, 128, 128, 16, torch.float32),
+    (1, 256, 128, 4, torch.float32),
+    (1, 64, 128, 8, torch.bfloat16),
+    # ragged: S and D no multiple of the 32-step chunks or 128-channel blocks
+    (2, 77, 200, 16, torch.float32),
+]
+SCAN_SERVING = (4, 2048, 8192, 16, torch.float32)   # falcon-mamba-7b prefill scan
+MAMBA_ARCH = "falcon-mamba-7b"
+MAMBA_F32_LAYERS = 2    # layers of the float32 card-vs-CPU check
+# An H100 SM issues 16 special-function results (ex2 of expf) per clock.
+SFU_PER_SM_CLOCK = 16
 
 
 def check(cond: bool, msg: str) -> None:
@@ -254,16 +285,19 @@ def phase_kernels(dev) -> dict:
           f"medians: kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, bound "
           f"{bound_ms * 1e3:.4f} us ({bound_by}), launch floor (one-element add_) "
           f"{floor_ms * 1e3:.2f} us; {grid_argmin.launches - launches_before} timing launches")
-    return _record("grid_argmin", "src/repro/kernels/grid_argmin/kernel.py:40",
+    return _record("grid_argmin", "grid_argmin", "src/repro/kernels/grid_argmin/kernel.py:40",
                    max_err, ms, plain_ms, bound_ms, bound_by, None)
 
 
-def _record(name: str, replaces: str, max_err: float, ms: float, plain_ms: float,
-            bound_ms: float, bound_by: str, library_ms) -> dict:
-    """One kernel's entry of the ``{"kernels": [...]}`` line; ``launches``
-    is filled in from its path's run."""
+def _record(name: str, build: str, replaces: str, max_err: float, ms: float,
+            plain_ms: float, bound_ms: float, bound_by: str, library_ms) -> dict:
+    """One kernel's entry of the ``{"kernels": [...]}`` line (``build`` is
+    its key in ``_build.SOURCES``); ``launches`` is filled in from its
+    path's run."""
+    from repro_torch.kernels import _build
+
     return {"name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/{name}/csrc/{name}.cu",
+            "source": f"src/repro_torch/kernels/{_build.SOURCES[build]}",
             "replaces": replaces, "launches": None, "max_abs_err": max_err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms}
@@ -489,7 +523,8 @@ def phase_flash_kernels(dev) -> dict:
           f"scaled_dot_product_attention {lib_ms:.4f} ms (max|Δ| vs kernel {sdpa_err:.3g}), "
           f"bound {bound_ms:.4f} ms ({bound_by}); "
           f"{flash_attention.launches - launches_before} timing launches")
-    return _record("flash_attention", "src/repro/kernels/flash_attention/kernel.py:38",
+    return _record("flash_attention", "flash_attention",
+                   "src/repro/kernels/flash_attention/kernel.py:38",
                    max_err, ms, plain_ms, bound_ms, bound_by, lib_ms)
 
 
@@ -532,14 +567,16 @@ def phase_serving(dev) -> int:
           f"{cfg.attention.n_heads}/{cfg.attention.n_kv_heads} heads, d_ff {cfg.d_ff}, vocab "
           f"{cfg.vocab_size}: {n_params} float32 parameters drawn in "
           f"{time.perf_counter() - t0:.2f} s")
-    launches = phase_generate(cfg, params, dev)
-    phase_float32_cuda_vs_cpu(cfg, params, dev)
+    launches = phase_generate(cfg, params, dev, flash_attention, "[serve]")
+    phase_float32_cuda_vs_cpu(cfg, params, dev, "[serve]")
     phase_run_trace(dev)
     return launches
 
 
-def phase_generate(cfg, params, dev) -> int:
-    from repro_torch.kernels.flash_attention import flash_attention
+def phase_generate(cfg, params, dev, op, tag: str) -> int:
+    """One timed ``generate`` at B = 4, a 2048-token prompt and 32 new
+    tokens, with ``op`` (the path's kernel wrapper) launched once per layer;
+    then a profiled prefill and a profiled window of decode steps."""
     from repro_torch.serving.engine import ServeEngine
 
     b, s, n_new = SERVE_BATCH, SERVE_PROMPT, SERVE_NEW
@@ -547,15 +584,16 @@ def phase_generate(cfg, params, dev) -> int:
                          device=dev)
     prompts = torch.randint(0, cfg.vocab_size, (b, s), device=dev,
                             generator=torch.Generator(device=dev).manual_seed(1))
+    name = op.__name__
     engine.generate(prompts, n_new)                     # warm
-    flash_attention.launches = 0
+    op.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     toks = engine.generate(prompts, n_new)
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
-    launches = flash_attention.launches
-    check(launches == cfg.n_layers, f"one generate launched flash_attention {launches} "
+    launches = op.launches
+    check(launches == cfg.n_layers, f"one generate launched {name} {launches} "
           f"times, want one per layer ({cfg.n_layers})")
     check(tuple(toks.shape) == (b, n_new) and int(toks.min()) >= 0
           and int(toks.max()) < cfg.vocab_size, f"bad tokens {tuple(toks.shape)}")
@@ -564,9 +602,9 @@ def phase_generate(cfg, params, dev) -> int:
         prefill_s = _median_s(lambda: engine._prefill(engine._params, batch), 3)
         logits, cache = engine._prefill(engine._params, batch)
     decode_s = (gen_s - prefill_s) / (n_new - 1)
-    print(f"[serve] ServeEngine.generate B={b} prompt={s} new={n_new} (bf16): "
+    print(f"{tag} ServeEngine.generate B={b} prompt={s} new={n_new} (bf16): "
           f"{gen_s:.4f} s, {b * n_new / gen_s:.1f} tokens/s; prefill {prefill_s * 1e3:.2f} ms "
-          f"(median of 3), decode {decode_s * 1e3:.3f} ms per token; flash_attention "
+          f"(median of 3), decode {decode_s * 1e3:.3f} ms per token; {name} "
           f"launches per generate {launches}; sample {toks[0, :8].tolist()}")
 
     # where the device time of one prefill goes, and how busy a decode step keeps it
@@ -582,23 +620,23 @@ def phase_generate(cfg, params, dev) -> int:
                 _, c = engine._decode_step(engine._params, c, tok, pos)
         dec = _device_kernels(steps)
     if not pre or not dec:
-        print("[serve] the profiler saw no device work: busy shares not measured")
+        print(f"{tag} the profiler saw no device work: busy shares not measured")
         return launches
     busy = sum(e.time_range.elapsed_us() for e in pre)
-    attn = sum(e.time_range.elapsed_us() for e in pre if "flash_attention" in e.name)
-    print(f"[serve] prefill profile: {len(pre)} device kernels, {busy / 1e3:.2f} ms busy "
+    mine = sum(e.time_range.elapsed_us() for e in pre if name in e.name)
+    print(f"{tag} prefill profile: {len(pre)} device kernels, {busy / 1e3:.2f} ms busy "
           f"({busy / 1e3 / (prefill_s * 1e3):.1%} of the unprofiled prefill); "
-          f"flash_attention {attn / 1e3:.2f} ms = {attn / busy:.1%} of busy time")
-    print(f"[serve] prefill top kernels: {_top_kernels(pre, 1)}")
+          f"{name} {mine / 1e3:.2f} ms = {mine / busy:.1%} of busy time")
+    print(f"{tag} prefill top kernels: {_top_kernels(pre, 1)}")
     busy_d = sum(e.time_range.elapsed_us() for e in dec) / n_steps
-    print(f"[serve] decode profile, {n_steps} steps: {len(dec) / n_steps:.1f} device kernels "
+    print(f"{tag} decode profile, {n_steps} steps: {len(dec) / n_steps:.1f} device kernels "
           f"per step, {busy_d:.1f} us device busy per step = "
           f"{busy_d / (decode_s * 1e6):.1%} of the unprofiled {decode_s * 1e3:.3f} ms step")
-    print(f"[serve] decode top kernels per step: {_top_kernels(dec, n_steps)}")
+    print(f"{tag} decode top kernels per step: {_top_kernels(dec, n_steps)}")
     return launches
 
 
-def phase_float32_cuda_vs_cpu(cfg, params, dev) -> None:
+def phase_float32_cuda_vs_cpu(cfg, params, dev, tag: str) -> None:
     """The same full-width weights in float32, card vs CPU, in lockstep:
     the CPU's token feeds both, logits agree within F32_LOGIT_ATOL at every
     step, tokens are equal unless the CPU's top-two gap is below it."""
@@ -636,7 +674,8 @@ def phase_float32_cuda_vs_cpu(cfg, params, dev) -> None:
                 pos = torch.full((1,), s + step, dtype=torch.int32, device=d)
                 _, cache = out[d]
                 out[d] = e._decode_step(e._params, cache, tc.to(d)[:, None], pos)
-    print(f"[serve] float32 full width B=1 S={s}, {n_tok} tokens, cuda vs cpu: logits "
+    print(f"{tag} float32 full width, {cfg.n_layers} layers, B=1 S={s}, {n_tok} tokens, "
+          f"cuda vs cpu: logits "
           f"max|Δ| {worst:.3g} (tol {F32_LOGIT_ATOL}), token flips {flips}, tokens {toks}; "
           f"{time.perf_counter() - t0:.2f} s")
 
@@ -661,6 +700,120 @@ def phase_run_trace(dev) -> None:
               f"{t}={s.power_gain:.3f}x" for t, s in res["cuda"]["tpu"].items()))
 
 
+def _scan_inputs(b, s, d, n, dtype, gen, dev):
+    """delta, B, C, x, A_log drawn as tests/test_kernels_ssm.py draws them."""
+    def r(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    delta = torch.nn.functional.softplus(r(b, s, d)) * 0.1
+    return (delta.to(dtype), r(b, s, n).to(dtype), r(b, s, n).to(dtype),
+            r(b, s, d).to(dtype), r(d, n) * 0.5)
+
+
+def _scan_bound(ins, outs) -> tuple[float, str, str]:
+    """Least time for the selective scan on this card: the inputs read and
+    the outputs written once over HBM bandwidth, vs its operations — the
+    fp32 ones (δ·A, the FMA a·h + u, du·B, the FMA of ⟨h, C⟩ per state
+    element, δ·x per channel step) over the non-tensor-core peak, and one
+    exponential per state element over the special-function units
+    (16 per clock per SM at the card's maximum SM clock)."""
+    delta, B = ins[0], ins[1]
+    b, s, d = delta.shape
+    elems = b * s * d * B.shape[-1]
+    n_bytes = sum(t.numel() * t.element_size() for t in list(ins) + list(outs))
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.split()[0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sfu_per_s = SFU_PER_SM_CLOCK * sms * float(smi) * 1e6
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_fp32 = (6 * elems + b * s * d) / FP32_OPS_PER_S
+    t_exp = elems / sfu_per_s
+    t_ops = max(t_fp32, t_exp)
+    detail = (f"{n_bytes / 1e6:.1f} MB in {t_bytes * 1e3:.4f} ms, {elems / 1e9:.3f} G exp in "
+              f"{t_exp * 1e3:.4f} ms ({sms} SMs at {smi} MHz), fp32 ops in "
+              f"{t_fp32 * 1e3:.4f} ms")
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), detail
+
+
+def phase_scan_kernels(dev) -> dict:
+    from repro_torch.kernels.ssm_scan import selective_scan, selective_scan_ref
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    max_err = 0.0
+    for case in SCAN_CASES + [SCAN_SERVING]:
+        dtype, tol = case[4], SCAN_TOL[case[4]]
+        ins = _scan_inputs(*case, gen, dev)
+        y, h = selective_scan(*ins)
+        yr, hr = selective_scan_ref(*ins)
+        torch.cuda.synchronize()
+        check(y.dtype == dtype and y.shape == ins[3].shape and h.dtype == torch.float32
+              and h.shape == hr.shape, f"selective_scan {case}: bad output")
+        check(torch.allclose(y.float(), yr.float(), rtol=tol, atol=tol)
+              and torch.allclose(h, hr, rtol=tol, atol=tol),
+              f"selective_scan {case}: differs from the plain version beyond {tol}")
+        err_y = (y.float() - yr.float()).abs().max().item()
+        err_h = (h - hr).abs().max().item()
+        max_err = max(max_err, err_y, err_h)
+        print(f"[scan] {case[:4]} {str(dtype)[6:]}: max|Δy| {err_y:.3g}, max|Δh| "
+              f"{err_h:.3g} vs plain (tol {tol}); max|y| {yr.float().abs().max().item():.3g}")
+
+    ins = _scan_inputs(*SCAN_SERVING, gen, dev)
+    y, h = selective_scan(*ins)
+    launches_before = selective_scan.launches
+    ms = device_time_ms(lambda: selective_scan(*ins), 20)
+    plain_ms = device_time_ms(lambda: selective_scan_ref(*ins), 3)
+    bound_ms, bound_by, detail = _scan_bound(ins, (y, h))
+    print(f"[scan] serving shape {SCAN_SERVING[:4]} fp32, medians: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: {detail}); "
+          f"{selective_scan.launches - launches_before} timing launches")
+    return _record("selective_scan", "ssm_scan", "src/repro/kernels/ssm_scan/kernel.py:30",
+                   max_err, ms, plain_ms, bound_ms, bound_by, None)
+
+
+def phase_mamba_serving(dev) -> int:
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.grid_argmin import grid_argmin
+    from repro_torch.kernels.ssm_scan import selective_scan
+    from repro_torch.launch import serve
+    from repro_torch.models import common, transformer
+
+    torch.cuda.empty_cache()    # earlier phases' weights are gone; free their blocks
+    # 8a. the serving launcher at full width, as a user runs it
+    selective_scan.launches = grid_argmin.launches = 0
+    t0 = time.perf_counter()
+    check(serve.main(["--arch", MAMBA_ARCH, "--no-reduced", "--device", "cuda"]) == 0,
+          "serve.main failed")
+    torch.cuda.synchronize()
+    ss, ga = selective_scan.launches, grid_argmin.launches
+    print(f"[mamba] launch.serve --arch {MAMBA_ARCH} --no-reduced --device cuda: "
+          f"{time.perf_counter() - t0:.2f} s, selective_scan launches {ss}, grid_argmin "
+          f"launches {ga}")
+    check(ss > 0 and ga > 0, "the serving launcher launched no selective_scan or grid_argmin")
+    torch.cuda.empty_cache()
+
+    cfg = get_config(MAMBA_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = common.init_params(torch.Generator(device=dev).manual_seed(0),
+                                transformer.model_layout(cfg))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for _, t in common.tree_leaves(params))
+    print(f"[mamba] {cfg.name} full width: {cfg.n_layers} Mamba-1 layers, d_model "
+          f"{cfg.d_model}, d_inner {cfg.ssm.d_inner(cfg.d_model)}, d_state {cfg.ssm.d_state}, "
+          f"vocab {cfg.vocab_size}: {n_params} float32 parameters drawn in "
+          f"{time.perf_counter() - t0:.2f} s")
+    launches = phase_generate(cfg, params, dev, selective_scan, "[mamba]")
+    print(f"[mamba] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+          f"(float32 weights and the engine's bf16 copy)")
+
+    # 8e. float32 card vs CPU on the first layers of the same weights
+    cut = dataclasses.replace(cfg, n_layers=MAMBA_F32_LAYERS)
+    few = dict(params, slots=[common.tree_map(lambda t: t[:MAMBA_F32_LAYERS],
+                                              params["slots"][0])])
+    phase_float32_cuda_vs_cpu(cut, few, dev, "[mamba]")
+    return launches
+
+
 def _timed(label: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -681,7 +834,9 @@ def main() -> int:
     argmin["launches"] = _timed("4 main path", phase_main_path, dev)
     flash = _timed("5 flash kernels", phase_flash_kernels, dev)
     flash["launches"] = _timed("6 serving path", phase_serving, dev)
-    records = [argmin, flash]
+    scan = _timed("7 scan kernels", phase_scan_kernels, dev)
+    scan["launches"] = _timed("8 mamba serving path", phase_mamba_serving, dev)
+    records = [argmin, flash, scan]
     print(f"[time] all phases: {time.perf_counter() - t0:.2f} s")
     print("kernels: " + ", ".join(r["name"] for r in records))
     print(json.dumps({"kernels": records}))

@@ -33,6 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 SOURCES: Dict[str, str] = {
     "grid_argmin": "grid_argmin/csrc/grid_argmin.cu",
     "flash_attention": "flash_attention/csrc/flash_attention.cu",
+    "ssm_scan": "ssm_scan/csrc/selective_scan.cu",
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}

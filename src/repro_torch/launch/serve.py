@@ -3,9 +3,11 @@
 Usage (from the repository root):
   PYTHONPATH=src python -m repro_torch.launch.serve --no-reduced      # on the card
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu      # plain path
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b --no-reduced
 
-Generates tokens with a real model (``--reduced``, the default, or the
-full-width ``--no-reduced``) whose weights come from a seeded generator,
+Generates tokens with a real model (``--arch``, one of
+``configs.ARCH_NAMES``; ``--reduced``, the default, or the full-width
+``--no-reduced``) whose weights come from a seeded generator,
 then runs the §V controller over a bursty trace and reports the power
 gain vs an uncontrolled fleet and the QoS stats.  The flags are those of
 ``repro.launch.serve`` plus ``--device``.

@@ -1,12 +1,14 @@
-"""Top-level model, the dense family (port of ``repro.models.transformer``).
+"""Top-level model, the dense and Mamba-1 families (port of
+``repro.models.transformer``).
 
 Layers are grouped into *periods* (the local:global pattern length, 1
 otherwise); each period slot's parameters are stacked ``[n_per, ...]``,
 and the remainder layers keep their own, so the parameter tree has the
 JAX package's ``prefix`` / ``slots`` / ``rem`` structure leaf for leaf.
 The JAX ``lax.scan`` over periods is a Python loop over the stacked axis
-here.  MoE, Mamba, the hybrid shared block and the VLM/audio frontends are
-not ported yet (ROADMAP A10): their configs raise ``NotImplementedError``.
+here.  MoE, Mamba-2, the hybrid shared block and the VLM/audio frontends
+are not ported yet (ROADMAP A10): their configs raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import common
 from repro_torch.models import ffn as ffn_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import ParamDef, fan_in_def, stacked
 
 
@@ -27,11 +30,14 @@ from repro_torch.models.common import ParamDef, fan_in_def, stacked
 # ---------------------------------------------------------------------------
 
 
-def _dense_only(cfg: ModelConfig) -> None:
-    if (cfg.family != "dense" or cfg.moe is not None or cfg.ssm is not None
-            or cfg.frontend is not None or cfg.shared_attn_every):
+def _check_ported(cfg: ModelConfig) -> None:
+    dense = cfg.family == "dense" and cfg.ssm is None
+    mamba1 = cfg.family == "ssm" and cfg.ssm is not None and cfg.ssm.kind == "mamba1"
+    if (not (dense or mamba1) or cfg.moe is not None or cfg.frontend is not None
+            or cfg.shared_attn_every):
         raise NotImplementedError(f"{cfg.name}: the {cfg.family} family is not ported "
-                                  "yet (ROADMAP A10); the port runs dense GQA models")
+                                  "yet (ROADMAP A10); the port runs dense GQA and "
+                                  "Mamba-1 models")
 
 
 def period_of(cfg: ModelConfig) -> int:
@@ -49,6 +55,12 @@ def scanned_layers(cfg: ModelConfig) -> Tuple[int, int, int]:
     rest = cfg.n_layers - prefix
     p = period_of(cfg)
     return prefix, rest // p, rest % p
+
+
+def _layer_kind(cfg: ModelConfig, global_idx: int) -> str:
+    """"mamba" or "dense" (MoE layers are not ported: ``_check_ported``
+    refuses their configs)."""
+    return "mamba" if cfg.family in ("ssm", "hybrid") else "dense"
 
 
 def _is_local(cfg: ModelConfig, global_idx: int) -> bool:
@@ -70,8 +82,21 @@ def _dense_layer_layout(cfg: ModelConfig) -> Dict[str, Any]:
     }
 
 
+def _mamba_layer_layout(cfg: ModelConfig) -> Dict[str, Any]:
+    return {
+        "ln": ParamDef((cfg.d_model,), (None,), "ones"),
+        "mamba": ssm_mod.mamba_layout(cfg),
+    }
+
+
+def _layer_layout(cfg: ModelConfig, global_idx: int) -> Dict[str, Any]:
+    if _layer_kind(cfg, global_idx) == "mamba":
+        return _mamba_layer_layout(cfg)
+    return _dense_layer_layout(cfg)
+
+
 def model_layout(cfg: ModelConfig) -> Dict[str, Any]:
-    _dense_only(cfg)
+    _check_ported(cfg)
     d = cfg.d_model
     prefix, n_per, rem = scanned_layers(cfg)
     p = period_of(cfg)
@@ -82,20 +107,23 @@ def model_layout(cfg: ModelConfig) -> Dict[str, Any]:
     }
     if not cfg.tie_embeddings:
         out["lm_head"] = fan_in_def((d, cfg.padded_vocab), ("embed", "vocab"))
-    out["prefix"] = [_dense_layer_layout(cfg) for _ in range(prefix)]
-    out["slots"] = [stacked(_dense_layer_layout(cfg), n_per)
-                    for _ in range(p)] if n_per else []
-    out["rem"] = [_dense_layer_layout(cfg) for _ in range(rem)]
+    out["prefix"] = [_layer_layout(cfg, i) for i in range(prefix)]
+    out["slots"] = [stacked(_layer_layout(cfg, prefix + s), n_per)
+                    for s in range(p)] if n_per else []
+    out["rem"] = [_layer_layout(cfg, prefix + n_per * p + i)
+                  for i in range(rem)]
     return out
 
 
 def cache_layout(cfg: ModelConfig, batch: int, seq_len: int) -> Dict[str, Any]:
     """Decode-cache layout mirroring the layer structure."""
-    _dense_only(cfg)
+    _check_ported(cfg)
     prefix, n_per, rem = scanned_layers(cfg)
     p = period_of(cfg)
 
     def layer_cache(global_idx: int):
+        if _layer_kind(cfg, global_idx) == "mamba":
+            return ssm_mod.mamba_cache_layout(cfg, batch)
         return attn_mod.attention_cache_layout(cfg, batch, seq_len,
                                                _is_local(cfg, global_idx))
 
@@ -124,6 +152,13 @@ def _apply_dense(lp, x, cfg, *, is_local, positions, cache, cache_pos,
     return x + ffn_mod.ffn_apply(lp["ffn"], h, cfg), new_cache
 
 
+def _apply_mamba(lp, x, cfg, *, cache, return_state):
+    h = common.rms_norm(x, lp["ln"], cfg.norm_eps)
+    h, new_cache = ssm_mod.mamba_apply(lp["mamba"], h, cfg, cache=cache,
+                                       return_state=return_state)
+    return x + h, new_cache
+
+
 def _embed_inputs(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     dt = getattr(torch, cfg.dtype)
     x = params["embed"][batch["tokens"].long()].to(dt)
@@ -146,9 +181,10 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
     additionally build the decode cache sized ``cache_capacity`` (default:
     prefill length).  ``last_only`` computes logits for the final position
     only (serving prefill — skips the O(S·V) head over the prompt).  The
-    dense family has no auxiliary losses: ``aux_losses`` is ``{}``.
+    dense and Mamba-1 families have no auxiliary losses: ``aux_losses`` is
+    ``{}``.
     """
-    _dense_only(cfg)
+    _check_ported(cfg)
     x = _embed_inputs(params, cfg, batch)
     s = x.shape[1]
     decoding = cache is not None
@@ -162,6 +198,8 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
     new_cache: Dict[str, Any] = {"prefix": [], "rem": []}
 
     def run_layer(lp, x, gidx, layer_cache):
+        if _layer_kind(cfg, gidx) == "mamba":
+            return _apply_mamba(lp, x, cfg, cache=layer_cache, return_state=return_state)
         return _apply_dense(lp, x, cfg, is_local=_is_local(cfg, gidx),
                             positions=positions, cache=layer_cache,
                             cache_pos=cache_pos, return_state=return_state,

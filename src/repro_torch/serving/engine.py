@@ -18,9 +18,11 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer
 
-#: Parameter leaves that ``rms_norm`` reads in fp32: kept out of the
-#: engine's activation-dtype copy of the weights.
-NORM_LEAVES = ("ln1", "ln2", "final_norm", "q_norm", "k_norm")
+#: Parameter leaves the model reads in fp32 — the norm weights of
+#: ``rms_norm`` and Mamba's ``A_log``, ``dt_bias`` and skip ``D`` — kept
+#: out of the engine's activation-dtype copy of the weights.
+FP32_LEAVES = ("ln1", "ln2", "ln", "final_norm", "q_norm", "k_norm",
+               "A_log", "dt_bias", "D")
 
 
 def make_prefill(cfg: ModelConfig, capacity: int):
@@ -54,13 +56,13 @@ def greedy_sample(logits: torch.Tensor) -> torch.Tensor:
 
 def _serving_copy(params: Any, dtype: torch.dtype, device: torch.device,
                   path: str = "") -> Any:
-    """The weights on ``device``, matmul weights in ``dtype``, norm weights
-    as they are."""
+    """The weights on ``device``, matmul weights in ``dtype``, the
+    ``FP32_LEAVES`` as they are."""
     if isinstance(params, dict):
         return {k: _serving_copy(v, dtype, device, k) for k, v in params.items()}
     if isinstance(params, list):
         return [_serving_copy(v, dtype, device, path) for v in params]
-    if path in NORM_LEAVES:
+    if path in FP32_LEAVES:
         return params.to(device)
     return params.to(device=device, dtype=dtype)
 
@@ -75,7 +77,8 @@ class ServeEngine:
     the activation dtype ``cfg.dtype``, where the JAX package casts the
     float32 weights at every einsum; the numbers are the same, since a
     cast of the whole tensor gives the same values as a cast at each use.
-    Norm weights stay float32, as ``rms_norm`` reads them.
+    The leaves the model reads in float32 (norm weights, Mamba's
+    ``A_log``, ``dt_bias`` and ``D``) stay float32.
     """
 
     cfg: ModelConfig

@@ -61,13 +61,14 @@ def _close(out, ref, dtype, msg=""):
 
 
 def test_configs_match_and_unported_archs_raise():
-    assert ARCH_NAMES == ["llama3.2-1b"]
+    assert ARCH_NAMES == ["llama3.2-1b", "falcon-mamba-7b"]
     assert sorted(ARCH_NAMES + list(NOT_PORTED)) == sorted(JAX_ARCHS)
-    for reduced in (False, True):
-        j, t = jax_config("llama3.2-1b", reduced), get_config("llama3.2-1b", reduced)
-        assert dataclasses.asdict(j) == dataclasses.asdict(t)
-        assert t.padded_vocab == j.padded_vocab
-        assert tbase.count_params(t) == jbase.count_params(j)
+    for name in ARCH_NAMES:
+        for reduced in (False, True):
+            j, t = jax_config(name, reduced), get_config(name, reduced)
+            assert dataclasses.asdict(j) == dataclasses.asdict(t)
+            assert t.padded_vocab == j.padded_vocab
+            assert tbase.count_params(t) == jbase.count_params(j)
     assert get_config("llama3.2-1b").total_params() == pytest.approx(1.236e9, rel=1e-3)
     for name in NOT_PORTED:
         with pytest.raises(KeyError, match="not ported yet"):
@@ -226,7 +227,7 @@ def test_forward_prefill_return_state_and_decode(dtype):
 
 
 def test_unported_families_raise():
-    for name in ("qwen3-moe-235b-a22b", "falcon-mamba-7b", "deepseek-v2-236b"):
+    for name in ("qwen3-moe-235b-a22b", "zamba2-2.7b", "deepseek-v2-236b"):
         cfg = jax_config(name, reduced=True)
         port = tbase.ModelConfig(**{f.name: getattr(cfg, f.name)
                                     for f in dataclasses.fields(tbase.ModelConfig)

@@ -61,11 +61,13 @@ def test_port_package_covers_the_slice():
                  "configs/__init__.py", "models/common.py", "models/ffn.py",
                  "models/attention.py", "models/transformer.py",
                  "kernels/flash_attention/ops.py", "kernels/flash_attention/ref.py",
-                 "serving/engine.py", "serving/autoscale.py", "launch/serve.py"):
+                 "serving/engine.py", "serving/autoscale.py", "launch/serve.py",
+                 "configs/falcon_mamba_7b.py", "models/ssm.py",
+                 "kernels/ssm_scan/ops.py", "kernels/ssm_scan/ref.py"):
         assert want in names, want
     for name, src in _build.SOURCES.items():
         assert (_build.KERNELS_DIR / src).exists(), name
-    assert set(_build.SOURCES) == {"grid_argmin", "flash_attention"}
+    assert set(_build.SOURCES) == {"grid_argmin", "flash_attention", "ssm_scan"}
 
 
 def _no_cuda(monkeypatch):
