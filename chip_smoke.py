@@ -20,20 +20,24 @@ printing its seconds:
    the warm wall time with the step loop's share of it, and the device's
    busy time per step of the loop (``torch.profiler``);
 5. flash kernels — ``flash_attention`` against its plain version on the
-   card in fp32 and bf16 (the cases of ``tests/test_kernels_flash.py``, two
-   ragged lengths, the serving shape); at the serving shape (B = 4,
-   S = 2048, 32 query / 8 KV heads, D = 64, bf16, causal) the kernel's,
-   the plain version's and ``scaled_dot_product_attention``'s times and
-   the bound;
+   card, every case in both dtypes, each on the kernel ``ops.route`` gives
+   it: float32 on the CUDA-core kernel (2e-5), bfloat16 on the tensor-core
+   kernel (2e-2) (the cases of ``tests/test_kernels_flash.py``, two ragged
+   lengths, head_dim 16, the serving shape); the tensor-core kernel's SASS
+   must hold HGMMA and UTMALDG, and its ptxas report and shared memory are
+   printed; at the serving shape (B = 4, S = 2048, 32 query / 8 KV heads,
+   D = 64, causal) each kernel's time in its dtype (bf16, float32) beside
+   its plain version's, ``scaled_dot_product_attention``'s and its bound;
 6. serving path — ``python -m repro_torch.launch.serve --no-reduced`` on
    ``cuda``; ``ServeEngine`` on full-width llama3.2-1b (random weights from
    a seed, bf16 activations) at B = 4, a 2048-token prompt and 32 new
    tokens: prefill time, decode time per token, tokens per second, the
-   flash-attention launches of one ``generate`` (one per layer), the
-   attention share of prefill and the decode loop's device busy share
-   (``torch.profiler``); the same weights in float32 on ``cuda`` and on
-   the CPU (B = 1, S = 128, 4 tokens); ``DvfsServingSimulator.run_trace``
-   for the six default techniques on ``cuda`` against the CPU;
+   flash-attention launches of one ``generate`` (one per layer, all on the
+   tensor-core kernel), the attention share of prefill and the decode
+   loop's device busy share (``torch.profiler``); the same weights in
+   float32 on ``cuda`` (through the CUDA-core kernel) and on the CPU
+   (B = 1, S = 128, 4 tokens); ``DvfsServingSimulator.run_trace`` for the
+   six default techniques on ``cuda`` against the CPU;
 7. scan kernels — ``selective_scan`` against its plain version on the card
    (the cases of ``tests/test_kernels_ssm.py`` in fp32 and with bf16
    inputs, a ragged S and D, the serving shape); at the serving shape
@@ -96,6 +100,8 @@ FLASH_CASES = [
     # ragged lengths (no multiple of the 64-row tiles)
     (1, 1000, 2, 4, 64, True, None, None),
     (2, 77, 2, 2, 64, True, 16, None),
+    # the reduced llama's head_dim
+    (1, 128, 2, 2, 16, True, None, None),
 ]
 SERVING_SHAPE = (4, 2048, 8, 4, 64, True, None, None)   # llama3.2-1b prefill, bf16
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 2048, 32
@@ -484,48 +490,85 @@ def _flash_bound(q, k, v, out) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def phase_flash_kernels(dev) -> dict:
+def _sass_check(lib) -> str:
+    """``cuobjdump -sass`` of the tensor-core kernel's library: it must hold
+    wgmma (HGMMA) and TMA loads (UTMALDG)."""
+    from repro_torch.kernels import _build
+
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    counts = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "UTMALDG")}
+    check(all(counts.values()), f"{lib.name}: SASS lacks {[k for k, v in counts.items() if not v]}")
+    return ", ".join(f"{op} x{n}" for op, n in counts.items())
+
+
+def phase_flash_kernels(dev) -> list:
+    """Both flash kernels against the plain version on every case, each in
+    the dtype ``ops.route`` gives it; their times at the serving shape."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+    from repro_torch.kernels.flash_attention import ops
+
+    lib = _build.library_path(ops.TENSOR_CORE)
+    log = (lib.parent / "build.log").read_text()
+    print(f"[flash] {ops.TENSOR_CORE} SASS: {_sass_check(lib)}")
+    for line in log.splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"[flash] {ops.TENSOR_CORE} ptxas: {line.strip()[:120]}")
+    for d in ops.TC_HEAD_DIMS:
+        print(f"[flash] {ops.TENSOR_CORE} D={d}: dynamic shared memory "
+              f"{_build.load(ops.TENSOR_CORE).flash_attention_wgmma_smem_bytes(d)} bytes")
 
     gen = torch.Generator(device=dev).manual_seed(0)
-    max_err = 0.0
+    max_err = {ops.TENSOR_CORE: 0.0, ops.CUDA_CORE: 0.0}
     cases = [(c, dt) for c in FLASH_CASES for dt in (torch.float32, torch.bfloat16)]
     for case, dtype in cases + [(SERVING_SHAPE, torch.bfloat16)]:
-        _, _, _, _, _, causal, window, cap = case
+        _, _, _, _, d, causal, window, cap = case
         q, k, v = _flash_inputs(case, dtype, gen, dev)
+        kernel = ops.route(dtype, d)
+        before = dict(flash_attention.kernel_launches)
         out = flash_attention(q, k, v, causal=causal, window=window, softcap=cap)
         ref = flash_attention_ref(q, k, v, causal=causal, window=window, softcap=cap)
         torch.cuda.synchronize()
+        served = {n: flash_attention.kernel_launches[n] - before[n] for n in before}
+        check(served == {n: int(n == kernel) for n in served},
+              f"{case} {dtype}: launched {served}, want one {kernel}")
         check(out.dtype == dtype and out.shape == q.shape, f"{case}: bad output")
         err = (out.float() - ref.float()).abs().max().item()
-        check(err <= FLASH_TOL[dtype], f"flash_attention {case} {dtype}: max|Δ| {err} "
+        check(err <= FLASH_TOL[dtype], f"{kernel} {case} {dtype}: max|Δ| {err} "
               f"> {FLASH_TOL[dtype]}")
-        max_err = max(max_err, err)
-        print(f"[flash] {case} {str(dtype)[6:]}: max|Δ| vs plain {err:.3g} "
+        max_err[kernel] = max(max_err[kernel], err)
+        print(f"[flash] {case} {str(dtype)[6:]} on {kernel}: max|Δ| vs plain {err:.3g} "
               f"(tol {FLASH_TOL[dtype]})")
 
-    q, k, v = _flash_inputs(SERVING_SHAPE, torch.bfloat16, gen, dev)
-    out = flash_attention(q, k, v)
-    launches_before = flash_attention.launches
-    ms = device_time_ms(lambda: flash_attention(q, k, v), 20)
-    plain_ms = device_time_ms(lambda: flash_attention_ref(q, k, v), 5)
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
-    lib_ms = device_time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True), 20)
-    sdpa_err = (sdpa.transpose(1, 2).float() - out.float()).abs().max().item()
-    bound_ms, bound_by = _flash_bound(q, k, v, out)
-    tflops = _causal_flops(q) / (ms * 1e-3) / 1e12
-    print(f"[flash] serving shape q {tuple(q.shape)} k/v {tuple(k.shape)} bf16 causal, "
-          f"medians: kernel {ms:.4f} ms ({tflops:.2f} TFLOP/s), plain {plain_ms:.4f} ms, "
-          f"scaled_dot_product_attention {lib_ms:.4f} ms (max|Δ| vs kernel {sdpa_err:.3g}), "
-          f"bound {bound_ms:.4f} ms ({bound_by}); "
-          f"{flash_attention.launches - launches_before} timing launches")
-    return _record("flash_attention", "flash_attention",
-                   "src/repro/kernels/flash_attention/kernel.py:38",
-                   max_err, ms, plain_ms, bound_ms, bound_by, lib_ms)
+    records = []
+    for kernel, dtype in ((ops.TENSOR_CORE, torch.bfloat16), (ops.CUDA_CORE, torch.float32)):
+        q, k, v = _flash_inputs(SERVING_SHAPE, dtype, gen, dev)
+        out = flash_attention(q, k, v)
+        n = 20 if kernel == ops.TENSOR_CORE else 5
+        ms = device_time_ms(lambda: flash_attention(q, k, v), n)
+        plain_ms = device_time_ms(lambda: flash_attention_ref(q, k, v), 5)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+        lib_ms = device_time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), n)
+        sdpa_err = (sdpa.transpose(1, 2).float() - out.float()).abs().max().item()
+        bound_ms, bound_by = _flash_bound(q, k, v, out)
+        tflops = _causal_flops(q) / (ms * 1e-3) / 1e12
+        print(f"[flash] {kernel} at the serving shape q {tuple(q.shape)} k/v "
+              f"{tuple(k.shape)} {str(dtype)[6:]} causal, medians: kernel {ms:.4f} ms "
+              f"({tflops:.2f} TFLOP/s, {ms / bound_ms:.2f}x its bound, {ms / lib_ms:.2f}x "
+              f"scaled_dot_product_attention), plain {plain_ms:.4f} ms, "
+              f"scaled_dot_product_attention {lib_ms:.4f} ms (max|Δ| vs kernel "
+              f"{sdpa_err:.3g}), bound {bound_ms:.4f} ms ({bound_by} at "
+              f"{(BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S) / 1e12:g} "
+              f"TFLOP/s)")
+        records.append(_record(kernel, kernel, "src/repro/kernels/flash_attention/kernel.py:38",
+                               max_err[kernel], ms, plain_ms, bound_ms, bound_by, lib_ms))
+    return records
 
 
 def _median_s(fn, n: int) -> float:
@@ -540,9 +583,11 @@ def _median_s(fn, n: int) -> float:
     return float(np.median(times))
 
 
-def phase_serving(dev) -> int:
+def phase_serving(dev) -> dict:
+    """The serving path; returns the flash launches by kernel: the bf16
+    ``generate``'s and the float32 card-vs-CPU run's."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import flash_attention, ops
     from repro_torch.kernels.grid_argmin import grid_argmin
     from repro_torch.launch import serve
     from repro_torch.models import common, transformer
@@ -567,16 +612,25 @@ def phase_serving(dev) -> int:
           f"{cfg.attention.n_heads}/{cfg.attention.n_kv_heads} heads, d_ff {cfg.d_ff}, vocab "
           f"{cfg.vocab_size}: {n_params} float32 parameters drawn in "
           f"{time.perf_counter() - t0:.2f} s")
-    launches = phase_generate(cfg, params, dev, flash_attention, "[serve]")
+    launches, by_kernel = phase_generate(cfg, params, dev, flash_attention, "[serve]")
+    want = {ops.TENSOR_CORE: cfg.n_layers, ops.CUDA_CORE: 0}
+    check(by_kernel == want, f"one bf16 generate launched {by_kernel}, want {want}")
+    flash_attention.kernel_launches.update(dict.fromkeys(want, 0))
     phase_float32_cuda_vs_cpu(cfg, params, dev, "[serve]")
+    f32 = dict(flash_attention.kernel_launches)
+    print(f"[serve] float32 path flash launches by kernel: {f32}")
+    check(f32[ops.CUDA_CORE] > 0 and f32[ops.TENSOR_CORE] == 0,
+          f"the float32 path launched {f32}, want the CUDA-core kernel only")
     phase_run_trace(dev)
-    return launches
+    return {ops.TENSOR_CORE: launches, ops.CUDA_CORE: f32[ops.CUDA_CORE]}
 
 
-def phase_generate(cfg, params, dev, op, tag: str) -> int:
+def phase_generate(cfg, params, dev, op, tag: str) -> tuple:
     """One timed ``generate`` at B = 4, a 2048-token prompt and 32 new
     tokens, with ``op`` (the path's kernel wrapper) launched once per layer;
-    then a profiled prefill and a profiled window of decode steps."""
+    then a profiled prefill and a profiled window of decode steps.  Returns
+    the launches of that ``generate`` and, where ``op`` has more than one
+    kernel, its launches by kernel."""
     from repro_torch.serving.engine import ServeEngine
 
     b, s, n_new = SERVE_BATCH, SERVE_PROMPT, SERVE_NEW
@@ -587,12 +641,14 @@ def phase_generate(cfg, params, dev, op, tag: str) -> int:
     name = op.__name__
     engine.generate(prompts, n_new)                     # warm
     op.launches = 0
+    by_kernel = getattr(op, "kernel_launches", {})
+    by_kernel.update(dict.fromkeys(by_kernel, 0))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     toks = engine.generate(prompts, n_new)
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
-    launches = op.launches
+    launches, by_kernel = op.launches, dict(by_kernel)
     check(launches == cfg.n_layers, f"one generate launched {name} {launches} "
           f"times, want one per layer ({cfg.n_layers})")
     check(tuple(toks.shape) == (b, n_new) and int(toks.min()) >= 0
@@ -605,7 +661,8 @@ def phase_generate(cfg, params, dev, op, tag: str) -> int:
     print(f"{tag} ServeEngine.generate B={b} prompt={s} new={n_new} (bf16): "
           f"{gen_s:.4f} s, {b * n_new / gen_s:.1f} tokens/s; prefill {prefill_s * 1e3:.2f} ms "
           f"(median of 3), decode {decode_s * 1e3:.3f} ms per token; {name} "
-          f"launches per generate {launches}; sample {toks[0, :8].tolist()}")
+          f"launches per generate {launches}{f' {by_kernel}' if by_kernel else ''}; "
+          f"sample {toks[0, :8].tolist()}")
 
     # where the device time of one prefill goes, and how busy a decode step keeps it
     with torch.inference_mode():
@@ -621,7 +678,7 @@ def phase_generate(cfg, params, dev, op, tag: str) -> int:
         dec = _device_kernels(steps)
     if not pre or not dec:
         print(f"{tag} the profiler saw no device work: busy shares not measured")
-        return launches
+        return launches, by_kernel
     busy = sum(e.time_range.elapsed_us() for e in pre)
     mine = sum(e.time_range.elapsed_us() for e in pre if name in e.name)
     print(f"{tag} prefill profile: {len(pre)} device kernels, {busy / 1e3:.2f} ms busy "
@@ -633,7 +690,7 @@ def phase_generate(cfg, params, dev, op, tag: str) -> int:
           f"per step, {busy_d:.1f} us device busy per step = "
           f"{busy_d / (decode_s * 1e6):.1%} of the unprofiled {decode_s * 1e3:.3f} ms step")
     print(f"{tag} decode top kernels per step: {_top_kernels(dec, n_steps)}")
-    return launches
+    return launches, by_kernel
 
 
 def phase_float32_cuda_vs_cpu(cfg, params, dev, tag: str) -> None:
@@ -802,7 +859,7 @@ def phase_mamba_serving(dev) -> int:
           f"{cfg.d_model}, d_inner {cfg.ssm.d_inner(cfg.d_model)}, d_state {cfg.ssm.d_state}, "
           f"vocab {cfg.vocab_size}: {n_params} float32 parameters drawn in "
           f"{time.perf_counter() - t0:.2f} s")
-    launches = phase_generate(cfg, params, dev, selective_scan, "[mamba]")
+    launches, _ = phase_generate(cfg, params, dev, selective_scan, "[mamba]")
     print(f"[mamba] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
           f"(float32 weights and the engine's bf16 copy)")
 
@@ -833,10 +890,12 @@ def main() -> int:
     argmin = _timed("3 kernels", phase_kernels, dev)
     argmin["launches"] = _timed("4 main path", phase_main_path, dev)
     flash = _timed("5 flash kernels", phase_flash_kernels, dev)
-    flash["launches"] = _timed("6 serving path", phase_serving, dev)
+    flash_launches = _timed("6 serving path", phase_serving, dev)
+    for record in flash:
+        record["launches"] = flash_launches[record["name"]]
     scan = _timed("7 scan kernels", phase_scan_kernels, dev)
     scan["launches"] = _timed("8 mamba serving path", phase_mamba_serving, dev)
-    records = [argmin, flash, scan]
+    records = [argmin, *flash, scan]
     print(f"[time] all phases: {time.perf_counter() - t0:.2f} s")
     print("kernels: " + ", ".join(r["name"] for r in records))
     print(json.dumps({"kernels": records}))

@@ -11,7 +11,10 @@ The library goes into ``src/repro_torch/kernels/.build/<name>-<hash>/``
 so an edited source rebuilds and an unchanged one is built once.  The
 build's ``ptxas`` report (registers, shared memory, spills) is kept
 beside the library as ``build.log``.  No ``--use_fast_math``: the
-kernels must round like the plain PyTorch versions.
+kernels must round like the plain PyTorch versions.  No source links
+libcuda: the tensor-core flash kernel looks up
+``cuTensorMapEncodeTiled`` at run time with the runtime's
+``cudaGetDriverEntryPoint``, so the flags are the same for every source.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 SOURCES: Dict[str, str] = {
     "grid_argmin": "grid_argmin/csrc/grid_argmin.cu",
     "flash_attention": "flash_attention/csrc/flash_attention.cu",
+    "flash_attention_wgmma": "flash_attention/csrc/flash_attention_wgmma.cu",
     "ssm_scan": "ssm_scan/csrc/selective_scan.cu",
 }
 

@@ -1,16 +1,19 @@
-// Online-softmax attention forward (flash attention), for Hopper (sm_90a).
+// Online-softmax attention forward (flash attention), for Hopper (sm_90a): the CUDA-core
+// kernel, which the op runs for float32 inputs.
 //
-// Replaces the TPU kernel `_fa_kernel` in src/repro/kernels/flash_attention/kernel.py
-// (launched by `flash_attention_fwd`).  It computes what that kernel computes, which
-// repro_torch/kernels/flash_attention/ref.py computes in one pass:
+// Replaces the TPU kernel `_fa_kernel` in src/repro/kernels/flash_attention/kernel.py:38
+// (launched by `flash_attention_fwd`, `pallas_call` at :141) for float32; bfloat16 inputs
+// go to the tensor-core kernel in flash_attention_wgmma.cu (ops.route).  It computes what
+// the TPU kernel computes, which repro_torch/kernels/flash_attention/ref.py computes in
+// one pass:
 //
-//   q, k, v are read as fp32; q is scaled first:  s = (q·scale)·kᵀ   in fp32
+//   q is scaled first:      s = (q·scale)·kᵀ   in fp32
 //   optional softcap        s = c·tanh(s / c)
 //   mask                    keep = (!causal || qpos >= kpos) && (!window || qpos − kpos < window)
 //                           masked scores become −2e38 (keys past the end get no weight)
 //   per KV tile             m' = max(m, rowmax s);  p = exp(s − m');  corr = exp(m − m')
 //                           l = l·corr + Σp;  acc = acc·corr + p·v   (p stays fp32)
-//   out                     acc / max(l, 1e-30), rounded once to q's dtype.
+//   out                     acc / max(l, 1e-30).
 //
 // The causal mask is aligned at position 0 of both sequences, as in the Pallas kernel;
 // the op refuses causal calls with Sq != Sk, where the plain version aligns it on the
@@ -32,21 +35,21 @@
 // default, so the launch opts in with cudaFuncSetAttribute.  Query tiles run heaviest
 // first (the z axis counts down) so the causal triangle's long tiles do not trail.
 //
-// What bounds it on an H100.  At the serving shape (B = 4, S = 2048, 32 query heads,
-// 8 KV heads, D = 64, bf16, causal) it moves about 84 MB (q, k, v and out once: 25 µs at
-// 3.35 TB/s) and does about 69 GFLOP (4·B·H·D·S(S+1)/2: 70 µs at the bf16 tensor-core
-// peak of 989 TFLOP/s), so operations bound it.  This kernel runs its products on the
-// fp32 CUDA cores (67 TFLOP/s, about 1 ms for the same work) and is further held back by
-// shared-memory bandwidth (two shared loads per FMA pair) and by the accurate expf and
-// tanhf.  Moving QKᵀ and PV to wgmma on bf16 tiles, with TMA-fed K/V stages, is the
-// change that reaches the tensor-core bound; PERF.md has the measured times.
+// What bounds it on an H100.  At the serving shape in float32 (B = 4, S = 2048, 32 query
+// heads, 8 KV heads, D = 64, causal) it moves about 168 MB (q, k, v and out once: 50 µs
+// at 3.35 TB/s) and does about 69 GFLOP (4·B·H·D·S(S+1)/2), which the fp32 CUDA cores
+// (67 TFLOP/s) need 1.03 ms for, so operations bound it.  The tensor cores would take
+// TF32 at best, about three decimal digits, which misses the fp32 tolerance (2e-5), so
+// float32 stays on FMAs.  The design keeps the products in registers from shared memory;
+// it is further held back by shared-memory bandwidth (two shared loads per FMA pair), by
+// K/V loads that do not overlap the arithmetic, and by the accurate expf and tanhf.
+// PERF.md has the measured times.
 //
 // Rounding.  Built without --use_fast_math: expf and tanhf are the accurate library
 // functions, and the output is divided by l, not multiplied by its reciprocal.  The sums
 // over head_dim and over keys run in another order than XLA's dot, so results agree with
 // the plain version to about 1e-6 relative in fp32, not bit for bit.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -65,9 +68,7 @@ struct Strides {
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
 __host__ __device__ constexpr size_t smem_floats(int d) {
   return static_cast<size_t>(kBQ) * (d + 1) + static_cast<size_t>(kBK) * (d + 1) +
@@ -257,18 +258,15 @@ int launch_d(const void* q, const void* k, const void* v, void* o, int B, int Sq
 // Launches on `stream` without synchronizing; returns a CUDA error code as an int
 // (cudaGetLastError() after the launch).  q: [B, Sq, H, D]; k, v: [B, Sk, KV, D], each
 // given by its batch, sequence and head strides in elements (head_dim contiguous);
-// o: a contiguous [B, Sq, H, D].  dtype 0 is float32, 1 bfloat16.  window <= 0 means
-// none; has_cap = 0 means no softcap.  The caller checks D <= 128 and H % KV == 0.
+// o: a contiguous [B, Sq, H, D]; all float32.  window <= 0 means none; has_cap = 0
+// means no softcap.  The caller checks D <= 128 and H % KV == 0.
 extern "C" int flash_attention_launch(
-    const void* q, const void* k, const void* v, void* o, int dtype, int B, int Sq, int Sk,
+    const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk,
     int H, int KV, int D, long long q_sb, long long q_ss, long long q_sh, long long k_sb,
     long long k_ss, long long k_sh, long long v_sb, long long v_ss, long long v_sh,
     float scale, int causal, int window, int has_cap, float cap, void* stream) {
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return launch_d<__nv_bfloat16>(q, k, v, o, B, Sq, Sk, H, KV, D, qs, ks, vs, scale,
-                                   causal, window, has_cap, cap, st);
   return launch_d<float>(q, k, v, o, B, Sq, Sk, H, KV, D, qs, ks, vs, scale, causal,
                          window, has_cap, cap, st);
 }

@@ -1,30 +1,113 @@
 """The ``flash_attention`` op: prefill attention's entry point.
 
-The op follows its inputs' device.  CUDA tensors launch the kernel in
-``csrc/flash_attention.cu`` (built on first use by ``kernels._build``) on
-the current stream, without synchronizing; CPU tensors run the plain
-PyTorch version in ``ref.py``, which is how a caller asks for the CPU.
-There is no fallback between the two: a CUDA input that the kernel
-cannot take raises.  ``flash_attention.launches`` counts kernel launches.
+The op follows its inputs' device.  CPU tensors run the plain PyTorch
+version in ``ref.py``, which is how a caller asks for the CPU.  CUDA
+tensors launch one of two kernels (built on first use by
+``kernels._build``) on the current stream, without synchronizing, by a
+fixed rule on dtype and head_dim (``route``):
+
+* bfloat16 with head_dim in ``TC_HEAD_DIMS`` → ``flash_attention_wgmma``
+  (``csrc/flash_attention_wgmma.cu``): wgmma on the tensor cores, fed by
+  TMA.  ``tma_map_args`` computes each input's tensor-map arguments and
+  raises ``ValueError`` where TMA cannot take the view (base address not
+  16-byte aligned, a stride not a multiple of 16 bytes);
+* float32 → ``flash_attention`` (``csrc/flash_attention.cu``): fp32 FMAs
+  on the CUDA cores, so float32 stays float32 (TF32 would miss 2e-5).
+
+A bfloat16 head_dim outside ``TC_HEAD_DIMS`` raises.  There is no
+fallback between the kernels or to the plain version.
+``flash_attention.launches`` counts all kernel launches and
+``flash_attention.kernel_launches`` the launches of each kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
-#: Largest head_dim the kernel takes (its per-thread output columns).
+#: Largest head_dim the kernels take (the CUDA-core kernel's per-thread
+#: output columns; the tensor-core kernel's two 64-column TMA boxes).
 MAX_HEAD_DIM = 128
+#: bfloat16 head_dims of the tensor-core kernel: a multiple of wgmma's
+#: depth of 16, and a swizzled TMA box row of D·2 bytes holds at most 128.
+TC_HEAD_DIMS = (16, 32, 64, 128)
+#: The two kernels, by their ``_build.SOURCES`` names.
+TENSOR_CORE, CUDA_CORE = "flash_attention_wgmma", "flash_attention"
+#: Query rows per TMA box of q in the tensor-core kernel (a consumer
+#: warpgroup's rows).
+Q_BOX_ROWS = 64
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 9
+_DTYPES = (torch.float32, torch.bfloat16)
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 9
              + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                 ctypes.c_float, ctypes.c_void_p])
+_MapArg = ctypes.c_ulonglong * 12
+_WGMMA_ARGTYPES = ([ctypes.c_void_p] * 4 + [_MapArg] * 3 + [ctypes.c_int] * 6
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_float, ctypes.c_void_p])
+#: Error codes the tensor-core launch adds to CUDA's.
+_NO_ENCODER, _ENCODE_FAILED = 9999, 10000
+
+
+def route(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel that serves CUDA inputs of ``dtype`` and ``head_dim``:
+    ``TENSOR_CORE`` for bfloat16, ``CUDA_CORE`` for float32.  A fixed rule,
+    not a fallback: a bfloat16 head_dim the tensor-core kernel cannot take
+    raises ``ValueError``."""
+    if dtype == torch.float32:
+        return CUDA_CORE
+    if dtype != torch.bfloat16:
+        raise TypeError(f"flash_attention kernels take float32 or bfloat16, got {dtype}")
+    if head_dim not in TC_HEAD_DIMS:
+        raise ValueError(f"flash_attention: the bfloat16 tensor-core kernel takes head_dim "
+                         f"in {TC_HEAD_DIMS}, got {head_dim}")
+    return TENSOR_CORE
+
+
+def kv_box_rows(head_dim: int) -> int:
+    """Keys per TMA box of k, v (one KV tile of the tensor-core kernel):
+    128, or 64 at head_dim 128, where the fragments of 128 keys would not
+    fit in registers (``Tile::kBK`` in the kernel)."""
+    return 64 if head_dim == 128 else 128
+
+
+class TmaMap(NamedTuple):
+    """Arguments of ``cuTensorMapEncodeTiled`` for one [B, S, heads, D] input."""
+    dims: Tuple[int, int, int, int]      # {D, S, heads, B}, innermost first
+    strides: Tuple[int, int, int]        # bytes between rows, heads, batches
+    box: Tuple[int, int, int, int]       # {columns, rows, 1, 1}
+    swizzle: int                         # bytes: 32, 64 or 128 (one box row)
+
+    def as_c(self) -> ctypes.Array:
+        return _MapArg(*self.dims, *self.strides, *self.box, self.swizzle)
+
+
+def tma_map_args(t: torch.Tensor, rows: int) -> TmaMap:
+    """The tensor map of a bfloat16 [B, S, heads, D] view ``t`` (any
+    strides, head_dim contiguous) with boxes of ``rows`` rows by
+    ``min(D, 64)`` columns, swizzled by the box row's bytes.  Raises
+    ``ValueError`` naming the condition TMA needs that ``t`` breaks."""
+    b, s, n, d = t.shape
+    if d not in TC_HEAD_DIMS:
+        raise ValueError(f"flash_attention: TMA boxes take head_dim in {TC_HEAD_DIMS}, got {d}")
+    if t.stride(-1) != 1:
+        raise ValueError("flash_attention: TMA needs the head_dim axis contiguous (stride 1)")
+    if t.data_ptr() % 16:
+        raise ValueError(f"flash_attention: TMA needs a 16-byte aligned base address, got "
+                         f"one {t.data_ptr() % 16} bytes past a multiple of 16")
+    size = t.element_size()
+    strides = tuple(t.stride(i) * size for i in (1, 2, 0))
+    for name, st in zip(("sequence", "head", "batch"), strides):
+        if st % 16:
+            raise ValueError(f"flash_attention: TMA needs strides in multiples of 16 bytes, "
+                             f"the {name} stride is {st} bytes")
+    cols = min(d, 64)
+    return TmaMap((d, s, n, b), strides, (cols, rows, 1, 1), cols * size)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
@@ -76,9 +159,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     ``causal`` needs ``Sq == Sk``; ``window`` keeps keys with
     ``qpos − kpos < window``; ``softcap`` caps scores at ``c·tanh(s/c)``;
-    ``scale`` defaults to ``1/sqrt(D)``.  On a CUDA tensor only the
-    head_dim axis must be contiguous: the kernel reads the other axes
-    through their strides.
+    ``scale`` defaults to ``1/sqrt(D)``.  On a CUDA tensor the head_dim
+    axis must be contiguous and the kernels read the other axes through
+    their strides; a bfloat16 view must also be one TMA can take
+    (``tma_map_args``).
     """
     dev = _check(q, k, v, causal, window, softcap)
     b, sq, h, d = q.shape
@@ -87,20 +171,37 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    softcap=softcap, scale=scale)
 
-    fn = _build.load("flash_attention").flash_attention_launch
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    kernel = route(q.dtype, d)
+    options = (float(scale), int(causal), -1 if window is None else int(window),
+             int(softcap is not None), float(softcap or 0.0))
+    if kernel == TENSOR_CORE:
+        maps = [tma_map_args(q, Q_BOX_ROWS).as_c(), tma_map_args(k, kv_box_rows(d)).as_c(),
+                tma_map_args(v, kv_box_rows(d)).as_c()]
+        fn = _build.load(TENSOR_CORE).flash_attention_wgmma_launch
+        fn.argtypes, fn.restype = _WGMMA_ARGTYPES, ctypes.c_int
+    else:
+        fn = _build.load(CUDA_CORE).flash_attention_launch
+        fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                _DTYPES[q.dtype], b, sq, k.shape[1], h, k.shape[2], d,
-                *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], float(scale),
-                int(causal), -1 if window is None else int(window),
-                int(softcap is not None), float(softcap or 0.0), stream)
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+        if kernel == TENSOR_CORE:
+            rc = fn(*ptrs, *maps, b, sq, k.shape[1], h, k.shape[2], d, *options, stream)
+        else:
+            rc = fn(*ptrs, b, sq, k.shape[1], h, k.shape[2], d,
+                    *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *options, stream)
+    if rc == _NO_ENCODER:
+        raise RuntimeError("flash_attention: libcuda has no cuTensorMapEncodeTiled")
+    if rc >= _ENCODE_FAILED:
+        raise RuntimeError(f"flash_attention: cuTensorMapEncodeTiled refused a map: "
+                           f"CUresult {rc - _ENCODE_FAILED}")
     if rc != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {rc}")
     flash_attention.launches += 1
+    flash_attention.kernel_launches[kernel] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.kernel_launches = {TENSOR_CORE: 0, CUDA_CORE: 0}

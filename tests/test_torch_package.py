@@ -67,7 +67,8 @@ def test_port_package_covers_the_slice():
         assert want in names, want
     for name, src in _build.SOURCES.items():
         assert (_build.KERNELS_DIR / src).exists(), name
-    assert set(_build.SOURCES) == {"grid_argmin", "flash_attention", "ssm_scan"}
+    assert set(_build.SOURCES) == {"grid_argmin", "flash_attention", "flash_attention_wgmma",
+                                   "ssm_scan"}
 
 
 def _no_cuda(monkeypatch):
