@@ -38,11 +38,15 @@ printing its seconds:
    float32 on ``cuda`` (through the CUDA-core kernel) and on the CPU
    (B = 1, S = 128, 4 tokens); ``DvfsServingSimulator.run_trace`` for the
    six default techniques on ``cuda`` against the CPU;
-7. scan kernels — ``selective_scan`` against its plain version on the card
-   (the cases of ``tests/test_kernels_ssm.py`` in fp32 and with bf16
-   inputs, a ragged S and D, the serving shape); at the serving shape
-   (B = 4, S = 2048, d_inner 8192, d_state 16, fp32) the kernel's and the
-   plain version's times and the bound;
+7. scan kernels — the scan kernel's ptxas report (no spill bytes) and its
+   SASS (it must hold MUFU.EX2, the SFU's exponential, and LDGSTS, the
+   ``cp.async`` copies of its ring); ``selective_scan`` against its plain
+   version on the card (the cases of ``tests/test_kernels_ssm.py`` in fp32
+   and with bf16 inputs, a ragged S and D, N = 1 and 12, D = 8200, S = 1,
+   rows off a 16-byte boundary, delta and x starting off one, bf16 at
+   N = 16, the serving shape), y and h both; at the serving shape (B = 4,
+   S = 2048, d_inner 8192, d_state 16, fp32) the kernel's and the plain
+   version's times and the bound;
 8. Mamba serving path — ``launch.serve --arch falcon-mamba-7b --no-reduced``
    on ``cuda``; ``ServeEngine`` on full-width falcon-mamba-7b (64 Mamba-1
    layers, 7.27 B float32 parameters from a seed, bf16 activations) at the
@@ -120,9 +124,22 @@ SCAN_CASES = [
     (2, 128, 128, 16, torch.float32),
     (1, 256, 128, 4, torch.float32),
     (1, 64, 128, 8, torch.bfloat16),
-    # ragged: S and D no multiple of the 32-step chunks or 128-channel blocks
+    # ragged: S and D no multiple of the 32-step chunks or 64-channel blocks
     (2, 77, 200, 16, torch.float32),
+    # the kernel's edges: N = 1 and N = 12 (not a multiple of the 4 states a lane
+    # holds), a ragged channel block at D = 8200, S = 1, rows that start off a
+    # 16-byte boundary (D·size no multiple of 16), bf16 at N = 16
+    (2, 50, 128, 1, torch.float32),
+    (1, 45, 201, 12, torch.float32),
+    (1, 40, 8200, 16, torch.float32),
+    (3, 1, 300, 16, torch.float32),
+    (2, 70, 203, 16, torch.bfloat16),
+    (1, 33, 8200, 16, torch.bfloat16),
 ]
+# delta and x as views that start off a 16-byte boundary: (case, delta's and x's offsets
+# in elements into their buffers)
+SCAN_OFFSET_CASES = [((2, 70, 256, 16, torch.float32), 1, 3),
+                     ((1, 40, 200, 12, torch.bfloat16), 3, 0)]
 SCAN_SERVING = (4, 2048, 8192, 16, torch.float32)   # falcon-mamba-7b prefill scan
 MAMBA_ARCH = "falcon-mamba-7b"
 MAMBA_F32_LAYERS = 2    # layers of the float32 card-vs-CPU check
@@ -490,15 +507,16 @@ def _flash_bound(q, k, v, out) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def _sass_check(lib) -> str:
-    """``cuobjdump -sass`` of the tensor-core kernel's library: it must hold
-    wgmma (HGMMA) and TMA loads (UTMALDG)."""
+def _sass_check(lib, ops=("HGMMA", "UTMALDG")) -> str:
+    """``cuobjdump -sass`` of a kernel's library: it must hold each of
+    ``ops`` (by default the tensor-core flash kernel's wgmma, HGMMA, and TMA
+    loads, UTMALDG)."""
     from repro_torch.kernels import _build
 
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
                           check=True, timeout=300).stdout
-    counts = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "UTMALDG")}
+    counts = {op: len(re.findall(rf"\b{re.escape(op)}\b", sass)) for op in ops}
     check(all(counts.values()), f"{lib.name}: SASS lacks {[k for k, v in counts.items() if not v]}")
     return ", ".join(f"{op} x{n}" for op, n in counts.items())
 
@@ -792,27 +810,62 @@ def _scan_bound(ins, outs) -> tuple[float, str, str]:
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), detail
 
 
+def _scan_build_check() -> None:
+    """The built scan kernel: its ptxas report shows no spills, and its SASS
+    holds the SFU's ex2 (MUFU.EX2) and ``cp.async`` (LDGSTS)."""
+    from repro_torch.kernels import _build
+
+    lib = _build.library_path("ssm_scan")
+    for line in (lib.parent / "build.log").read_text().splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"[scan] ptxas: {line.strip()[:140]}")
+            spills = [int(n) for n in re.findall(r"(\d+) bytes spill", line)]
+            check(not any(spills), f"the scan kernel spills: {line.strip()}")
+    print(f"[scan] SASS: {_sass_check(lib, ('MUFU.EX2', 'LDGSTS'))}")
+
+
+def _offset_copy(t: torch.Tensor, k: int) -> torch.Tensor:
+    """A contiguous copy of ``t`` that starts ``k`` elements into its buffer."""
+    view = torch.empty(t.numel() + k, dtype=t.dtype, device=t.device)[k:].view(t.shape)
+    return view.copy_(t)
+
+
+def _scan_case_check(name: str, ins) -> float:
+    """``selective_scan`` against its plain version on ``ins``; the larger
+    of y's and h's max |difference|."""
+    from repro_torch.kernels.ssm_scan import selective_scan, selective_scan_ref
+
+    dtype = ins[3].dtype
+    tol = SCAN_TOL[dtype]
+    y, h = selective_scan(*ins)
+    yr, hr = selective_scan_ref(*ins)
+    torch.cuda.synchronize()
+    check(y.dtype == dtype and y.shape == ins[3].shape and h.dtype == torch.float32
+          and h.shape == hr.shape, f"selective_scan {name}: bad output")
+    check(torch.allclose(y.float(), yr.float(), rtol=tol, atol=tol)
+          and torch.allclose(h, hr, rtol=tol, atol=tol),
+          f"selective_scan {name}: differs from the plain version beyond {tol}")
+    err_y = (y.float() - yr.float()).abs().max().item()
+    err_h = (h - hr).abs().max().item()
+    print(f"[scan] {name} {str(dtype)[6:]}: max|Δy| {err_y:.3g}, max|Δh| {err_h:.3g} vs "
+          f"plain (tol {tol}); max|y| {yr.float().abs().max().item():.3g}")
+    return max(err_y, err_h)
+
+
 def phase_scan_kernels(dev) -> dict:
     from repro_torch.kernels.ssm_scan import selective_scan, selective_scan_ref
 
+    _scan_build_check()
     gen = torch.Generator(device=dev).manual_seed(0)
     max_err = 0.0
     for case in SCAN_CASES + [SCAN_SERVING]:
-        dtype, tol = case[4], SCAN_TOL[case[4]]
-        ins = _scan_inputs(*case, gen, dev)
-        y, h = selective_scan(*ins)
-        yr, hr = selective_scan_ref(*ins)
-        torch.cuda.synchronize()
-        check(y.dtype == dtype and y.shape == ins[3].shape and h.dtype == torch.float32
-              and h.shape == hr.shape, f"selective_scan {case}: bad output")
-        check(torch.allclose(y.float(), yr.float(), rtol=tol, atol=tol)
-              and torch.allclose(h, hr, rtol=tol, atol=tol),
-              f"selective_scan {case}: differs from the plain version beyond {tol}")
-        err_y = (y.float() - yr.float()).abs().max().item()
-        err_h = (h - hr).abs().max().item()
-        max_err = max(max_err, err_y, err_h)
-        print(f"[scan] {case[:4]} {str(dtype)[6:]}: max|Δy| {err_y:.3g}, max|Δh| "
-              f"{err_h:.3g} vs plain (tol {tol}); max|y| {yr.float().abs().max().item():.3g}")
+        max_err = max(max_err, _scan_case_check(str(case[:4]), _scan_inputs(*case, gen, dev)))
+    for case, k_delta, k_x in SCAN_OFFSET_CASES:
+        delta, B, C, x, A_log = _scan_inputs(*case, gen, dev)
+        ins = (_offset_copy(delta, k_delta), B, C, _offset_copy(x, k_x), A_log)
+        check(ins[0].data_ptr() % 16 != 0, "the offset case's delta starts on a boundary")
+        max_err = max(max_err, _scan_case_check(
+            f"{case[:4]} delta, x {k_delta}, {k_x} elements off", ins))
 
     ins = _scan_inputs(*SCAN_SERVING, gen, dev)
     y, h = selective_scan(*ins)

@@ -1,8 +1,10 @@
 """Mamba-1 selective scan (the prefill recurrence of every Mamba layer).
 
-  csrc/selective_scan.cu — the Hopper kernel: one thread per channel
-      (batch row, d) keeps its N states in registers and walks time in
-      chunks staged through shared memory;
+  csrc/selective_scan.cu — the Hopper kernel: two lanes share a channel
+      (batch row, d), each keeping 8 of its states in registers, take each
+      decay as one ``ex2.approx`` on the SFU, and walk time in chunks that
+      ``cp.async`` streams through a 2-stage shared-memory ring while the
+      previous chunk is scanned;
   ops.py — ``selective_scan``: the kernel for CUDA tensors, the plain
       version for CPU tensors, with input checks and a launch count;
   ref.py — ``selective_scan_ref``: the plain version.

@@ -6,21 +6,27 @@ the current stream, without synchronizing; CPU tensors run the plain
 PyTorch version in ``ref.py``, which is how a caller asks for the CPU.
 There is no fallback between the two: a CUDA input that the kernel
 cannot take raises.  ``selective_scan.launches`` counts kernel launches.
-The Pallas op's ``chunk`` / ``block_d`` are TPU tile sizes and have no
+
+The kernel splits each channel's N <= 16 states across two lanes of a
+warp, takes each decay as one ``ex2.approx`` of delta·A·log2(e), and
+streams delta and x through a two-stage ring of 32-step chunks in shared
+memory with ``cp.async``; its header comment has the design.  Beyond the
+shapes, it needs contiguous tensors and a batch that fits its grid.  The
+Pallas op's ``chunk`` / ``block_d`` are TPU tile sizes and have no
 counterpart here.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ssm_scan.ref import selective_scan_ref
 
-#: Largest state size N the kernel takes (its per-thread state registers).
+#: Largest state size N the kernel takes (its per-channel state registers).
 MAX_STATE = 16
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -56,12 +62,18 @@ def _check(delta: torch.Tensor, B: torch.Tensor, C: torch.Tensor, x: torch.Tenso
         raise ValueError(f"selective_scan kernel takes a state size N <= {MAX_STATE}, "
                          f"got {n}")
     if dev.type == "cuda":
-        if b > 65535:
-            raise ValueError(f"selective_scan kernel grid too large for batch {b}")
-        for name, t in zip(("delta", "B", "C", "x", "A_log"), ins):
-            if not t.is_contiguous():
-                raise ValueError(f"selective_scan: {name} must be contiguous")
+        _check_kernel_layout(ins)
     return dev
+
+
+def _check_kernel_layout(ins: Sequence[torch.Tensor]) -> None:
+    """What the kernel needs of delta, B, C, x, A_log beyond their shapes:
+    a batch that fits its grid (grid.y) and contiguous tensors."""
+    if ins[0].shape[0] > 65535:
+        raise ValueError(f"selective_scan kernel grid too large for batch {ins[0].shape[0]}")
+    for name, t in zip(("delta", "B", "C", "x", "A_log"), ins):
+        if not t.is_contiguous():
+            raise ValueError(f"selective_scan: {name} must be contiguous")
 
 
 def selective_scan(delta: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
