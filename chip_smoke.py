@@ -9,10 +9,18 @@ printing its seconds:
 1. device — the card's name and power limit; TF32 off for matmul and cuDNN;
 2. build — compile the port's CUDA kernels from this checkout's sources,
    one ``nvcc`` per source, all started together;
-3. kernels — ``grid_argmin`` against its plain PyTorch version on the card,
-   on the Table II sweep (both grid shapes), a roofline (max-delay)
-   platform and an infeasible row; times the kernel, its plain version and
-   its bound;
+3. kernels — the ``grid_argmin`` kernel's ptxas report (no spill bytes);
+   ``grid_argmin`` against its plain PyTorch version on the card, on the
+   Table II sweep (both grid shapes), a roofline (max-delay) platform, an
+   infeasible row, Table II's sweep on the 5 mV (61 x 91) and 1 mV
+   (301 x 451) grids, every row on a 13 x 4501 grid (0.1 mV bram
+   steps: grids read from device memory, table windows that start
+   mid-row), the 5 mV sweep at 40 levels a row, shuffled (two passes), and
+   the 5 mV sweep with a term at pw_v0 moved right after the core power
+   terms (the leading run of one rail then ends before it); times the
+   kernel at the Table II shape and on both fine grids beside its plain
+   version, its bound and the launch floor;
+   ``compare_all_batched(..., v_step=0.005)`` on ``cuda`` against the CPU;
 4. main path — ``compare_all_batched`` on ``cuda`` for Table II (five
    accelerators × six techniques, 8 nodes, 25 bins) at 2048 and 1024 steps:
    the kernel launch count of each run, the per-accelerator gains, the
@@ -83,6 +91,10 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
 POWER_RTOL = 1e-5
+# Table II's sweep on finer voltage grids: 61 x 91 and 301 x 451 points.
+ARGMIN_FINE = {"fine_5mV": 0.005, "fine_1mV": 0.001}
+ARGMIN_PLAIN_ELEMENTS = 2e8   # of one [P, rows, M, C, B, T] temporary of a plain call
+ARGMIN_WIDE_BRAM_STEP = 1e-4  # 13 x 4501: grids past shared memory, windows mid-row
 NEAR_TIE_RTOL = 1e-6
 SUMMARY_RTOL = 1e-5
 GAIN_ATOL = 0.006   # BENCH_fleet.json prints gains to two decimals
@@ -212,6 +224,7 @@ def _sweep_cases(dev):
     from repro_torch.core.accelerators import ACCELERATORS
 
     cfg = ctl.ControllerConfig()
+    default = volt.VoltageGrids.default()
     fpga = char.stack_platform_params(
         [ctl.fpga_platform(a).params for a in ACCELERATORS.values()])
     tpu = char.stack_platform_params(
@@ -225,20 +238,90 @@ def _sweep_cases(dev):
         rows = [levels] * len(ctl.TECHNIQUES) + list(f_node)
         return torch.stack(masks), torch.stack(rows)
 
-    default = volt.VoltageGrids.default()
-    grids, _, masks, rows = ctl._sweep_rows(cfg, ctl.DEFAULT_TECHNIQUES)
-    no_nominal = torch.ones(1, *masks.shape[1:], dtype=torch.bool)
+    def table2(v_step):
+        grids, _, masks, rows = ctl._sweep_rows(ctl.ControllerConfig(v_step=v_step),
+                                                ctl.DEFAULT_TECHNIQUES)
+        return fpga, masks, rows, grids
+
+    def many_levels(params, masks, _, grids):
+        # 40 levels a row, in no order: two passes of the kernel's levels
+        lv = torch.linspace(0.05, 1.0, 40)[torch.randperm(40, generator=torch.Generator()
+                                                          .manual_seed(0))]
+        return params, masks, lv.expand(masks.shape[0], 40).contiguous(), grids
+
+    def fixed_after_core(params):
+        # Each platform's power terms reordered: the core terms, then one term
+        # at pw_v0, then the rest, so a term at pw_v0 follows the core run.
+        order = []
+        for rails in params.pw_rail.tolist():
+            core = [i for i, r in enumerate(rails) if r == char.RAIL_CORE]
+            fixed = [i for i, r in enumerate(rails)
+                     if r not in (char.RAIL_CORE, char.RAIL_BRAM)][:1]
+            order.append(core + fixed + [i for i in range(len(rails))
+                                         if i not in core + fixed])
+        order = torch.tensor(order)
+        return char.PlatformParams(*[x.gather(1, order) if f.startswith("pw_") else x
+                                     for f, x in zip(params._fields, params)])
+
+    # A 0.1 mV bram grid: C + B past the kernel's staged grids, and a bram row
+    # longer than a table window, so windows start mid-row.
+    wide = volt.VoltageGrids(core=default.core, bram=char.BRAM_RAIL.grid(ARGMIN_WIDE_BRAM_STEP))
+
+    no_nominal = torch.ones(1, len(default.core), len(default.bram), dtype=torch.bool)
     no_nominal[0, -1, -1] = False
     cases = {
-        "table2": (fpga, masks, rows, grids),
+        "table2": table2(cfg.v_step),
         "all_rows_default": (fpga, *all_rows(default), default),
         "all_rows_core_only": (fpga, *all_rows(volt.VoltageGrids.core_only()),
                                volt.VoltageGrids.core_only()),
         "tpu_max_delay": (tpu, *all_rows(default), default),
         "infeasible": (fpga, no_nominal, torch.ones(1, cfg.n_bins), default),
+        **{name: table2(step) for name, step in ARGMIN_FINE.items()},
+        "wide_bram": (fpga, *all_rows(wide), wide),
+        "levels_40": many_levels(*table2(ARGMIN_FINE["fine_5mV"])),
+        "fixed_after_core_5mV": (fixed_after_core(fpga),
+                                 *table2(ARGMIN_FINE["fine_5mV"])[1:]),
     }
     return {k: (p.to(dev), m.to(dev), lv.to(dev), g.to(dev))
             for k, (p, m, lv, g) in cases.items()}
+
+
+def _argmin_plain(params, masks, levels, grids):
+    """The plain version, a few rows a call: on the 1 mV grid one call over all
+    rows would hold [P, R, M, C, B, T] temporaries of 6.5 GB each.  Rows are
+    independent, so the result is the one call's."""
+    from repro_torch.core import voltage as volt
+    from repro_torch.kernels.grid_argmin import grid_argmin_ref
+
+    per_row = params.pw_dyn.numel() * masks[0].numel() * levels.shape[-1]
+    step = max(1, int(ARGMIN_PLAIN_ELEMENTS // per_row))
+    parts = [grid_argmin_ref(params, masks[i:i + step], levels[i:i + step],
+                             grids.core, grids.bram)
+             for i in range(0, masks.shape[0], step)]
+    return volt.OperatingPoint(*[torch.cat(f, 1) for f in zip(*parts)])
+
+
+def _argmin_check(name, params, masks, levels, grids, out, ref) -> tuple[float, int]:
+    """``out`` (the kernel's) against ``ref`` (the plain version's): feasible
+    equal, power within POWER_RTOL, voltages equal except at a near-tie.
+    Returns max |Δpower| and the number of near-tie flips."""
+    from repro_torch.core import characterization as char
+
+    torch.cuda.synchronize()
+    check(torch.equal(out.feasible, ref.feasible), f"{name}: feasible differs")
+    check(torch.allclose(out.power, ref.power, rtol=POWER_RTOL, atol=POWER_RTOL),
+          f"{name}: power differs beyond {POWER_RTOL}")
+    err = (out.power - ref.power).abs().max().item()
+    # A voltage mismatch is allowed only at a near-tie: the plain version's
+    # own objective at the kernel's point is within 1e-6 of its best.
+    differs = (out.v_core != ref.v_core) | (out.v_bram != ref.v_bram)
+    per_cell = char.PlatformParams(*[x.reshape(x.shape[:1] + (1, 1) + x.shape[1:])
+                                     for x in params])
+    p_at_kernel = char.params_power(per_cell, out.v_core, out.v_bram, ref.f_rel)
+    tie = (p_at_kernel - ref.power).abs() <= NEAR_TIE_RTOL * ref.power.abs()
+    check(not bool((differs & ~tie).any()),
+          f"{name}: {(differs & ~tie).sum().item()} voltage picks differ off a tie")
+    return err, int(differs.sum().item())
 
 
 def _bound(params, masks, levels, grids, out) -> tuple[float, str]:
@@ -261,55 +344,79 @@ def _bound(params, masks, levels, grids, out) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def _argmin_build_check() -> None:
+    """The built grid_argmin kernel's ptxas report: no spill bytes."""
+    from repro_torch.kernels import _build
+
+    lib = _build.library_path("grid_argmin")
+    for line in (lib.parent / "build.log").read_text().splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"[kernels] grid_argmin ptxas: {line.strip()[:140]}")
+            spills = [int(n) for n in re.findall(r"(\d+) bytes spill", line)]
+            check(not any(spills), f"the grid_argmin kernel spills: {line.strip()}")
+
+
 def phase_kernels(dev) -> dict:
-    from repro_torch.core import characterization as char
     from repro_torch.kernels.grid_argmin import grid_argmin, grid_argmin_ref
 
-    max_err, near_ties, record = 0.0, 0, {}
-    for name, (params, masks, levels, grids) in _sweep_cases(dev).items():
+    _argmin_build_check()
+    cases = _sweep_cases(dev)
+    max_err, near_ties, outs = 0.0, 0, {}
+    for name, (params, masks, levels, grids) in cases.items():
         out = grid_argmin(params, masks, levels, grids.core, grids.bram)
-        ref = grid_argmin_ref(params, masks, levels, grids.core, grids.bram)
-        torch.cuda.synchronize()
-        check(torch.equal(out.feasible, ref.feasible), f"{name}: feasible differs")
-        check(torch.allclose(out.power, ref.power, rtol=POWER_RTOL, atol=POWER_RTOL),
-              f"{name}: power differs beyond {POWER_RTOL}")
-        err = (out.power - ref.power).abs().max().item()
+        ref = _argmin_plain(params, masks, levels, grids)
+        err, ties = _argmin_check(name, params, masks, levels, grids, out, ref)
         rel = ((out.power - ref.power).abs() / ref.power.abs()).max().item()
-        # A voltage mismatch is allowed only at a near-tie: the plain
-        # version's own objective at the kernel's point is within 1e-6 of
-        # its best.
-        differs = (out.v_core != ref.v_core) | (out.v_bram != ref.v_bram)
-        per_cell = char.PlatformParams(*[x.reshape(x.shape[:1] + (1, 1) + x.shape[1:])
-                                         for x in params])
-        p_at_kernel = char.params_power(per_cell, out.v_core, out.v_bram, ref.f_rel)
-        tie = (p_at_kernel - ref.power).abs() <= NEAR_TIE_RTOL * ref.power.abs()
-        check(not bool((differs & ~tie).any()),
-              f"{name}: {(differs & ~tie).sum().item()} voltage picks differ off a tie")
-        ties = int(differs.sum().item())
         near_ties += ties
         max_err = max(max_err, err)
         if name == "infeasible":
             check(not bool(ref.feasible.any()), "infeasible row found a feasible point")
-        print(f"[kernels] grid_argmin {name}: shape {tuple(out.power.shape)} "
-              f"max|Δpower| {err:.3g} (rel {rel:.3g}) near-tie flips {ties}")
-        if name == "table2":
-            record = dict(params=params, masks=masks, levels=levels, grids=grids,
-                          out=out)
+        print(f"[kernels] grid_argmin {name}: shape {tuple(out.power.shape)}, grid "
+              f"{len(grids.core)} x {len(grids.bram)}, max|Δpower| {err:.3g} (rel {rel:.3g}) near-tie flips {ties}")
+        outs[name] = out
     print(f"[kernels] grid_argmin near-tie flips in all cases: {near_ties}")
 
-    p, m, lv, g = (record[k] for k in ("params", "masks", "levels", "grids"))
-    launches_before = grid_argmin.launches
-    ms = device_time_ms(lambda: grid_argmin(p, m, lv, g.core, g.bram), 200)
-    plain_ms = device_time_ms(lambda: grid_argmin_ref(p, m, lv, g.core, g.bram), 20)
     one = torch.zeros(1, device=dev)
     floor_ms = device_time_ms(lambda: one.add_(1.0), 200)
-    bound_ms, bound_by = _bound(p, m, lv, g, record["out"])
-    print(f"[kernels] grid_argmin at Table II shape {tuple(record['out'].power.shape)}, "
-          f"medians: kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, bound "
-          f"{bound_ms * 1e3:.4f} us ({bound_by}), launch floor (one-element add_) "
-          f"{floor_ms * 1e3:.2f} us; {grid_argmin.launches - launches_before} timing launches")
+    launches_before = grid_argmin.launches
+    times = {}
+    for name in ("table2", *ARGMIN_FINE):
+        p, m, lv, g = cases[name]
+        ms = device_time_ms(lambda: grid_argmin(p, m, lv, g.core, g.bram), 200)
+        plain_ms = device_time_ms(
+            lambda: grid_argmin_ref(p, m, lv, g.core, g.bram) if name == "table2"
+            else _argmin_plain(p, m, lv, g), 20 if name == "table2" else 3)
+        bound_ms, bound_by = _bound(p, m, lv, g, outs[name])
+        times[name] = (ms, plain_ms, bound_ms, bound_by)
+        print(f"[kernels] grid_argmin {name} {tuple(outs[name].power.shape)} x "
+              f"{len(g.core)} x {len(g.bram)}, medians: kernel {ms * 1e3:.2f} us "
+              f"({ms / floor_ms:.2f}x the launch floor, {ms / bound_ms:.2f}x the bound), "
+              f"plain {plain_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.4f} us ({bound_by})")
+    print(f"[kernels] launch floor (one-element add_) {floor_ms * 1e3:.2f} us; "
+          f"{grid_argmin.launches - launches_before} timing launches")
+    _fine_grid_end_to_end(dev)
+    ms, plain_ms, bound_ms, bound_by = times["table2"]
     return _record("grid_argmin", "grid_argmin", "src/repro/kernels/grid_argmin/kernel.py:40",
                    max_err, ms, plain_ms, bound_ms, bound_by, None)
+
+
+def _fine_grid_end_to_end(dev) -> None:
+    """Table II's sweep at 5 mV end to end: ``compare_all_batched(...,
+    v_step=0.005)`` on the card against the CPU (256 steps)."""
+    from repro_torch.core import controller as ctl
+    from repro_torch.core import workload as wl
+    from repro_torch.core.accelerators import ACCELERATORS
+
+    platforms = [ctl.fpga_platform(acc) for acc in ACCELERATORS.values()]
+    trace = wl.generate_trace(wl.WorkloadConfig(
+        n_steps=256, mean_load=0.40, lam=1000.0, hurst=0.76, idc=500.0, seed=0))
+    step = ARGMIN_FINE["fine_5mV"]
+    cuda = ctl.compare_all_batched(platforms, trace, device=dev, v_step=step)
+    cpu = ctl.compare_all_batched(platforms, trace, device="cpu", v_step=step)
+    worst = _compare_summaries(cuda, cpu, f"v_step {step}")
+    print(f"[kernels] compare_all_batched v_step={step}, {len(platforms)} accelerators x "
+          f"256 steps, cuda vs cpu: every Summary field within {SUMMARY_RTOL} (worst rel "
+          f"{worst:.3g}), miss rates equal")
 
 
 def _record(name: str, build: str, replaces: str, max_err: float, ms: float,

@@ -6,6 +6,9 @@ current stream, without synchronizing; CPU tensors run the plain PyTorch
 version in ``ref.py``, which is how a caller asks for the CPU.  There is
 no fallback between the two: a CUDA input that the kernel cannot take
 raises.  ``grid_argmin.launches`` counts kernel launches.
+
+The kernel takes any grid whose flat indices fit an int32, and sizes its
+own launch from the card's SM count (``make_plan`` in the ``.cu``).
 """
 
 from __future__ import annotations
@@ -19,12 +22,35 @@ from repro_torch.core import voltage as volt
 from repro_torch.kernels import _build
 from repro_torch.kernels.grid_argmin.ref import grid_argmin_ref
 
-#: The kernel keeps 3·C·B floats in static-sized dynamic shared memory,
-#: which needs no opt-in up to 48 KB.
-MAX_GRID_POINTS = 48 * 1024 // (3 * 4)
+#: Largest flat grid: every flat index, and one block stride past it, fits an int32.
+MAX_FLAT_POINTS = 2**31 - 1 - 1024
 
-_ARGTYPES = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 7 + [ctypes.c_float,
-                                                          ctypes.c_void_p]
+_ARGTYPES = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 7
+             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+
+
+def _check_kernel_layout(params: char.PlatformParams, masks: torch.Tensor,
+                         levels: torch.Tensor, core_grid: torch.Tensor,
+                         bram_grid: torch.Tensor) -> None:
+    """What the kernel needs beyond dtypes and shapes: non-empty axes, a
+    launch grid within CUDA's limits, int32 flat indices and contiguous
+    tensors."""
+    n_p, n_r = params.watts_scale.shape[0], masks.shape[0]
+    m, c, b = levels.shape[-1], core_grid.shape[0], bram_grid.shape[0]
+    d, t = params.dl_weight.shape[-1], params.pw_dyn.shape[-1]
+    if min(n_p, n_r, m, c, b, d, t) < 1:
+        raise ValueError("grid_argmin: every axis must be non-empty")
+    if n_p > 65535 or n_r > 65535:
+        raise ValueError(f"grid_argmin kernel takes at most 65535 platforms and "
+                         f"rows (got {n_p}, {n_r})")
+    if c * b > MAX_FLAT_POINTS or max(d, t) >= 2**15:
+        raise ValueError(f"grid_argmin kernel: {c * b} grid points or {max(d, t)} "
+                         f"terms exceed its int32 indices")
+    tensors = {**params._asdict(), "masks": masks, "levels": levels,
+               "core_grid": core_grid, "bram_grid": bram_grid}
+    for name, x in tensors.items():
+        if not x.is_contiguous():
+            raise ValueError(f"grid_argmin: {name} must be contiguous")
 
 
 def _check(params: char.PlatformParams, masks: torch.Tensor,
@@ -57,15 +83,6 @@ def _check(params: char.PlatformParams, masks: torch.Tensor,
         if tuple(tensors[name].shape) != shape:
             raise ValueError(f"grid_argmin: {name} has shape "
                              f"{tuple(tensors[name].shape)}, want {shape}")
-    if dev.type == "cuda":
-        if min(n_p, n_r, levels.shape[-1], c, b) < 1:
-            raise ValueError("grid_argmin: every axis must be non-empty")
-        if c * b > MAX_GRID_POINTS or n_p > 65535:
-            raise ValueError(f"grid_argmin kernel takes at most {MAX_GRID_POINTS} "
-                             f"grid points and 65535 platforms (got {c * b}, {n_p})")
-        for name, t in tensors.items():
-            if not t.is_contiguous():
-                raise ValueError(f"grid_argmin: {name} must be contiguous")
     return dev
 
 
@@ -86,7 +103,7 @@ def grid_argmin(params: char.PlatformParams, masks: torch.Tensor,
     if dev.type == "cpu":
         return grid_argmin_ref(params, masks, levels, core_grid, bram_grid,
                                slack_eps=slack_eps)
-
+    _check_kernel_layout(params, masks, levels, core_grid, bram_grid)
     fn = _build.load("grid_argmin").grid_argmin_launch
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     n_p, (n_r, m) = params.watts_scale.shape[0], levels.shape
@@ -94,6 +111,7 @@ def grid_argmin(params: char.PlatformParams, masks: torch.Tensor,
     v_core, v_bram, power = (torch.empty((n_p, n_r, m), dtype=torch.float32,
                                          device=dev) for _ in range(3))
     feasible = torch.empty((n_p, n_r, m), dtype=torch.bool, device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(*[t.data_ptr() for t in params[:11]], masks.data_ptr(),
@@ -101,7 +119,7 @@ def grid_argmin(params: char.PlatformParams, masks: torch.Tensor,
                 v_core.data_ptr(), v_bram.data_ptr(), power.data_ptr(),
                 feasible.data_ptr(), n_p, n_r, m, c, b,
                 params.dl_weight.shape[-1], params.pw_dyn.shape[-1],
-                1.0 + slack_eps, stream)
+                1.0 + slack_eps, sms, stream)
     if rc != 0:
         raise RuntimeError(f"grid_argmin kernel launch failed: CUDA error {rc}")
     grid_argmin.launches += 1
