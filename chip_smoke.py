@@ -17,7 +17,10 @@ printing its seconds:
    steps: grids read from device memory, table windows that start
    mid-row), the 5 mV sweep at 40 levels a row, shuffled (two passes), and
    the 5 mV sweep with a term at pw_v0 moved right after the core power
-   terms (the leading run of one rail then ends before it); times the
+   terms (the leading run of one rail then ends before it), and the §III
+   analytic platforms (α, β) = (0, 0.4), (0.8, 0.4), (0.2, 2.0) on the
+   13 x 19 and 5 mV grids (α = 0: a BRAM delay term of weight 0; these
+   cases allow no voltage flip at all); times the
    kernel at the Table II shape and on both fine grids beside its plain
    version, its bound and the launch floor;
    ``compare_all_batched(..., v_step=0.005)`` on ``cuda`` against the CPU;
@@ -61,7 +64,27 @@ printing its seconds:
    shapes of phase 6, with one scan launch per layer; the prefill profile
    with the scan's share and a 4-step decode profile; the first 2 of the
    64 layers in float32 on ``cuda`` and on the CPU (a 64-layer float32
-   forward on the host's CPU would not fit the run's time).
+   forward on the host's CPU would not fit the run's time);
+9. figures — every ``fig4/5/6/10/12`` row of ``BENCH_fleet.json`` through
+   ``run_technique`` / ``simulate`` on ``cuda`` (the §III analytic platform
+   at 256 steps, the Table I accelerators at 1024): gains within 0.006,
+   fig10's voltage ranges and rates and fig12's lowest BRAM voltage equal at
+   the printed decimals, every ``Summary`` field within 1e-5 of the same
+   rows on the CPU, miss counts equal; the wall time and the grid_argmin
+   launches;
+10. campaign — ``python -m repro_torch.launch.campaign`` at its defaults
+   (five accelerators × ``proposed,power_gating,hybrid`` × the fifteen
+   scenarios, 4096 steps, chunk 1024) on ``cuda`` and on the CPU: every cell
+   within 1e-5 relative, miss rates and Pareto fronts equal; the wall time,
+   µs per step, and from a ``torch.profiler`` window of the streaming loop
+   the kernels per step and the device's busy share; then the
+   ``campaign/*``, ``failure/*``, ``replay/*`` and ``scheduler/*`` rows of
+   ``BENCH_fleet.json`` at 1024 steps, as ``benchmarks/run.py`` builds them:
+   gains within 0.006, rates within 2/S, fronts and flags equal (the
+   ``*/stream_reuse`` rows count JAX retraces and are skipped);
+11. long stream — one scenario × five accelerators × three techniques at
+   16384 steps in 4096-step chunks: peak device memory within 1 MiB of the
+   same campaign at 4096 steps, every cell within 1e-5 of a CPU run.
 
 It ends with a ``{"kernels": [...]}`` line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}`` as the last line.  Without a
@@ -71,12 +94,15 @@ and prints no result.  It imports neither jax nor the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -157,6 +183,14 @@ MAMBA_ARCH = "falcon-mamba-7b"
 MAMBA_F32_LAYERS = 2    # layers of the float32 card-vs-CPU check
 # An H100 SM issues 16 special-function results (ex2 of expf) per clock.
 SFU_PER_SM_CLOCK = 16
+# The §III analytic platforms of phase 3 (α, β): α = 0 zeroes the BRAM delay term.
+ANALYTIC = ((0.0, 0.4), (0.8, 0.4), (0.2, 2.0))
+FIGURES = ("fig4", "fig5", "fig6", "fig10", "fig12")
+BENCH_STEPS = 1024          # the steps of BENCH_fleet.json's rows
+BENCH_CHUNK = 512           # benchmarks/run.py's chunk at 1024 steps
+LONG_STEPS, LONG_CHUNK, LONG_SCENARIO = (4096, 16384), 4096, "node_failure"
+PEAK_SLACK_BYTES = 1 << 20
+PROFILE_STEPS = 64
 
 
 def check(cond: bool, msg: str) -> None:
@@ -267,6 +301,10 @@ def _sweep_cases(dev):
     # longer than a table window, so windows start mid-row.
     wide = volt.VoltageGrids(core=default.core, bram=char.BRAM_RAIL.grid(ARGMIN_WIDE_BRAM_STEP))
 
+    analytic = char.stack_platform_params(
+        [char.analytic_platform_params(a, b) for a, b in ANALYTIC])
+    fine = volt.VoltageGrids.default(ARGMIN_FINE["fine_5mV"])
+
     no_nominal = torch.ones(1, len(default.core), len(default.bram), dtype=torch.bool)
     no_nominal[0, -1, -1] = False
     cases = {
@@ -281,6 +319,8 @@ def _sweep_cases(dev):
         "levels_40": many_levels(*table2(ARGMIN_FINE["fine_5mV"])),
         "fixed_after_core_5mV": (fixed_after_core(fpga),
                                  *table2(ARGMIN_FINE["fine_5mV"])[1:]),
+        "analytic": (analytic, *all_rows(default), default),
+        "analytic_5mV": (analytic, *all_rows(fine), fine),
     }
     return {k: (p.to(dev), m.to(dev), lv.to(dev), g.to(dev))
             for k, (p, m, lv, g) in cases.items()}
@@ -371,6 +411,8 @@ def phase_kernels(dev) -> dict:
         max_err = max(max_err, err)
         if name == "infeasible":
             check(not bool(ref.feasible.any()), "infeasible row found a feasible point")
+        if name.startswith("analytic"):
+            check(ties == 0, f"{name}: {ties} voltage picks differ from the plain version")
         print(f"[kernels] grid_argmin {name}: shape {tuple(out.power.shape)}, grid "
               f"{len(grids.core)} x {len(grids.bram)}, max|Δpower| {err:.3g} (rel {rel:.3g}) near-tie flips {ties}")
         outs[name] = out
@@ -1031,6 +1073,353 @@ def phase_mamba_serving(dev) -> int:
     return launches
 
 
+def _bench_derived(prefixes) -> dict:
+    """``name → derived`` of BENCH_fleet.json's rows under ``prefixes``."""
+    with open(os.path.join(ROOT, "BENCH_fleet.json")) as fh:
+        benches = json.load(fh)["benches"]
+    return {k: v["derived"] for k, v in sorted(benches.items())
+            if k.split("/")[0] in prefixes}
+
+
+def _figure_run(key: str, dev, trace_1024):
+    """The run behind one figure row, as ``benchmarks/run.py`` builds it:
+    ``(Summary, TraceResult or None)``."""
+    from repro_torch.core import controller as ctl
+    from repro_torch.core.accelerators import ACCELERATORS
+
+    fig, *rest = key.split("/")
+    if fig == "fig4":
+        plat = ctl.analytic_platform(alpha=0.2, beta=0.4)
+        return ctl.run_technique(plat, np.full(256, float(rest[0][4:])), rest[1], n_nodes=64,
+                                 device=dev), None
+    if fig in ("fig5", "fig6"):
+        value = float(rest[0][5:] if fig == "fig5" else rest[0][4:])
+        plat = (ctl.analytic_platform(alpha=value, beta=0.4) if fig == "fig5"
+                else ctl.analytic_platform(alpha=0.2, beta=value))
+        return ctl.run_technique(plat, np.full(256, 0.5), rest[1], device=dev), None
+    plat = ctl.fpga_platform(ACCELERATORS[rest[0]])
+    cfg = ctl.ControllerConfig(technique="proposed")
+    res = ctl.simulate(plat, cfg, trace_1024, device=dev)
+    return ctl.summarize(plat, cfg, trace_1024, res), res
+
+
+def phase_figures(dev) -> None:
+    """Every figure row of BENCH_fleet.json on the card, against the file
+    and against the same rows on the CPU."""
+    from repro_torch.core import workload as wl
+    from repro_torch.kernels.grid_argmin import grid_argmin
+
+    rows = _bench_derived(FIGURES)
+    check(len(rows) == 56, f"BENCH_fleet.json holds {len(rows)} figure rows, want 56")
+    trace = wl.generate_trace(wl.WorkloadConfig(n_steps=BENCH_STEPS, seed=0))
+    grid_argmin.launches = 0
+    t0 = time.perf_counter()
+    cuda = {key: _figure_run(key, dev, trace) for key in rows}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = grid_argmin.launches
+    want = sum(1 for k in rows if not k.endswith(("/power_gating", "/nominal")))
+    check(launches == want, f"the figure rows launched grid_argmin {launches} times, want {want}")
+    print(f"[figures] {len(rows)} rows on cuda in {wall:.2f} s, grid_argmin launches {launches} "
+          f"(one per DVFS table build; power gating is closed form)")
+    worst = 0.0
+    for key, derived in rows.items():
+        s, res = cuda[key]
+        bench = float(re.search(r"gain=([0-9.]+)x", derived).group(1))
+        worst = max(worst, abs(s.power_gain - bench))
+        check(abs(s.power_gain - bench) <= GAIN_ATOL,
+              f"{key}: gain {s.power_gain} vs BENCH_fleet.json {derived}")
+        if key.startswith("fig10/"):
+            vc, vb = res.v_core.cpu().numpy(), res.v_bram.cpu().numpy()
+            got = (f"vcore=[{vc.min():.2f},{vc.max():.2f}];vbram=[{vb.min():.2f},{vb.max():.2f}]"
+                   f";mispred={s.misprediction_rate:.3f};qos_viol={s.qos_violation_rate:.3f}")
+            check(derived.split(";", 1)[1] == got, f"{key}: {got} vs {derived}")
+            print(f"[figures] {key}: gain={s.power_gain:.4f}x;{got}")
+        elif key.startswith("fig12/"):
+            got = f"min_vbram={res.v_bram.min().item():.2f}"
+            check(derived.split(";", 1)[1] == got, f"{key}: {got} vs {derived}")
+    print(f"[figures] all {len(rows)} gains within {GAIN_ATOL} of BENCH_fleet.json (worst |Δ| "
+          f"{worst:.4f}); fig10's voltage ranges and rates and fig12's lowest BRAM voltage equal")
+    t0 = time.perf_counter()
+    cpu = {key: _figure_run(key, "cpu", trace)[0] for key in rows}
+    worst = _compare_summaries({"figures": {k: v[0] for k, v in cuda.items()}},
+                               {"figures": cpu}, "figures")
+    print(f"[figures] the same rows on the CPU in {time.perf_counter() - t0:.2f} s: every "
+          f"Summary field within {SUMMARY_RTOL} (worst rel {worst:.3g}), miss rates equal")
+
+
+def _compare_campaigns(got: dict, want: dict, label: str) -> float:
+    """Two ``run_campaign`` results (or their JSON): every cell within
+    SUMMARY_RTOL relative, miss rates and Pareto fronts equal."""
+    check(list(got["scenarios"]) == list(want["scenarios"]), f"{label}: scenarios differ")
+    worst = 0.0
+    for plat, per_tech in want["table"].items():
+        for tech, per_scen in per_tech.items():
+            for scen, cell in per_scen.items():
+                for key, ref in cell.items():
+                    x, y = np.asarray(got["table"][plat][tech][scen][key]), np.asarray(ref)
+                    where = f"{label} {plat}/{tech}/{scen} {key}"
+                    if key in MISS_FIELDS:
+                        check(np.array_equal(x, y), f"{where}: {x} vs {y}")
+                        continue
+                    rel = float(np.max(np.abs(x - y) / np.maximum(np.abs(y), 1e-12)))
+                    worst = max(worst, rel)
+                    check(rel <= SUMMARY_RTOL or float(np.max(np.abs(x - y))) <= 1e-12,
+                          f"{where}: {x} vs {y}")
+    fronts = {p: {s: list(f) for s, f in v.items()} for p, v in got["pareto"].items()}
+    check(fronts == {p: {s: list(f) for s, f in v.items()} for p, v in want["pareto"].items()},
+          f"{label}: Pareto fronts differ")
+    return worst
+
+
+def _stream_profile(dev, cells) -> tuple:
+    """µs per step of the streaming loop at the default campaign's fleet,
+    unprofiled, and its device kernels and busy µs per step in a short
+    ``torch.profiler`` window."""
+    from repro_torch.core import characterization as char
+    from repro_torch.core import controller as ctl
+    from repro_torch.core import scenarios as scn
+    from repro_torch.core.accelerators import ACCELERATORS
+
+    platforms = [ctl.fpga_platform(a) for a in ACCELERATORS.values()]
+    cfg = ctl.ControllerConfig()
+    names, traces, avail = scn.build_suite(None, n_steps=4 * PROFILE_STEPS)
+    params = char.stack_platform_params([p.params for p in platforms])
+    tables = ctl.fleet_bin_tables(params, cfg, ("proposed", "power_gating", "hybrid"),
+                                  device=dev)
+    tab = ctl.BinTables(*[x[:, :, None].expand(x.shape[:2] + (len(names),) + x.shape[2:])
+                          for x in tables])
+    check(int(np.prod(tab.capacity.shape[:-1])) == cells, "profile fleet differs")
+
+    def run(n):
+        ctl.simulate_fleet_stream(tab, traces[None, None, :, :n], cfg, chunk_size=n,
+                                  avail=avail[None, None, :, :n], device=dev)
+
+    run(PROFILE_STEPS)
+    step_s = _median_s(lambda: run(4 * PROFILE_STEPS), 3) / (4 * PROFILE_STEPS)
+    kernels = _device_kernels(lambda: run(PROFILE_STEPS))
+    if not kernels:
+        return step_s, None, None
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / PROFILE_STEPS
+    return step_s, len(kernels) / PROFILE_STEPS, busy
+
+
+def _derived_tokens(derived: str) -> list:
+    """``k=v;…`` → ``[(key, token), …]``, a value's ``/``-parts apart."""
+    return [(k, tok) for item in derived.split(";") for k, v in [item.split("=", 1)]
+            for tok in v.split("/")]
+
+
+def _check_bench_row(name: str, got: str, want: str, n_steps: int) -> None:
+    """A BENCH row rebuilt by the port (``got``, at full precision) against
+    the file's (``want``): gains (``…x``), ``avail`` and ``power_w`` within
+    0.006, ratios within 0.0006, rates within 2/S, the rest equal."""
+    g, w = _derived_tokens(got), _derived_tokens(want)
+    check([k for k, _ in g] == [k for k, _ in w], f"{name}: keys {got} vs {want}")
+    rate_keys = ("qos_viol", "qos", "worst_tenant_qos", "t_viol", "t_starve")
+    for (key, a), (_, b) in zip(g, w):
+        if key in ("front", "ok", "qos_ok", "samples", "interval_s"):
+            check(a == b, f"{name}: {key} {a} vs {b} ({got} vs {want})")
+            continue
+        rate = key in rate_keys or b.startswith("q")
+        x, y = float(a.strip("qx")), float(b.strip("qx"))
+        tol = (2.0 / n_steps if rate else GAIN_ATOL if b.endswith("x")
+               or key in ("avail", "power_w") else 6e-4)
+        check(abs(x - y) <= tol, f"{name}: {key} {x} vs {y} beyond {tol} ({got} vs {want})")
+
+
+def _bench_campaign_rows(dev) -> dict:
+    """benchmarks/run.py's campaign, failure, replay and scheduler rows at
+    1024 steps through the port on ``dev``, numbers at full precision; the
+    retrace counters (``*/stream_reuse``) have no counterpart."""
+    from repro_torch.core import controller as ctl
+    from repro_torch.core import scenarios as scn
+    from repro_torch.core import traces as tr
+    from repro_torch.core.accelerators import ACCELERATORS
+
+    n, chunk = BENCH_STEPS, BENCH_CHUNK
+    two = [ctl.fpga_platform(ACCELERATORS[a]) for a in ("tabla", "stripes")]
+    tabla = [ctl.fpga_platform(ACCELERATORS["tabla"])]
+    rows = {}
+
+    def mean_cell(out, plats, tech, scen):
+        cell = [out["table"][p.name][tech][scen] for p in plats]
+        return {k: float(np.mean([c[k] for c in cell]))
+                for k in ("power_gain", "power_gain_vs_configured", "mean_avail_nodes",
+                          "qos_violation_rate")}
+
+    techs = ("proposed", "power_gating", "hybrid")
+    names = ("burse", "diurnal", "flash_crowd", "node_failure")
+    out = scn.run_campaign(two, scenario_names=names, techniques=techs, n_steps=n,
+                           chunk_size=chunk, device=dev)
+    for scen in names:
+        g = {t: mean_cell(out, two, t, scen)["power_gain"] for t in techs}
+        q = mean_cell(out, two, "proposed", scen)["qos_violation_rate"]
+        rows[f"campaign/{scen}"] = (f"prop={g['proposed']:.6f}x;pg={g['power_gating']:.6f}x"
+                                    f";hyb={g['hybrid']:.6f}x;qos_viol={q:.6f}")
+
+    techs = ("proposed", "power_gating", "hybrid", "headroom")
+    fails = ("node_failure", "rack_failure", "cascade", "flaky_fleet")
+    out = scn.run_campaign(two, scenario_names=("burse",) + fails, techniques=techs,
+                           n_steps=n, chunk_size=chunk, device=dev)
+    for tech in techs:
+        c = mean_cell(out, two, tech, "node_failure")
+        rows[f"failure/node_failure/{tech}"] = (
+            f"gain={c['power_gain']:.6f}x;vs_cfg={c['power_gain_vs_configured']:.6f}x"
+            f";avail={c['mean_avail_nodes']:.6f};qos_viol={c['qos_violation_rate']:.6f}")
+    for scen in fails[1:]:
+        h, y = mean_cell(out, two, "hybrid", scen), mean_cell(out, two, "headroom", scen)
+        rows[f"failure/{scen}"] = (f"hyb={h['power_gain']:.6f}x/q{h['qos_violation_rate']:.6f}"
+                                   f";hr={y['power_gain']:.6f}x/q{y['qos_violation_rate']:.6f}"
+                                   f";avail={y['mean_avail_nodes']:.6f}")
+    for scen in fails:
+        front = scn.pareto_front({t: mean_cell(out, two, t, scen) for t in techs})
+        rows[f"failure/pareto/{scen}"] = "front=" + ",".join(front)
+    g = mean_cell(out, two, "headroom", "node_failure")
+    ok = g["qos_violation_rate"] < 0.5 and g["power_gain"] >= 2.5
+    rows["failure/headroom_gate"] = (f"qos_viol={g['qos_violation_rate']:.6f}"
+                                     f";gain={g['power_gain']:.6f}x;ok={int(ok)}")
+
+    replays = ("replay_azure_vm_cpu", "replay_google_cluster", "cloud_mix")
+    techs = ("proposed", "power_gating", "hybrid")
+    out = scn.run_campaign(tabla, scenario_names=replays, techniques=techs, n_steps=n,
+                           chunk_size=chunk, device=dev)
+    row = out["table"][tabla[0].name]
+    for scen in replays:
+        rows[f"replay/{scen}"] = (f"prop={row['proposed'][scen]['power_gain']:.6f}x"
+                                  f";hyb={row['hybrid'][scen]['power_gain']:.6f}x"
+                                  f";qos={row['proposed'][scen]['qos_violation_rate']:.6f}")
+    for name, src in sorted(tr.bundled_sources().items()):
+        rows[f"replay/source/{name}"] = (f"samples={src.n_samples};interval_s={src.interval_s:g}"
+                                         f";mean={src.utilization.mean():.6f}")
+
+    cells = {}
+    for label, tech, sched in (("sched_dvfs", "hybrid", "priority"),
+                               ("dvfs_only", "hybrid", "none"),
+                               ("placement_only", "power_gating", "priority")):
+        out = scn.run_campaign(tabla, techniques=(tech,), scheduler=sched,
+                               scenario_names=("multi_tenant",), n_steps=n, chunk_size=chunk,
+                               tenants=3, device=dev)
+        c = cells[label] = out["table"][tabla[0].name][tech]["multi_tenant"]
+        rows[f"scheduler/{label}"] = (
+            f"power_w={c['mean_power_w']:.6f}"
+            f";worst_tenant_qos={c['worst_tenant_qos_violation']:.6f}"
+            ";t_viol=" + "/".join(f"{v:.6f}" for v in c["tenant_qos_violation_rate"])
+            + ";t_starve=" + "/".join(f"{v:.6f}" for v in c["tenant_starvation_rate"]))
+    s, d, p = (cells[k] for k in ("sched_dvfs", "dvfs_only", "placement_only"))
+    worst = "worst_tenant_qos_violation"
+    qos_ok = s[worst] <= d[worst] + 1e-9 and s[worst] <= p[worst] + 1e-9
+    rows["scheduler/cooptimization"] = (
+        f"power_vs_dvfs_only={s['mean_power_w'] / d['mean_power_w']:.6f}"
+        f";power_vs_placement_only={s['mean_power_w'] / p['mean_power_w']:.6f}"
+        f";qos_ok={int(qos_ok)}")
+    return rows
+
+
+def phase_campaign(dev) -> None:
+    """The campaign CLI at its defaults on the card and on the CPU, its
+    step loop's profile, and BENCH_fleet.json's campaign-path rows."""
+    from repro_torch.kernels.grid_argmin import grid_argmin
+    from repro_torch.launch import campaign
+
+    tables, res = {}, {}
+
+    def cli(argv, device):
+        # the printed table has a block per scenario: the first is shown
+        with tempfile.TemporaryDirectory() as tmp, \
+                contextlib.redirect_stdout(io.StringIO()) as out:
+            path = os.path.join(tmp, "campaign.json")
+            rc = campaign.main(argv + ["--json", path])
+            with open(path) as fh:
+                res[device] = json.load(fh)
+        tables[device] = out.getvalue()
+        return rc
+
+    grid_argmin.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    check(cli([], "cuda") == 0, "campaign.main failed on cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = grid_argmin.launches
+    check(launches == 1, f"the campaign launched grid_argmin {launches} times, want 1")
+    t0 = time.perf_counter()
+    check(cli(["--device", "cpu"], "cpu") == 0, "campaign.main failed on the CPU")
+    cpu_s = time.perf_counter() - t0
+    first = tables["cuda"].split("\n\n")[1]
+    print("\n".join(f"[campaign]   {line}" for line in first.splitlines()))
+    steps = res["cuda"]["n_steps"]
+    cells = sum(len(s) for t in res["cuda"]["table"].values() for s in t.values())
+    worst = _compare_campaigns(res["cuda"], res["cpu"], "campaign")
+    print(f"[campaign] python -m repro_torch.launch.campaign (defaults: {cells} cells x "
+          f"{steps} steps, chunk 1024) on cuda: {wall:.2f} s, {wall / steps * 1e6:.1f} us per "
+          f"step, grid_argmin launches {launches}; on the CPU {cpu_s:.2f} s; every cell "
+          f"within {SUMMARY_RTOL} (worst rel {worst:.3g}), miss rates and Pareto fronts equal")
+    step_s, per_step, busy = _stream_profile(dev, cells)
+    if per_step is None:
+        print("[campaign] the profiler saw no device work: kernels per step and busy share "
+              "not measured")
+    else:
+        print(f"[campaign] streaming loop at {cells} cells: {step_s * 1e6:.1f} us per step "
+              f"(median of 3 runs of {4 * PROFILE_STEPS} steps); profile of {PROFILE_STEPS} "
+              f"steps: {per_step:.1f} device kernels per step, {busy:.1f} us device busy per "
+              f"step = {busy / (step_s * 1e6):.1%} of the unprofiled step")
+
+    bench = _bench_derived(("campaign", "failure", "replay", "scheduler"))
+    t0 = time.perf_counter()
+    grid_argmin.launches = 0
+    got = _bench_campaign_rows(dev)
+    torch.cuda.synchronize()
+    rows_s, launches = time.perf_counter() - t0, grid_argmin.launches
+    skipped = sorted(k for k in bench if k.endswith(("/stream_reuse", "stream_reuse_onoff",
+                                                     "stream_reuse_tenant_width")))
+    check(sorted(got) == sorted(set(bench) - set(skipped)),
+          f"BENCH rows differ: {sorted(set(got) ^ (set(bench) - set(skipped)))}")
+    for name in sorted(got):
+        _check_bench_row(name, got[name], bench[name], BENCH_STEPS)
+    print(f"[campaign] {len(got)} campaign/failure/replay/scheduler rows of BENCH_fleet.json "
+          f"on cuda at {BENCH_STEPS} steps in {rows_s:.2f} s (grid_argmin launches "
+          f"{launches}): gains within {GAIN_ATOL}, rates within 2/S, fronts and flags equal")
+    for name in ("failure/headroom_gate", "scheduler/cooptimization"):
+        print(f"[campaign]   {name}: {got[name]}")
+    print(f"[campaign] skipped {skipped}: they count JAX retraces, which the port has no "
+          f"counter for yet (ROADMAP A13)")
+
+
+def phase_long_stream(dev) -> None:
+    """One scenario's campaign at 4096 and 16384 steps in 4096-step chunks:
+    the peak device memory must not grow with the trace, and the longer
+    run's cells match a CPU run."""
+    from repro_torch.core import controller as ctl
+    from repro_torch.core import scenarios as scn
+    from repro_torch.core.accelerators import ACCELERATORS
+
+    platforms = [ctl.fpga_platform(a) for a in ACCELERATORS.values()]
+    kw = dict(scenario_names=(LONG_SCENARIO,), techniques=("proposed", "power_gating", "hybrid"),
+              chunk_size=LONG_CHUNK)
+    peaks, out = {}, {}
+    for n in LONG_STEPS:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out[n] = scn.run_campaign(platforms, n_steps=n, device=dev, **kw)
+        torch.cuda.synchronize()
+        peaks[n] = torch.cuda.max_memory_allocated()
+        print(f"[long] {LONG_SCENARIO} x {len(platforms)} accelerators x 3 techniques, {n} "
+              f"steps in {LONG_CHUNK}-step chunks on cuda: {time.perf_counter() - t0:.2f} s, "
+              f"peak device memory {peaks[n]} bytes")
+    short, long_ = LONG_STEPS
+    grow = peaks[long_] - peaks[short]
+    check(abs(grow) <= PEAK_SLACK_BYTES, f"peak device memory grew by {grow} bytes from "
+          f"{short} to {long_} steps")
+    t0 = time.perf_counter()
+    cpu = scn.run_campaign(platforms, n_steps=long_, device="cpu", **kw)
+    worst = _compare_campaigns(out[long_], cpu, "long stream")
+    print(f"[long] peak device memory at {long_} steps - at {short}: {grow} bytes (limit "
+          f"{PEAK_SLACK_BYTES}); the {long_}-step cells on the CPU ({time.perf_counter() - t0:.2f}"
+          f" s) within {SUMMARY_RTOL} (worst rel {worst:.3g}), miss rates equal")
+
+
 def _timed(label: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -1055,6 +1444,9 @@ def main() -> int:
         record["launches"] = flash_launches[record["name"]]
     scan = _timed("7 scan kernels", phase_scan_kernels, dev)
     scan["launches"] = _timed("8 mamba serving path", phase_mamba_serving, dev)
+    _timed("9 figures", phase_figures, dev)
+    _timed("10 campaign", phase_campaign, dev)
+    _timed("11 long stream", phase_long_stream, dev)
     records = [argmin, *flash, scan]
     print(f"[time] all phases: {time.perf_counter() - t0:.2f} s")
     print("kernels: " + ", ".join(r["name"] for r in records))

@@ -9,10 +9,16 @@ Mirrors the JAX package's layout and imports neither jax nor ``repro``:
   core.voltage          — voltage grids, technique masks, grid argmin
   core.predictors       — markov / persistence forecasters over ``[K]`` cells
   core.scheduler        — tenant plane and per-step scheduling math
-  core.controller       — fleet tables, the §V step loop, Table II summaries
+  core.controller       — fleet tables, the §V step loop, the streaming
+                          fleet engine, Table II and figure summaries
+  core.traces           — recorded utilization traces: load, resample, mix
+  core.scenarios        — the named scenario library and ``run_campaign``
+  runtime.fault         — correlated fleet-failure models (numpy)
+  runtime.elastic       — the usable mesh of a fleet that lost nodes
   kernels.grid_argmin   — the table sweep: a CUDA kernel plus its plain
                           PyTorch version
   convert               — JAX-side ``PlatformParams`` leaves → tensors
+  launch.serve, launch.campaign — the command-line entry points
 
 Entry points take an explicit ``device``.  Left unset it means the CUDA
 card, and a machine without one raises instead of falling back to the CPU;

@@ -16,8 +16,14 @@ Port of the materialized fleet path of ``repro.core.controller``:
   :class:`Summary` metrics on the host, in numpy, exactly as the JAX
   package does;
 * the single-platform path — :func:`build_bin_tables`, :func:`simulate`,
-  :func:`summarize` — is the fleet path on a one-platform fleet (the JAX
-  package's closure path, which it holds equal to its fleet path).
+  :func:`summarize`, :func:`run_technique`, :func:`compare_all` — is the
+  fleet path on a one-platform fleet (the JAX package's closure path, which
+  it holds equal to its fleet path); :func:`analytic_platform` is the §III
+  (α, β) model of the paper's Fig. 4–6 sweeps;
+* :func:`simulate_fleet_stream` is the streaming engine of every campaign:
+  the trace goes to the device ``[K, C]`` (or ``[K, C, T]`` with a tenant
+  plane) one chunk at a time, the ``Summary`` reductions ride the step
+  loop, and memory never grows with the trace length.
 
 Entry points take ``device``: ``None`` means the CUDA card and raises on
 a machine without one; ``"cpu"`` runs the plain path.
@@ -26,7 +32,7 @@ a machine without one; ``"cpu"`` runs the plain path.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, NamedTuple, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -69,6 +75,20 @@ def fpga_platform(acc: Accelerator, activity: float = 0.125,
         name=f"fpga:{acc.name}",
         params=char.fpga_platform_params(acc.util, acc.device(), acc.alpha,
                                          mix, activity, watts_nominal),
+        watts_nominal=watts_nominal)
+
+
+def analytic_platform(alpha: float = 0.2, beta: float = 0.4,
+                      watts_nominal: float = 20.0) -> PlatformSpec:
+    """The §III motivational model: Eq. 1-3 with free (α, β).
+
+    Delay ``(D_l(V_core) + α·D_m(V_bram)) / (1+α)``; power the core-rail
+    mix plus ``β``-weighted BRAM power, so nominal power is ``1 + β``
+    (``params.nominal_power_arb``) — the Fig. 4/5/6 sweeps.
+    """
+    return PlatformSpec(
+        name=f"analytic:a{alpha}b{beta}",
+        params=char.analytic_platform_params(alpha, beta, watts_nominal),
         watts_nominal=watts_nominal)
 
 
@@ -377,7 +397,9 @@ class Summary:
 
 
 class _StepOut(NamedTuple):
-    """Per-step ``[K]`` fields of one §V control step."""
+    """Per-step fields of one §V control step: ten aggregate ``[K]``
+    fields, then the per-tenant ``[K, T]`` outcome the streaming
+    reductions read."""
 
     power: torch.Tensor
     capacity: torch.Tensor
@@ -389,6 +411,15 @@ class _StepOut(NamedTuple):
     v_bram: torch.Tensor
     f_rel: torch.Tensor
     n_active: torch.Tensor
+    tenant_served: torch.Tensor
+    tenant_backlog: torch.Tensor
+    tenant_violation: torch.Tensor
+    tenant_starved: torch.Tensor
+
+
+#: Per-step fields ``emit=`` may request — the aggregate ``[K]`` ones.
+_EMITTABLE = ("power", "capacity", "violation", "backlog", "predicted_bin",
+              "actual_bin", "v_core", "v_bram", "f_rel", "n_active")
 
 
 def _at(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -424,7 +455,7 @@ def _headroom_bump(tables: BinTables, cfg: ControllerConfig,
                         * cfg.n_nodes, 1.0, n)
     spare = torch.ceil(tables.headroom * cfg.n_nodes - 1e-9)
     a_res = torch.clamp(torch.maximum(a_hat, cfg.n_nodes - spare), max=n)
-    needed = torch.minimum((selected + 1.0) / m + backlog_agg,
+    needed = torch.minimum(sched_mod.div_static(selected + 1.0, m) + backlog_agg,
                            tables.capacity.amax(-1))
     delivered = tables.capacity * (
         torch.minimum(tables.n_active, a_res[:, None])
@@ -485,7 +516,10 @@ def _control_step(tables: BinTables, cfg: ControllerConfig, carry: _Carry,
                    backlog=alloc.backlog.sum(-1), predicted_bin=predicted,
                    actual_bin=actual, v_core=_at(tables.v_core, selected),
                    v_bram=_at(tables.v_bram, selected),
-                   f_rel=_at(tables.f_rel, selected), n_active=n_act)
+                   f_rel=_at(tables.f_rel, selected), n_active=n_act,
+                   tenant_served=alloc.served, tenant_backlog=alloc.backlog,
+                   tenant_violation=alloc.violation,
+                   tenant_starved=alloc.starved)
     return (mstate, astate, alloc.backlog, alloc.place), out
 
 
@@ -504,19 +538,15 @@ def _scan_control_loop(tables: BinTables, cfg: ControllerConfig,
     carry = (pred_mod.init_state(cfg.predictor, k, dev),
              pred_mod.init_state(cfg.avail_predictor, k, dev),
              torch.zeros((k, 1), device=dev), torch.zeros((k, 1), device=dev))
-    outs = []
+    outs = {e: [] for e in _EMITTABLE}
     for t in range(s):
         carry, out = _control_step(tables, cfg, carry, traces[:, t, None],
                                    avail[:, t], spec, sched, any_headroom)
-        outs.append(out)
+        for e in _EMITTABLE:
+            outs[e].append(getattr(out, e))
     mstate = carry[0]
-    steps = _StepOut(*[torch.stack(xs, dim=-1) for xs in zip(*outs)])
-    return TraceResult(power=steps.power, capacity=steps.capacity,
-                       violations=steps.violation, backlog=steps.backlog,
-                       predicted_bin=steps.predicted_bin,
-                       actual_bin=steps.actual_bin, v_core=steps.v_core,
-                       v_bram=steps.v_bram, f_rel=steps.f_rel,
-                       n_active=steps.n_active,
+    steps = {e: torch.stack(xs, dim=-1) for e, xs in outs.items()}
+    return TraceResult(violations=steps.pop("violation"), **steps,
                        mispredictions=mstate.mispredictions,
                        margin_misses=mstate.margin_misses,
                        final_predictor=mstate)
@@ -626,12 +656,33 @@ def summarize(platform: PlatformSpec, cfg: ControllerConfig, trace,
     )
 
 
+def run_technique(platform: PlatformSpec, trace, technique: str,
+                  avail=None, device=None, **cfg_kwargs) -> Summary:
+    """One platform, one technique: :func:`simulate` then :func:`summarize`."""
+    cfg = ControllerConfig(technique=technique, **cfg_kwargs)
+    result = simulate(platform, cfg, trace, avail=avail, device=device)
+    return summarize(platform, cfg, trace, result, avail=avail)
+
+
+def compare_all(platform: PlatformSpec, trace,
+                techniques: Sequence[str] = DEFAULT_TECHNIQUES,
+                device=None, **cfg_kwargs) -> Dict[str, Summary]:
+    """:func:`run_technique` for each technique (one table build each)."""
+    return {t: run_technique(platform, trace, t, device=device, **cfg_kwargs)
+            for t in techniques}
+
+
+def _tree_map(fn, x):
+    """``fn`` on every tensor of a (nested) NamedTuple."""
+    if isinstance(x, torch.Tensor):
+        return fn(x)
+    return type(x)(*[_tree_map(fn, v) for v in x])
+
+
 def _unflatten(x, lead: Tuple[int, ...]):
     """Reshape every tensor of a (nested) NamedTuple from ``[K, ...]`` to
     ``lead + [...]``."""
-    if isinstance(x, torch.Tensor):
-        return x.reshape(lead + x.shape[1:])
-    return type(x)(*[_unflatten(v, lead) for v in x])
+    return _tree_map(lambda t: t.reshape(lead + t.shape[1:]), x)
 
 
 # ---------------------------------------------------------------------------
@@ -711,3 +762,269 @@ def summarize_fleet(platforms: Sequence[PlatformSpec],
             )
         out[plat.name] = per_tech
     return out
+
+
+# ---------------------------------------------------------------------------
+# Streaming fleet evaluation (memory independent of the trace length)
+# ---------------------------------------------------------------------------
+#
+# ``simulate_fleet`` keeps all ten per-step fields as ``[K, S]`` tensors.
+# The streaming path instead carries the Summary reductions through the step
+# loop and feeds the trace to the device one ``[K, C]`` chunk at a time: per
+# chunk one host-to-device copy per input, the steps through the one
+# ``_control_step``, then the chunk's float32 sums added on the host in
+# float64.  Per-step fields are kept only on request (``emit=``).
+
+
+class _StreamAcc(NamedTuple):
+    """Streaming carry: controller state plus the chunk's float32 sums.
+
+    ``backlog``/``place`` are per-tenant ``[K, T]`` carries; the ``t_*``
+    fields are per-tenant sums ``[K, T]`` (aggregate runs have ``T = 1``).
+    """
+
+    mstate: pred_mod.PredictorState
+    astate: pred_mod.PredictorState   # availability-plane forecaster
+    backlog: torch.Tensor       # [K, T] carried per-tenant backlog
+    place: torch.Tensor         # [K, T] per-tenant node placement
+    power_sum: torch.Tensor     # [K] Σ watts
+    viol_sum: torch.Tensor      # [K] Σ violations
+    backlog_sum: torch.Tensor   # [K] Σ aggregate backlog
+    offered_sum: torch.Tensor   # [K] Σ aggregate w_t
+    avail_sum: torch.Tensor     # [K] Σ usable nodes
+    t_viol_sum: torch.Tensor    # [K, T] Σ per-tenant QoS violations
+    t_starve_sum: torch.Tensor  # [K, T] Σ per-tenant starvation steps
+    t_served_sum: torch.Tensor  # [K, T] Σ per-tenant served work
+    t_offered_sum: torch.Tensor  # [K, T] Σ per-tenant offered work
+
+
+class FleetSummary(NamedTuple):
+    """Per-cell reductions of a streaming fleet run (host numpy).
+
+    Every field carries the tables' leading axes (``[P, T]``,
+    ``[P, T, N]``, …), never the trace length; ``emitted`` holds the
+    requested per-step fields as ``[..., S]`` arrays.  The ``tenant_*``
+    fields are ``[..., T]`` (``T = 1`` for aggregate runs; padding tenants
+    report zeros).
+    """
+
+    mean_power_w: np.ndarray
+    qos_violation_rate: np.ndarray
+    served_fraction: np.ndarray
+    mean_backlog: np.ndarray
+    final_backlog: np.ndarray
+    offered: np.ndarray
+    mispredictions: np.ndarray
+    n_steps: int
+    final_predictor: pred_mod.PredictorState
+    emitted: Dict[str, np.ndarray]
+    mean_avail_nodes: np.ndarray
+    margin_misses: np.ndarray
+    tenant_qos_violation_rate: np.ndarray
+    tenant_starvation_rate: np.ndarray
+    tenant_served_fraction: np.ndarray
+    tenant_final_backlog: np.ndarray
+
+
+def _stream_chunk(tables: BinTables, cfg: ControllerConfig, acc: _StreamAcc,
+                  chunk: torch.Tensor, avail, spec: sched_mod.TenantSpec,
+                  sched: torch.Tensor, any_headroom: bool,
+                  emit: Tuple[str, ...]
+                  ) -> Tuple[_StreamAcc, Dict[str, torch.Tensor]]:
+    """One chunk of steps on the device: ``chunk`` is ``[K, C, T]``,
+    ``avail`` ``[K, C]`` or one ``[K]`` row for every step.  The sums
+    restart at zero; nothing goes back to the host."""
+    zero = torch.zeros_like(acc.power_sum)
+    zt = torch.zeros_like(acc.backlog)
+    acc = acc._replace(power_sum=zero, viol_sum=zero, backlog_sum=zero,
+                       offered_sum=zero, avail_sum=zero, t_viol_sum=zt,
+                       t_starve_sum=zt, t_served_sum=zt, t_offered_sum=zt)
+    ys = {e: [] for e in emit}
+    for i in range(chunk.shape[1]):
+        w_t = chunk[:, i]
+        a_t = avail if avail.dim() == 1 else avail[:, i]
+        (ms, ast, bl, pl), out = _control_step(
+            tables, cfg, (acc.mstate, acc.astate, acc.backlog, acc.place),
+            w_t, a_t, spec, sched, any_headroom)
+        acc = _StreamAcc(
+            mstate=ms, astate=ast, backlog=bl, place=pl,
+            power_sum=acc.power_sum + out.power,
+            viol_sum=acc.viol_sum + out.violation.float(),
+            backlog_sum=acc.backlog_sum + out.backlog,
+            offered_sum=acc.offered_sum + (w_t * spec.active).sum(-1),
+            avail_sum=acc.avail_sum + a_t,
+            t_viol_sum=acc.t_viol_sum + out.tenant_violation.float(),
+            t_starve_sum=acc.t_starve_sum + out.tenant_starved.float(),
+            t_served_sum=acc.t_served_sum + out.tenant_served,
+            t_offered_sum=acc.t_offered_sum + w_t * spec.active)
+        for e in emit:
+            ys[e].append(getattr(out, e))
+    return acc, {e: torch.stack(y, dim=-1) for e, y in ys.items()}
+
+
+def _broadcast_tenant_traces(traces: np.ndarray, lead: Tuple[int, ...],
+                             n_tenants: int) -> np.ndarray:
+    """Expand a tenant plane to ``lead + (S, T)`` as a zero-copy view: one
+    shared ``[S, T]`` plane or per-cell planes whose leading axes match
+    ``lead`` dim for dim (1s broadcast)."""
+    traces = np.asarray(traces, np.float32)
+    if traces.ndim < 2 or traces.shape[-1] != n_tenants:
+        raise ValueError(
+            f"tenant plane must end in [S, T={n_tenants}] to match the "
+            f"tenant spec, got shape {traces.shape}")
+    if traces.ndim == 2:
+        return np.broadcast_to(traces, lead + traces.shape)
+    if (traces.ndim - 2 == len(lead)
+            and all(a == b or a == 1
+                    for a, b in zip(traces.shape[:-2], lead))):
+        return np.broadcast_to(traces, lead + traces.shape[-2:])
+    raise ValueError(
+        f"tenant plane leading axes {traces.shape[:-2]} must match the "
+        f"tables' leading axes {lead} dim-for-dim (1s broadcast), or "
+        "pass a single shared [S, T] plane")
+
+
+def _flatten_tenant_spec(spec: sched_mod.TenantSpec, lead: Tuple[int, ...],
+                         k: int, device) -> sched_mod.TenantSpec:
+    """Broadcast spec leaves (shared ``[T]`` or per-cell ``lead + (T,)``,
+    1s broadcast) to ``[K, T]`` tensors on ``device``."""
+    t = spec.n_tenants
+
+    def one(x, name):
+        x = np.asarray(x, np.float32)
+        if x.ndim == 0 or x.shape[-1] != t:
+            raise ValueError(f"tenant spec leaf {name!r} must end in "
+                             f"[T={t}], got shape {x.shape}")
+        if x.ndim == 1:
+            x = np.broadcast_to(x, lead + x.shape)
+        elif (x.ndim - 1 == len(lead)
+                and all(a == b or a == 1
+                        for a, b in zip(x.shape[:-1], lead))):
+            x = np.broadcast_to(x, lead + x.shape[-1:])
+        else:
+            raise ValueError(
+                f"tenant spec leaf {name!r} leading axes {x.shape[:-1]} "
+                f"must match the tables' leading axes {lead} dim-for-dim "
+                "(1s broadcast), or pass shared [T] leaves")
+        return torch.tensor(x.reshape(k, t), device=device)
+
+    return sched_mod.TenantSpec(*[one(x, n) for n, x in
+                                  zip(spec._fields, spec)])
+
+
+def simulate_fleet_stream(tables: BinTables, traces, cfg: ControllerConfig,
+                          chunk_size: int = 1024, emit: Sequence[str] = (),
+                          shard: bool = True, avail=None,
+                          tenant_spec: Optional[sched_mod.TenantSpec] = None,
+                          device=None) -> FleetSummary:
+    """Streaming :func:`simulate_fleet`: memory independent of the trace
+    length.
+
+    ``tables`` fields carry leading axes ``[..., M]`` that flatten into one
+    fleet axis ``K``.  ``traces`` (one shared ``[S]`` trace or per-cell
+    ``[..., S]``) and ``avail`` (the same rules; ``None`` is a healthy
+    fleet) stay stride-0 numpy views: only a ``[K, C]`` chunk
+    (``C = chunk_size``) is ever made dense and copied to the device, one
+    copy per input per chunk.  The tail chunk runs just its remaining
+    steps.  Per chunk the ``Summary`` sums accumulate in float32 on the
+    device from zero and are added on the host in float64 afterwards.
+    ``emit`` names per-step :class:`TraceResult` fields to keep as
+    ``[..., S]`` host arrays in ``FleetSummary.emitted``.
+
+    ``tenant_spec`` (shared ``[T]`` or per-cell ``lead + (T,)`` leaves)
+    switches ``traces`` to a tenant plane, shared ``[S, T]`` or per-cell
+    ``[..., S, T]``; ``cfg.scheduler`` then splits each step's capacity
+    across tenants and shapes the provisioned bin, and per-tenant QoS lands
+    in the ``tenant_*`` fields.  Without a spec the workload rides as one
+    default tenant with the scheduler off, as :func:`simulate_fleet` runs.
+
+    ``shard`` is accepted for the JAX package's signature: the port runs
+    every cell on ``device`` (on one device the JAX package pads nothing
+    either); sharding over several cards is not ported.
+    """
+    alias = {"violations": "violation"}
+    emit = tuple(emit)
+    emit_internal = tuple(alias.get(e, e) for e in emit)
+    for e, ei in zip(emit, emit_internal):
+        if ei not in _EMITTABLE:
+            per_step = tuple(f for f in TraceResult._fields
+                             if f not in ("mispredictions",
+                                          "final_predictor"))
+            raise ValueError(f"unknown emit field {e!r}; "
+                             f"choose from {per_step}")
+    dev = resolve_device(device)
+    lead = tuple(tables.capacity.shape[:-1])
+    k = int(np.prod(lead, dtype=np.int64)) if lead else 1
+    flat = BinTables(*[x.to(dev).reshape((k,) + x.shape[len(lead):])
+                       for x in tables])
+    spec_in = tenant_spec if tenant_spec is not None \
+        else sched_mod.default_tenants(1)
+    t = spec_in.n_tenants
+    if tenant_spec is None:
+        traces = _broadcast_traces(np.asarray(traces), lead)[..., None]
+    else:
+        traces = _broadcast_tenant_traces(np.asarray(traces), lead, t)
+    s = traces.shape[-2]
+    avail_full = _broadcast_avail(avail, lead, cfg.n_nodes, s)
+    c = max(1, min(int(chunk_size), s))
+    scfg = cfg.scheduler if tenant_spec is not None \
+        else sched_mod.SCHEDULERS["none"]
+    sched = sched_mod.scheduler_values(scfg, dev)
+    spec = _flatten_tenant_spec(spec_in, lead, k, dev)
+    any_headroom = bool((flat.headroom > 0).any())
+    # A healthy fleet's schedule is one constant row for every step.
+    av_const = (torch.full((k,), float(cfg.n_nodes), device=dev)
+                if avail is None else None)
+
+    zk = torch.zeros(k, device=dev)
+    zt = torch.zeros((k, t), device=dev)
+    acc = _StreamAcc(mstate=pred_mod.init_state(cfg.predictor, k, dev),
+                     astate=pred_mod.init_state(cfg.avail_predictor, k, dev),
+                     backlog=zt, place=zt, power_sum=zk, viol_sum=zk,
+                     backlog_sum=zk, offered_sum=zk, avail_sum=zk,
+                     t_viol_sum=zt, t_starve_sum=zt, t_served_sum=zt,
+                     t_offered_sum=zt)
+    sum_fields = _StreamAcc._fields[4:]
+    sums = {f: np.zeros(tuple(getattr(acc, f).shape), np.float64)
+            for f in sum_fields}
+    emitted = {e: [] for e in emit}
+    for s0 in range(0, s, c):
+        # Slicing the step axis keeps the stride-0 view: only k·C elements
+        # (k·C·T for a tenant plane) are made dense, then copied once.
+        chunk = torch.from_numpy(
+            np.array(traces[..., s0:s0 + c, :]).reshape(k, -1, t)).to(dev)
+        av = av_const if av_const is not None else torch.from_numpy(
+            np.array(avail_full[..., s0:s0 + c]).reshape(k, -1)).to(dev)
+        acc, ys = _stream_chunk(flat, cfg, acc, chunk, av, spec, sched,
+                                any_headroom, emit_internal)
+        for f in sum_fields:
+            sums[f] += getattr(acc, f).cpu().numpy().astype(np.float64)
+        for e, ei in zip(emit, emit_internal):
+            emitted[e].append(ys[ei].cpu().numpy())
+
+    def cut(x):
+        x = np.asarray(x)
+        return x.reshape(lead + x.shape[1:])
+
+    backlog = acc.backlog.cpu().numpy().astype(np.float64)
+    served = sums["offered_sum"] - backlog.sum(-1)
+    mstate = _tree_map(lambda x: x.cpu().numpy(), _unflatten(acc.mstate, lead))
+    return FleetSummary(
+        mean_power_w=cut(sums["power_sum"] / s),
+        qos_violation_rate=cut(sums["viol_sum"] / s),
+        served_fraction=cut(served / np.maximum(sums["offered_sum"], 1e-9)),
+        mean_backlog=cut(sums["backlog_sum"] / s),
+        final_backlog=cut(backlog.sum(-1)),
+        offered=cut(sums["offered_sum"]),
+        mispredictions=mstate.mispredictions,
+        n_steps=s,
+        final_predictor=mstate,
+        emitted={e: cut(np.concatenate(v, axis=-1))
+                 for e, v in emitted.items()},
+        mean_avail_nodes=cut(sums["avail_sum"] / s),
+        margin_misses=mstate.margin_misses,
+        tenant_qos_violation_rate=cut(sums["t_viol_sum"] / s),
+        tenant_starvation_rate=cut(sums["t_starve_sum"] / s),
+        tenant_served_fraction=cut(sums["t_served_sum"] / np.maximum(
+            sums["t_offered_sum"], 1e-9)),
+        tenant_final_backlog=cut(backlog))

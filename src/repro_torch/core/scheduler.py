@@ -1,5 +1,6 @@
-"""Multi-tenant scheduling math of the §V control step (port of the slice
-of ``repro.core.scheduler`` that ``controller._control_step`` calls).
+"""Multi-tenant scheduling of the §V control step (port of
+``repro.core.scheduler``): tenant classes, the scheduler registry and the
+per-step scheduling math ``controller._control_step`` calls.
 
 Every function takes tensors with a leading cell axis ``[K]`` and a
 trailing tenant axis ``[..., T]``; the scheduler's knobs ride as the
@@ -12,7 +13,7 @@ the aggregate controller bit for bit.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, NamedTuple, Sequence, Tuple
+from typing import Dict, NamedTuple, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -35,6 +36,10 @@ class TenantSpec(NamedTuple):
     latency_target: torch.Tensor
     share: torch.Tensor
     active: torch.Tensor
+
+    @property
+    def n_tenants(self) -> int:
+        return int(self.priority.shape[-1])
 
     def slack(self) -> torch.Tensor:
         """Tolerated backlog per tenant in work units (fleet-peak·τ)."""
@@ -69,6 +74,28 @@ def default_tenants(n: int = 1) -> TenantSpec:
     if n < 1:
         raise ValueError(f"need at least one tenant (got {n})")
     return make_tenants([1.0] * n, [0.0] * n, [1.0 / n] * n)
+
+
+def pad_tenants(spec: TenantSpec, n_tenants: int) -> TenantSpec:
+    """Pad a ``[T]`` spec with inert slots up to ``n_tenants``: zero share,
+    priority −1, masked out of every QoS reduction (how tenant counts sweep
+    at one width)."""
+    t = spec.n_tenants
+    if n_tenants < t:
+        raise ValueError(f"cannot pad {t} tenants down to {n_tenants}")
+    if n_tenants == t:
+        return spec
+    pad = n_tenants - t
+    return TenantSpec(
+        priority=np.concatenate([np.asarray(spec.priority, np.float32),
+                                 np.full(pad, -1.0, np.float32)]),
+        latency_target=np.concatenate(
+            [np.asarray(spec.latency_target, np.float32),
+             np.zeros(pad, np.float32)]),
+        share=np.concatenate([np.asarray(spec.share, np.float32),
+                              np.zeros(pad, np.float32)]),
+        active=np.concatenate([np.asarray(spec.active, np.float32),
+                               np.zeros(pad, np.float32)]))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,6 +137,18 @@ def get(name: str) -> SchedulerConfig:
     return SCHEDULERS[name]
 
 
+def as_config(scheduler: Union[str, SchedulerConfig, None]) -> SchedulerConfig:
+    """Coerce a name / config / None to a :class:`SchedulerConfig`."""
+    if scheduler is None:
+        return SCHEDULERS["none"]
+    if isinstance(scheduler, str):
+        return get(scheduler)
+    if isinstance(scheduler, SchedulerConfig):
+        return scheduler
+    raise TypeError(f"cannot use {type(scheduler).__name__} as a scheduler "
+                    "(want a registered name or a SchedulerConfig)")
+
+
 def scheduler_values(cfg: SchedulerConfig, device=None) -> torch.Tensor:
     """``[enabled, priority_policy, migration_cost]`` as a float32 tensor."""
     return torch.tensor([1.0 if cfg.enabled else 0.0,
@@ -118,11 +157,20 @@ def scheduler_values(cfg: SchedulerConfig, device=None) -> torch.Tensor:
                         dtype=torch.float32, device=device)
 
 
+def div_static(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``x / n`` for a static ``n`` as the JAX package's compiled programs
+    compute it: XLA rewrites a division by a constant into a multiplication
+    by its float32 reciprocal (``(9 + 1) / 25`` gives 0.39999998, not 0.4).
+    Where the quotient meets a floor or a threshold, that last bit decides
+    a bin."""
+    return x * float(np.float32(1.0) / np.float32(n))
+
+
 def provision_bin(spec: TenantSpec, predicted_bin: torch.Tensor,
                   backlog_t: torch.Tensor, n_bins: int) -> torch.Tensor:
     """Scheduler-shaped workload bin ``[K]``: defer slack-tolerant demand,
     pull forward backlog beyond a tenant's tolerance, re-bin."""
-    w_hat = (predicted_bin.float() + 1.0) / n_bins
+    w_hat = div_static(predicted_bin.float() + 1.0, n_bins)
     d_hat = (w_hat[..., None] * spec.share + backlog_t) * spec.active
     # Defer at most 80 % of each tenant's slack (a stable parking level
     # with 20 % headroom against workload noise).

@@ -1,1 +1,2 @@
-"""Launchers of the port: the serving launcher (``python -m repro_torch.launch.serve``)."""
+"""Launchers of the port: serving (``python -m repro_torch.launch.serve``)
+and the scenario campaign (``python -m repro_torch.launch.campaign``)."""

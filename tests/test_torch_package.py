@@ -11,6 +11,8 @@
 import ast
 import os
 import pathlib
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -63,7 +65,9 @@ def test_port_package_covers_the_slice():
                  "kernels/flash_attention/ops.py", "kernels/flash_attention/ref.py",
                  "serving/engine.py", "serving/autoscale.py", "launch/serve.py",
                  "configs/falcon_mamba_7b.py", "models/ssm.py",
-                 "kernels/ssm_scan/ops.py", "kernels/ssm_scan/ref.py"):
+                 "kernels/ssm_scan/ops.py", "kernels/ssm_scan/ref.py",
+                 "core/traces.py", "core/scenarios.py", "runtime/fault.py",
+                 "runtime/elastic.py", "launch/campaign.py"):
         assert want in names, want
     for name, src in _build.SOURCES.items():
         assert (_build.KERNELS_DIR / src).exists(), name
@@ -119,6 +123,54 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     res = tctl.simulate_fleet(tables, trace, cfg, device="cpu")
     assert res.power.device.type == "cpu" and res.power.shape == (1, 1, 64)
     assert np.isfinite(res.power.numpy()).all()
+
+
+CAMPAIGN_MODULES = ("repro_torch.core.traces", "repro_torch.core.scenarios",
+                    "repro_torch.runtime.fault", "repro_torch.runtime.elastic",
+                    "repro_torch.launch.campaign", "repro_torch.core.controller")
+
+
+@pytest.mark.parametrize("module", CAMPAIGN_MODULES)
+def test_campaign_modules_import_with_jax_blocked(module):
+    """A fresh interpreter in which ``import jax`` and ``import repro``
+    fail imports each module of the campaign slice (and registers the
+    scenario library, bundled replays included)."""
+    code = ("import sys\n"
+            "for name in ('jax', 'jaxlib', 'repro'):\n"
+            "    sys.modules[name] = None\n"
+            f"import {module}\n"
+            "from repro_torch.core import scenarios\n"
+            "assert len(scenarios.SCENARIOS) == 15, sorted(scenarios.SCENARIOS)\n"
+            "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
+            "               for m in sys.modules if sys.modules[m] is not None)\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    run = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert run.returncode == 0, run.stderr
+
+
+def test_campaign_entry_points_raise_without_a_card(monkeypatch):
+    from repro_torch.core import scenarios as tscn
+    from repro_torch.launch import campaign as tcampaign
+
+    _no_cuda(monkeypatch)
+    platforms = [tctl.fpga_platform(ACCELERATORS["tabla"])]
+    cfg = tctl.ControllerConfig()
+    params = tchar.stack_platform_params([p.params for p in platforms])
+    tables = tctl.fleet_bin_tables(params, cfg, ("proposed",), device="cpu")
+    trace = twl.generate_trace(twl.WorkloadConfig(n_steps=32, seed=0))
+    calls = {
+        "simulate_fleet_stream": lambda: tctl.simulate_fleet_stream(tables, trace, cfg),
+        "run_technique": lambda: tctl.run_technique(platforms[0], trace, "proposed"),
+        "compare_all": lambda: tctl.compare_all(tctl.analytic_platform(), trace),
+        "run_campaign": lambda: tscn.run_campaign(platforms, ("burse",), n_steps=32),
+        "campaign.main": lambda: tcampaign.main(["--steps", "32", "--platforms", "tabla"]),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    out = tctl.simulate_fleet_stream(tables, trace, cfg, device="cpu")
+    assert out.mean_power_w.shape == (1, 1) and np.isfinite(out.mean_power_w).all()
 
 
 @pytest.mark.parametrize("name", sorted(_build.SOURCES))
