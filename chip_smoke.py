@@ -84,7 +84,30 @@ printing its seconds:
    ``*/stream_reuse`` rows count JAX retraces and are skipped);
 11. long stream — one scenario × five accelerators × three techniques at
    16384 steps in 4096-step chunks: peak device memory within 1 MiB of the
-   same campaign at 4096 steps, every cell within 1e-5 of a CPU run.
+   same campaign at 4096 steps, every cell within 1e-5 of a CPU run;
+12. predictors — ``benchmarks/run.py``'s predictor sweep on ``cuda``: every
+   registered family's campaign over the fifteen scenarios (tabla,
+   ``proposed``, 2048 steps in 512-step chunks; seasonal_naive one campaign
+   per detected period: 8 campaigns, 8 grid_argmin launches) and its
+   ``evaluate_trace`` row: all 96 ``predictor/*`` rows of
+   ``BENCH_fleet.json`` (gains within 0.006, rates within 2/S); the
+   holt_winters campaign within 1e-5 of the CPU, every family's
+   ``evaluate_trace`` bins equal to the CPU's; µs, device kernels and busy
+   share per step of each family's streaming loop (64-step profile); a
+   seasonal trace whose dips drive the raw forecast to −1 through both
+   fleet loops on ``cuda``, equal to the CPU;
+13. composition — ``benchmarks/run.py``'s composition search on ``cuda``
+   (tabla + stripes, 48 candidates, burse and diurnal, 1024 steps): the 3
+   ``composition/*`` rows, one grid_argmin launch, the search within 1e-5
+   of the CPU with Pareto sets equal; ``python -m
+   repro_torch.launch.compose`` at its defaults with ``--cache-dir`` in an
+   empty directory (it builds grid_argmin), then again with ``--warm``
+   over the same directory (it must build nothing);
+14. serving loop — the 5 ``hybrid/<accelerator>`` rows on ``cuda`` and
+   ``hybrid/closed_loop_serving`` (``run_request_load``, λ = 1 for 4096
+   steps): counts and latencies equal, gains within 0.006; then
+   ``run_request_load`` on ``cuda`` against the CPU for the three workload
+   signals and three tenants.
 
 It ends with a ``{"kernels": [...]}`` line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}`` as the last line.  Without a
@@ -191,6 +214,9 @@ BENCH_CHUNK = 512           # benchmarks/run.py's chunk at 1024 steps
 LONG_STEPS, LONG_CHUNK, LONG_SCENARIO = (4096, 16384), 4096, "node_failure"
 PEAK_SLACK_BYTES = 1 << 20
 PROFILE_STEPS = 64
+PRED_STEPS, PRED_CHUNK = 2048, 512     # benchmarks/run.py's predictor sweep
+COMPOSE_SCENARIOS = ("burse", "diurnal")
+SERVE_LOOP_STEPS = 4096                # hybrid/closed_loop_serving's arrival steps
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1190,6 +1216,16 @@ def _stream_profile(dev, cells) -> tuple:
     tab = ctl.BinTables(*[x[:, :, None].expand(x.shape[:2] + (len(names),) + x.shape[2:])
                           for x in tables])
     check(int(np.prod(tab.capacity.shape[:-1])) == cells, "profile fleet differs")
+    return _profile_stream_loop(dev, tab, traces, avail, cfg)
+
+
+def _profile_stream_loop(dev, tab, traces, avail, cfg) -> tuple:
+    """``simulate_fleet_stream`` over ``tab`` ``[P, T, N, M]`` and the
+    scenario suite's ``[N, S]`` traces (S ≥ 4·PROFILE_STEPS): seconds a
+    step, unprofiled (median of 3 runs of 4·PROFILE_STEPS steps), then the
+    device kernels and busy µs per step of a PROFILE_STEPS-step profile
+    (``None`` where the profiler saw no device work)."""
+    from repro_torch.core import controller as ctl
 
     def run(n):
         ctl.simulate_fleet_stream(tab, traces[None, None, :, :n], cfg, chunk_size=n,
@@ -1420,6 +1456,371 @@ def phase_long_stream(dev) -> None:
           f" s) within {SUMMARY_RTOL} (worst rel {worst:.3g}), miss rates equal")
 
 
+def _predictor_config(kind: str, **kw):
+    from repro_torch.core import predictors as pred
+
+    return pred.PredictorConfig(kind=kind, n_bins=25, warmup_steps=32, margin_bins=1, **kw)
+
+
+def _predictor_rows(dev) -> tuple:
+    """benchmarks/run.py's predictor sweep through the port on ``dev``, at
+    full precision: ``(rows, campaigns, trace_evals)``; one campaign per
+    family over the fifteen scenarios, seasonal_naive one per detected
+    period."""
+    from repro_torch.core import controller as ctl
+    from repro_torch.core import predictors as pred
+    from repro_torch.core import scenarios as scn
+    from repro_torch.core import workload as wl
+    from repro_torch.core.accelerators import ACCELERATORS
+    from repro_torch.core.predictors import seasonal
+
+    plat = ctl.fpga_platform(ACCELERATORS["tabla"])
+    names = tuple(sorted(scn.SCENARIOS))
+    trace = wl.generate_trace(wl.WorkloadConfig(n_steps=PRED_STEPS, seed=0))
+    rows, camps, evals = {}, {}, {}
+    for kind in pred.available():
+        cfg = _predictor_config(kind)
+        ev = evals[kind] = pred.evaluate_trace(cfg, trace, device=dev)
+        rows[f"predictor/{kind}/trace"] = (f"exact={float(ev.exact_accuracy)}"
+                                           f";margin={float(ev.margin_accuracy)}")
+        groups = {0: names}
+        if kind == "seasonal_naive":
+            groups = {}
+            for scen in names:
+                period = seasonal.detect_period(scn.get_scenario(scen).trace(PRED_STEPS, seed=0))
+                groups.setdefault(period, []).append(scen)
+        for season, group in sorted(groups.items()):
+            out = camps[(kind, season)] = scn.run_campaign(
+                [plat], scenario_names=tuple(group), techniques=("proposed",),
+                n_steps=PRED_STEPS, chunk_size=PRED_CHUNK,
+                predictor=dataclasses.replace(cfg, season=season), device=dev)
+            for scen in out["scenarios"]:
+                cell = out["table"][plat.name]["proposed"][scen]
+                rows[f"predictor/{kind}/{scen}"] = (
+                    f"exact={1.0 - cell['misprediction_rate']}"
+                    f";margin={1.0 - cell['margin_misprediction_rate']}"
+                    f";gain={cell['power_gain']}x;qos={cell['qos_violation_rate']}")
+    return rows, camps, evals
+
+
+def _dip_trace(n: int) -> np.ndarray:
+    """A 16-step tile whose phases 3 and 11 lie below 1/M (M = 25)."""
+    tile = np.linspace(0.2, 0.9, 16).astype(np.float32)
+    tile[[3, 11]] = [0.01, 0.03]
+    return np.tile(tile, -(-n // 16))[:n]
+
+
+def _seasonal_dips(dev) -> None:
+    """seasonal_naive's exact-phase forecast is −1 at the dips: the shared
+    shell clips it to bin 0, so the fleet loops gather no negative index.
+    Each technique's run on the card must finish and equal the CPU's."""
+    from repro_torch.core import characterization as char
+    from repro_torch.core import controller as ctl
+    from repro_torch.core import predictors as pred
+    from repro_torch.core.accelerators import ACCELERATORS
+
+    params = char.stack_platform_params([ctl.fpga_platform(ACCELERATORS["tabla"]).params])
+    trace = _dip_trace(96)
+    pcfg = pred.PredictorConfig(kind="seasonal_naive", n_bins=25, warmup_steps=4,
+                                margin_bins=1, season=16)
+    raw = pred.get("seasonal_naive").predict_inner(
+        pcfg, pred.evaluate_trace(pcfg, trace[:19], device=dev).final_state.inner)
+    check(int(raw[0]) == -1, f"the dip trace's raw forecast at step 19 is {int(raw[0])}, not -1")
+    for tech in ("proposed", "hybrid", "headroom"):
+        cfg = ctl.ControllerConfig(technique=tech, predictor=pcfg)
+        out = {}
+        for d in (dev, "cpu"):
+            tab = ctl.fleet_bin_tables(params, cfg, (tech,), device=d)
+            out[str(d)] = (ctl.simulate_fleet(tab, trace, cfg, device=d),
+                           ctl.simulate_fleet_stream(tab, trace, cfg, chunk_size=40,
+                                                     emit=("predicted_bin",), device=d))
+        torch.cuda.synchronize()
+        (res, stream), (cres, cstream) = out[str(dev)], out["cpu"]
+        bins = res.predicted_bin.cpu().numpy()
+        check(np.array_equal(bins, cres.predicted_bin.numpy()), f"dips/{tech}: bins differ")
+        check(np.array_equal(stream.emitted["predicted_bin"], cstream.emitted["predicted_bin"]),
+              f"dips/{tech}: stream bins differ")
+        check((bins[0, 0, 20:][trace[20:] < 1 / 25] == 0).all(), f"dips/{tech}: dip bins not 0")
+        check(np.allclose(res.power.cpu().numpy(), cres.power.numpy(), rtol=SUMMARY_RTOL,
+                          atol=0), f"dips/{tech}: power differs")
+    print("[predictors] seasonal_naive on a dip trace (raw forecast -1 at the dips): "
+          "simulate_fleet and simulate_fleet_stream on cuda for proposed, hybrid and "
+          "headroom finish, bins 0 at the dips and equal to the CPU, power within "
+          f"{SUMMARY_RTOL}")
+
+
+def phase_predictors(dev) -> None:
+    """Every predictor/* row of BENCH_fleet.json on the card, one family's
+    campaign against the CPU, each family's streaming loop profiled, and the
+    seasonal dip case."""
+    from repro_torch.core import characterization as char
+    from repro_torch.core import controller as ctl
+    from repro_torch.core import predictors as pred
+    from repro_torch.core import scenarios as scn
+    from repro_torch.core import workload as wl
+    from repro_torch.core.accelerators import ACCELERATORS
+    from repro_torch.kernels.grid_argmin import grid_argmin
+
+    bench = _bench_derived(("predictor",))
+    check(len(bench) == 96, f"BENCH_fleet.json holds {len(bench)} predictor rows, want 96")
+    grid_argmin.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows, camps, evals = _predictor_rows(dev)
+    torch.cuda.synchronize()
+    wall, launches = time.perf_counter() - t0, grid_argmin.launches
+    check(sorted(camps) == [(k, 0) for k in ("ewma", "hierarchy", "holt_winters", "markov",
+                                             "persistence")]
+          + [("seasonal_naive", p) for p in (0, 288, 576)],
+          f"predictor campaigns {sorted(camps)}")
+    check(launches == len(camps), f"the predictor sweep launched grid_argmin {launches} "
+          f"times, want one per campaign ({len(camps)})")
+    check(sorted(rows) == sorted(bench), f"rows differ: {sorted(set(rows) ^ set(bench))}")
+    for name in sorted(rows):
+        _check_bench_row(name, rows[name], bench[name], PRED_STEPS)
+    steps = len(camps) * PRED_STEPS + len(evals) * PRED_STEPS
+    print(f"[predictors] all {len(rows)} predictor rows of BENCH_fleet.json on cuda "
+          f"(6 families, {len(camps)} campaigns of tabla x proposed x 15 scenarios grouped by "
+          f"period, {PRED_STEPS} steps in {PRED_CHUNK}-step chunks, and 6 evaluate_trace runs) "
+          f"in {wall:.2f} s, {wall / steps * 1e6:.1f} us per step; grid_argmin launches "
+          f"{launches}: gains within {GAIN_ATOL}, rates within 2/S, accuracies within 6e-4")
+
+    trace = wl.generate_trace(wl.WorkloadConfig(n_steps=PRED_STEPS, seed=0))
+    for kind, ev in evals.items():
+        cpu = pred.evaluate_trace(_predictor_config(kind), trace, device="cpu")
+        check(np.array_equal(ev.predicted.cpu().numpy(), cpu.predicted.numpy()),
+              f"evaluate_trace {kind}: cuda bins differ from the CPU")
+        check(float(ev.exact_accuracy) == float(cpu.exact_accuracy), f"{kind}: accuracy")
+    t0 = time.perf_counter()
+    names = tuple(sorted(scn.SCENARIOS))
+    cpu = scn.run_campaign([ctl.fpga_platform(ACCELERATORS["tabla"])], scenario_names=names,
+                           techniques=("proposed",), n_steps=PRED_STEPS, chunk_size=PRED_CHUNK,
+                           predictor=_predictor_config("holt_winters"), device="cpu")
+    worst = _compare_campaigns(camps[("holt_winters", 0)], cpu, "holt_winters campaign")
+    print(f"[predictors] evaluate_trace bins and accuracies of all 6 families equal on cuda "
+          f"and the CPU; the holt_winters campaign (season 0) on the CPU in "
+          f"{time.perf_counter() - t0:.2f} s: every cell within {SUMMARY_RTOL} (worst rel "
+          f"{worst:.3g}), miss rates equal")
+
+    plat = ctl.fpga_platform(ACCELERATORS["tabla"])
+    _, traces, avail = scn.build_suite(names, n_steps=4 * PROFILE_STEPS)
+    params = char.stack_platform_params([plat.params])
+    for kind, season in (("markov", 0), ("persistence", 0), ("ewma", 0), ("holt_winters", 0),
+                         ("hierarchy", 0), ("seasonal_naive", 288)):
+        cfg = ctl.ControllerConfig(predictor=_predictor_config(kind, season=season))
+        tables = ctl.fleet_bin_tables(params, cfg, ("proposed",), device=dev)
+        tab = ctl.BinTables(*[x[:, :, None].expand(x.shape[:2] + (len(names),) + x.shape[2:])
+                              for x in tables])
+        step_s, per_step, busy = _profile_stream_loop(dev, tab, traces, avail, cfg)
+        if per_step is None:
+            print(f"[predictors] {kind}: {step_s * 1e6:.1f} us per step; the profiler saw no "
+                  "device work: kernels per step and busy share not measured")
+            continue
+        print(f"[predictors] {kind}{f' (season {season})' if season else ''} streaming loop "
+              f"at {len(names)} cells: {step_s * 1e6:.1f} us per step; {per_step:.1f} device "
+              f"kernels and {busy:.1f} us device busy per step = {busy / (step_s * 1e6):.1%} "
+              f"of the step")
+    _seasonal_dips(dev)
+
+
+def _composition_search(dev):
+    from repro_torch.core import composition as comp
+    from repro_torch.core import controller as ctl
+    from repro_torch.core.accelerators import ACCELERATORS
+
+    platforms = [ctl.fpga_platform(ACCELERATORS[n]) for n in ("tabla", "stripes")]
+    return comp.search_fleet_composition(platforms, comp.enumerate_candidates(2, 6, 48),
+                                         COMPOSE_SCENARIOS, n_steps=BENCH_STEPS,
+                                         chunk_size=BENCH_CHUNK, device=dev)
+
+
+def _compose_cli(args) -> tuple:
+    """``python -m repro_torch.launch.compose`` in a process of its own:
+    its wall seconds and the kernels it built (name → seconds)."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "repro_torch.launch.compose", *args],
+                         cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    check(run.returncode == 0, f"launch.compose {args} exited {run.returncode}:\n"
+          f"{run.stdout[-2000:]}\n{run.stderr[-2000:]}")
+    line = next(x for x in run.stdout.splitlines()
+                if x.startswith("# kernels built in this process: "))
+    built = line.split(": ", 1)[1].split(" — ")[0]
+    check("second-half retraces: 0" in line, f"launch.compose: {line}")
+    warmed = [x for x in run.stdout.splitlines() if x.startswith("# warmed fleet path")]
+    return wall, built, warmed
+
+
+def phase_composition(dev) -> None:
+    """BENCH_fleet.json's composition rows on the card, the search against
+    the CPU, and the compose CLI twice over one kernel build cache."""
+    from repro_torch.kernels.grid_argmin import grid_argmin
+
+    bench = _bench_derived(("composition",))
+    check(len(bench) == 3, f"BENCH_fleet.json holds {len(bench)} composition rows, want 3")
+    grid_argmin.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = _composition_search(dev)
+    torch.cuda.synchronize()
+    wall, launches = time.perf_counter() - t0, grid_argmin.launches
+    check(launches == 1, f"the composition search launched grid_argmin {launches} times")
+    n = res.candidates.shape[0]
+    pareto = ";".join(f"pareto_{s}={len(res.pareto[s])}" for s in COMPOSE_SCENARIOS)
+    got = f"cands={n};{pareto};retraces={res.retraces_second_half}"
+    check(got == bench["composition/sweep"], f"composition/sweep {got} vs {bench['composition/sweep']}")
+    for i, s in enumerate(COMPOSE_SCENARIOS):
+        idx = res.pareto[s]
+        ok = [j for j in idx if res.qos_violation_rate[j, i] <= 0.25]
+        j = ok[0] if ok else min(idx, key=lambda j: res.qos_violation_rate[j, i])
+        want = dict(item.split("=") for item in bench[f"composition/knee/{s}"].split(";"))
+        mix = "x".join(str(int(v)) for v in res.candidates[j])
+        check(mix == want["mix"], f"composition/knee/{s}: mix {mix} vs {want['mix']}")
+        check(abs(res.total_power_w[j, i] - float(want["power_w"])) <= 0.06,
+              f"composition/knee/{s}: power {res.total_power_w[j, i]} vs {want['power_w']}")
+        check(abs(res.qos_violation_rate[j, i] - float(want["qos_viol"])) <= 2 / BENCH_STEPS,
+              f"composition/knee/{s}: qos {res.qos_violation_rate[j, i]} vs {want['qos_viol']}")
+        print(f"[composition]   knee/{s}: mix={mix};power_w={res.total_power_w[j, i]:.4f};"
+              f"qos_viol={res.qos_violation_rate[j, i]:.4f}")
+    cells = n * 2 * len(COMPOSE_SCENARIOS)
+    print(f"[composition] {got} on cuda ({cells} cells x {BENCH_STEPS} steps in two halves) in "
+          f"{wall:.2f} s, {wall / (2 * BENCH_STEPS) * 1e6:.1f} us per step of a half; "
+          f"grid_argmin launches {launches}; the 3 composition rows hold (knee power within "
+          f"0.06 W, rates within 2/S)")
+    t0 = time.perf_counter()
+    cpu = _composition_search("cpu")
+    worst = 0.0
+    for f in ("total_power_w", "qos_violation_rate", "served_fraction"):
+        x, y = getattr(res, f), getattr(cpu, f)
+        worst = max(worst, float(np.max(np.abs(x - y) / np.maximum(np.abs(y), 1e-12))))
+        check(np.allclose(x, y, rtol=SUMMARY_RTOL, atol=1e-12), f"composition {f}: cuda vs cpu")
+    check({k: v.tolist() for k, v in res.pareto.items()}
+          == {k: v.tolist() for k, v in cpu.pareto.items()}, "composition: Pareto sets differ")
+    print(f"[composition] the same search on the CPU in {time.perf_counter() - t0:.2f} s: "
+          f"every array within {SUMMARY_RTOL} (worst rel {worst:.3g}), Pareto sets equal")
+
+    with tempfile.TemporaryDirectory() as cache:
+        cold = _compose_cli(["--cache-dir", cache])
+        warm = _compose_cli(["--cache-dir", cache, "--warm"])
+    check(cold[1].startswith("grid_argmin "), f"the first compose process built {cold[1]!r}")
+    check(warm[1] == "none", f"the second compose process built {warm[1]!r}, want none")
+    print(f"[composition] python -m repro_torch.launch.compose (defaults: 200 candidates x 2 "
+          f"platforms x 2 scenarios x 2048 steps) --cache-dir <empty dir>: {cold[0]:.2f} s, "
+          f"built {cold[1]}; again with --warm over the same dir: {warm[0]:.2f} s, built "
+          f"{warm[1]}; {warm[2][0][2:] if warm[2] else 'no warm line'}")
+
+
+def _request_load(dev, technique="hybrid", **kw):
+    from repro_torch.core import controller as ctl
+    from repro_torch.core import predictors as pred
+    from repro_torch.serving.autoscale import DvfsServingSimulator, RooflineTerms
+
+    sim = DvfsServingSimulator(
+        terms=RooflineTerms(t_compute=0.002, t_memory=0.012, t_collective=0.001),
+        steps_per_tau=16, device=dev,
+        controller_cfg=ctl.ControllerConfig(technique=technique, n_nodes=8,
+                                            predictor=pred.PredictorConfig(warmup_steps=4)))
+    return sim.run_request_load(np.full(SERVE_LOOP_STEPS, 1.0), batch_size=32,
+                                mean_new_tokens=8, **kw)
+
+
+def _compare_request_loads(a: dict, b: dict, label: str) -> float:
+    """Two ``run_request_load`` results: counts and latencies equal, float
+    arrays and summary fields within 1e-6 relative."""
+    worst = 0.0
+    for key, x in b.items():
+        y = a[key]
+        if key == "summary":
+            for f in dataclasses.fields(x):
+                u, v = getattr(y, f.name), getattr(x, f.name)
+                if isinstance(v, float) and not (np.isnan(u) and np.isnan(v)):
+                    worst = max(worst, abs(u - v) / max(abs(v), 1e-12))
+                    check(abs(u - v) <= 1e-6 * max(abs(v), 1e-12), f"{label} {f.name}: {u} vs {v}")
+                elif not isinstance(v, float):
+                    check(u == v, f"{label} {f.name}: {u} vs {v}")
+        elif isinstance(x, np.ndarray) and x.dtype.kind == "f":
+            rel = float(np.max(np.abs(y - x) / np.maximum(np.abs(x), 1e-12), initial=0.0))
+            worst = max(worst, rel)
+            check(rel <= 1e-6, f"{label} {key}: worst rel {rel}")
+        else:
+            x, y = np.asarray(x), np.asarray(y)
+            check(np.array_equal(y, x, equal_nan=x.dtype.kind == "f"),
+                  f"{label} {key}: {y} vs {x}")
+    return worst
+
+
+def phase_serving_loop(dev) -> None:
+    """The hybrid rows of BENCH_fleet.json on the card, the closed-loop
+    serving row, and run_request_load on cuda against the CPU."""
+    from repro_torch.core import controller as ctl
+    from repro_torch.core import scheduler as sched
+    from repro_torch.core import workload as wl
+    from repro_torch.core.accelerators import ACCELERATORS
+    from repro_torch.kernels.grid_argmin import grid_argmin
+
+    bench = _bench_derived(("hybrid",))
+    check(len(bench) == 6, f"BENCH_fleet.json holds {len(bench)} hybrid rows, want 6")
+    trace = wl.generate_trace(wl.WorkloadConfig(n_steps=BENCH_STEPS, seed=0))
+    accs = sorted(k.split("/")[1] for k in bench if k != "hybrid/closed_loop_serving")
+    platforms = [ctl.fpga_platform(ACCELERATORS[a]) for a in accs]
+    grid_argmin.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fleet = ctl.compare_all_batched(platforms, trace, ("proposed", "power_gating", "hybrid"),
+                                    device=dev)
+    for acc, plat in zip(accs, platforms):
+        res = fleet[plat.name]
+        sim = ctl.simulate(plat, ctl.ControllerConfig(technique="hybrid"), trace, device=dev)
+        got = (f"hybrid={res['hybrid'].power_gain}x;prop={res['proposed'].power_gain}x"
+               f";pg={res['power_gating'].power_gain}x"
+               f";mean_nodes={sim.n_active.float().mean().item()}")
+        want = bench[f"hybrid/{acc}"]
+        g, w = _derived_tokens(got), _derived_tokens(want)
+        check([k for k, _ in g] == [k for k, _ in w], f"hybrid/{acc}: {got} vs {want}")
+        for (key, a), (_, b) in zip(g, w):
+            check(abs(float(a.strip("x")) - float(b.strip("x"))) <= GAIN_ATOL,
+                  f"hybrid/{acc}: {key} {a} vs {b}")
+    torch.cuda.synchronize()
+    rows_s, launches = time.perf_counter() - t0, grid_argmin.launches
+    check(launches == 1 + len(accs), f"the hybrid rows launched grid_argmin {launches} times")
+    print(f"[serving-loop] the 5 hybrid/<accelerator> rows on cuda ({BENCH_STEPS} steps) in "
+          f"{rows_s:.2f} s, grid_argmin launches {launches}: gains and mean nodes within "
+          f"{GAIN_ATOL}")
+
+    want = dict(item.split("=") for item in bench["hybrid/closed_loop_serving"].split(";"))
+    grid_argmin.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = _request_load(dev)
+    wall = time.perf_counter() - t0
+    s = out["summary"]
+    check(out["completed"] == int(want["completed"]), f"completed {out['completed']} vs {want}")
+    check(f"{s.latency_p50:.0f}" == want["p50"] and f"{s.latency_p99:.0f}" == want["p99"],
+          f"latency {s.latency_p50} / {s.latency_p99} vs {want}")
+    check(abs(s.power_gain - float(want["gain"].rstrip("x"))) <= GAIN_ATOL, f"gain {s.power_gain}")
+    check(abs(out["occupancy_tau"].mean() - float(want["occ"])) <= GAIN_ATOL, "occupancy")
+    n_tau = len(out["tau_weights"])
+    print(f"[serving-loop] hybrid/closed_loop_serving on cuda: {SERVE_LOOP_STEPS} arrival steps "
+          f"+ {out['drain_steps']} drain, {n_tau} control intervals, in {wall:.2f} s "
+          f"({wall / n_tau * 1e3:.2f} ms per interval, {wall / SERVE_LOOP_STEPS * 1e6:.1f} us "
+          f"per decode step), grid_argmin launches {grid_argmin.launches}: "
+          f"gain={s.power_gain:.4f}x;occ={out['occupancy_tau'].mean():.4f};"
+          f"p50={s.latency_p50:.0f};p99={s.latency_p99:.0f};completed={out['completed']}")
+
+    t0 = time.perf_counter()
+    worst = 0.0
+    spec = sched.make_tenants([2.0, 1.0, 0.0], [0.0, 4.0, 16.0], [0.5, 0.3, 0.2])
+    runs = {f"{sig}": dict(workload_signal=sig) for sig in ("occupancy", "demand", "arrival")}
+    runs["3 tenants"] = dict(workload_signal="demand", tenants=spec)
+    for label, kw in runs.items():
+        a = out if label == "occupancy" else _request_load(dev, **kw)
+        worst = max(worst, _compare_request_loads(a, _request_load("cpu", **kw), label))
+    print(f"[serving-loop] run_request_load on cuda vs the CPU for the occupancy, demand and "
+          f"arrival signals and 3 tenants: counts and latencies equal, float arrays within 1e-6 "
+          f"(worst rel {worst:.3g}); {time.perf_counter() - t0:.2f} s")
+
+
 def _timed(label: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -1447,6 +1848,9 @@ def main() -> int:
     _timed("9 figures", phase_figures, dev)
     _timed("10 campaign", phase_campaign, dev)
     _timed("11 long stream", phase_long_stream, dev)
+    _timed("12 predictors", phase_predictors, dev)
+    _timed("13 composition", phase_composition, dev)
+    _timed("14 serving loop", phase_serving_loop, dev)
     records = [argmin, *flash, scan]
     print(f"[time] all phases: {time.perf_counter() - t0:.2f} s")
     print("kernels: " + ", ".join(r["name"] for r in records))

@@ -7,18 +7,26 @@ Mirrors the JAX package's layout and imports neither jax nor ``repro``:
   core.pll              — PLL stall model (Eqs. 4-5)
   core.workload         — BURSE-like trace synthesis (numpy, bit-identical)
   core.voltage          — voltage grids, technique masks, grid argmin
-  core.predictors       — markov / persistence forecasters over ``[K]`` cells
+  core.predictors       — the six workload forecasters over ``[K]`` cells
+                          (markov, persistence, ewma, holt_winters,
+                          hierarchy, seasonal_naive) and ``evaluate_trace``
   core.scheduler        — tenant plane and per-step scheduling math
   core.controller       — fleet tables, the §V step loop, the streaming
                           fleet engine, Table II and figure summaries
   core.traces           — recorded utilization traces: load, resample, mix
   core.scenarios        — the named scenario library and ``run_campaign``
+  core.composition      — fleet-composition search (which platforms, how
+                          many nodes) with per-scenario Pareto sets
+  core.aot              — the kernel-build cache and the fleet-path warmer
   runtime.fault         — correlated fleet-failure models (numpy)
   runtime.elastic       — the usable mesh of a fleet that lost nodes
   kernels.grid_argmin   — the table sweep: a CUDA kernel plus its plain
                           PyTorch version
   convert               — JAX-side ``PlatformParams`` leaves → tensors
-  launch.serve, launch.campaign — the command-line entry points
+  serving               — the generation engine, the continuous batcher
+                          and the closed-loop DVFS serving simulator
+  launch.serve, launch.campaign, launch.compose — the command-line entry
+                          points
 
 Entry points take an explicit ``device``.  Left unset it means the CUDA
 card, and a machine without one raises instead of falling back to the CPU;

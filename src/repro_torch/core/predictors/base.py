@@ -18,7 +18,10 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, NamedTuple, Tuple
 
+import numpy as np
 import torch
+
+from repro_torch.device import resolve_device
 
 _POLICIES = ("argmax", "quantile", "expected")
 _UPDATE_MODES = ("always", "threshold")
@@ -29,9 +32,8 @@ class PredictorConfig:
     """Static predictor configuration.
 
     ``kind`` names a registered family.  ``n_bins`` and ``margin_bins``
-    are synced from the owning ``ControllerConfig``.  The fields of the
-    families not yet ported (ewma, holt_winters, hierarchy) are kept and
-    validated so configs mean the same thing in both packages.
+    are synced from the owning ``ControllerConfig``; family-specific
+    fields are ignored by the other families.
     """
 
     n_bins: int = 10
@@ -193,6 +195,48 @@ def forecast_fraction(cfg: PredictorConfig,
     """Next step's forecast as a fraction in (0, 1]: the predicted bin's
     upper edge (the availability plane reads it as usable nodes)."""
     return bin_upper_edge(predict(cfg, state), cfg.n_bins)
+
+
+class TraceEval(NamedTuple):
+    """Whole-trace evaluation of one family (see :func:`evaluate_trace`):
+    the bins predicted and observed at each step, the final one-cell
+    state, and the post-warmup exact and margin-aware accuracies
+    (float32 scalars)."""
+
+    predicted: torch.Tensor        # [T] int64
+    actual: torch.Tensor           # [T] int64
+    final_state: PredictorState
+    exact_accuracy: torch.Tensor
+    margin_accuracy: torch.Tensor
+
+
+def evaluate_trace(cfg: PredictorConfig, trace, device=None) -> TraceEval:
+    """predict → bin → observe over a whole workload trace, one step at a
+    time on a one-cell state on ``device`` (``None`` is the card)."""
+    dev = resolve_device(device)
+    w = torch.as_tensor(np.asarray(trace, np.float32), device=dev)
+    state = init_state(cfg, 1, dev)
+    preds, acts = [], []
+    for t in range(w.shape[0]):
+        p = predict(cfg, state)
+        preds.append(p)
+        acts.append(workload_to_bin(w[t:t + 1], cfg.n_bins))
+        state = observe(cfg, state, w[t:t + 1], p)
+    # As the JAX package's compiled scan computes ``1 − misses / n``: the
+    # division by the static count as a multiplication by its float32
+    # reciprocal (``scheduler.div_static``), fused with the subtraction
+    # into one multiply-add (one rounding; exact here in float64).
+    inv = float(np.float32(1.0)
+                / np.float32(max(w.shape[0] - cfg.warmup_steps, 1)))
+
+    def accuracy(misses: torch.Tensor) -> torch.Tensor:
+        return (1.0 - misses[0].double() * inv).float()
+
+    return TraceEval(
+        predicted=torch.cat(preds), actual=torch.cat(acts),
+        final_state=state,
+        exact_accuracy=accuracy(state.mispredictions),
+        margin_accuracy=accuracy(state.margin_misses))
 
 
 class _PersistenceInner(NamedTuple):

@@ -83,3 +83,10 @@ class MarkovPredictor(Predictor):
 
 
 register(MarkovPredictor())
+
+
+def transition_matrix(state) -> torch.Tensor:
+    """Row-stochastic transition probabilities ``P[k, i, j]`` of a
+    ``PredictorState`` of kind ``markov`` or a bare :class:`MarkovInner`."""
+    inner = getattr(state, "inner", state)
+    return inner.counts / inner.counts.sum(-1, keepdim=True)

@@ -7,8 +7,10 @@ for Hopper into a shared library:
        -Xcompiler -fPIC -Xptxas -v -o lib<name>.so <name>.cu
 
 The library goes into ``src/repro_torch/kernels/.build/<name>-<hash>/``
-(listed in ``.gitignore``), keyed by a hash of the source and the flags,
-so an edited source rebuilds and an unchanged one is built once.  The
+(listed in ``.gitignore``; :func:`set_build_dir` moves it, as
+``core.aot.enable_compilation_cache`` does), keyed by a hash of the
+source and the flags, so an edited source rebuilds and an unchanged one
+is built once per build directory.  The
 build's ``ptxas`` report (registers, shared memory, spills) is kept
 beside the library as ``build.log``.  No ``--use_fast_math``: the
 kernels must round like the plain PyTorch versions.  No source links
@@ -24,8 +26,9 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, Sequence, Tuple
 
 KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNELS_DIR / ".build"
@@ -41,6 +44,17 @@ SOURCES: Dict[str, str] = {
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
+#: Kernel name → seconds of the ``nvcc`` run that built it in this process.
+_BUILT: Dict[str, float] = {}
+
+
+def set_build_dir(path: os.PathLike | str) -> Path:
+    """Build and look up kernel libraries under ``path`` from now on;
+    returns the previous directory.  Libraries already loaded stay
+    loaded."""
+    global BUILD_DIR
+    previous, BUILD_DIR = BUILD_DIR, Path(path)
+    return previous
 
 
 def _nvcc() -> str:
@@ -70,6 +84,7 @@ def build(names: Sequence[str] = tuple(SOURCES)) -> Dict[str, Path]:
     if not todo:
         return paths
     nvcc = _nvcc()
+    t0 = time.perf_counter()
     procs = {}
     for name, lib in todo.items():
         lib.parent.mkdir(parents=True, exist_ok=True)
@@ -86,9 +101,21 @@ def build(names: Sequence[str] = tuple(SOURCES)) -> Dict[str, Path]:
             failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
             continue
         os.replace(tmp, todo[name])  # atomic: a reader never sees half a file
+        _BUILT[name] = time.perf_counter() - t0
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return paths
+
+
+def loaded() -> Tuple[str, ...]:
+    """Names of the kernel libraries this process has loaded so far."""
+    return tuple(_LOADED)
+
+
+def built() -> Dict[str, float]:
+    """Kernels this process compiled with ``nvcc``, with the seconds from
+    the start of their build until each finished."""
+    return dict(_BUILT)
 
 
 def load(name: str) -> ctypes.CDLL:

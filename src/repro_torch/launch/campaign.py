@@ -14,9 +14,11 @@ One table build (one ``grid_argmin`` launch on the card) for every
 through the streaming fleet path in ``[K, C]`` chunks, so any trace length
 runs in memory independent of it.  The flags, the table printed and the
 ``--json`` output are those of the JAX package's ``scripts/campaign.py``,
-plus ``--device``; its compile-cache flags (``--cache-dir``, ``--warm``)
-have no counterpart here, and ``--predictor`` takes the kinds the port's
-registry holds.
+plus ``--device``.  ``--predictor`` takes every registered family.
+``--cache-dir`` keeps the built kernel libraries in a directory that later
+processes reuse, and ``--warm`` builds them and runs the fleet path once
+at the campaign's shape first (``core.aot``: the port's cold cost is the
+kernel build, not a compile per shape).
 """
 
 from __future__ import annotations
@@ -27,6 +29,8 @@ import os
 import time
 from typing import Optional, Sequence
 
+from repro_torch.core import aot
+from repro_torch.core import characterization as char
 from repro_torch.core import controller as ctl
 from repro_torch.core import predictors as preds
 from repro_torch.core import scenarios as scn
@@ -92,6 +96,13 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--list-schedulers", action="store_true",
                     help="print the registered scheduler policies and exit")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--cache-dir", type=str, default="",
+                    help="directory of the built kernel libraries "
+                    "(core.aot): repeat campaigns load them instead of "
+                    "building them")
+    ap.add_argument("--warm", action="store_true",
+                    help="build the fleet path's kernels and run it once "
+                    "at this campaign's shapes before running")
     ap.add_argument("--json", type=str, default="",
                     help="write the campaign table to this path")
     ap.add_argument("--trace", type=str, default="",
@@ -174,6 +185,22 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         base = names if names is not None else tuple(sorted(scn.SCENARIOS))
         names = tuple(scn.with_failure_model(s, args.failure_model).name
                       for s in base)
+
+    if args.cache_dir:
+        print(f"# kernel build cache: "
+              f"{aot.enable_compilation_cache(args.cache_dir)}")
+    if args.warm:
+        params = char.stack_platform_params([p.params for p in platforms])
+        cfg = ctl.ControllerConfig(n_nodes=args.n_nodes,
+                                   predictor=args.predictor)
+        n_scen = len(names) if names is not None else len(scn.SCENARIOS)
+        t = aot.warm_fleet_programs(
+            params, cfg, techniques,
+            fleet_shape=(len(platforms), len(techniques), n_scen),
+            chunk_size=min(args.chunk, args.steps),
+            n_tenants=max(1, args.tenants), device=args.device)
+        print(f"# warmed fleet path: tables {t['tables_compile_s']:.2f}s"
+              f", stream {t['stream_compile_s']:.2f}s")
 
     t0 = time.perf_counter()
     out = scn.run_campaign(platforms, scenario_names=names,

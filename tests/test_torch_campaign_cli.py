@@ -3,8 +3,8 @@
 ``python -m repro_torch.launch.campaign ... --device cpu`` must print the
 same table (every line but the ``#`` timing header, which names the
 device instead of JAX's trace counters), write the same ``--json`` cells
-within 1e-5, and list the same scenarios and schedulers; flags it does
-not have, or an unknown ``--predictor``, fail as a command-line error.
+within 1e-5, and list the same scenarios and schedulers; an unknown
+``--predictor`` or other bad flag fails as a command-line error.
 """
 
 import importlib.util
@@ -107,7 +107,9 @@ def test_same_listings(flag, capsys):
 
 
 @pytest.mark.parametrize("argv, message", [
-    (["--predictor", "ewma"], "unknown --predictor 'ewma'; choose from ['markov', 'persistence']"),
+    (["--predictor", "arima"], "unknown --predictor 'arima'; choose from ['ewma', "
+                               "'hierarchy', 'holt_winters', 'markov', 'persistence', "
+                               "'seasonal_naive']"),
     (["--scheduler", "priority"], "--scheduler needs a tenant-resolved"),
     (["--scheduler", "lottery"], "unknown --scheduler 'lottery'"),
     (["--failure-model", "meteor"], "unknown --failure-model 'meteor'"),
@@ -122,10 +124,22 @@ def test_command_line_errors(argv, message):
 
 
 @pytest.mark.parametrize("flag", ["--cache-dir", "--warm"])
-def test_compile_cache_flags_are_not_ported(flag, capsys):
-    with pytest.raises(SystemExit):
-        tcampaign.main([flag, "x"] if flag == "--cache-dir" else [flag])
-    assert "unrecognized arguments" in capsys.readouterr().err
+def test_compile_cache_flags_are_not_ported(flag, capsys, tmp_path):
+    """The JAX package's XLA compile cache has no port: its two flags name
+    the port's kernel-build cache and warm-up (``core.aot``) instead, and
+    the campaign's table is the same with them."""
+    from repro_torch.kernels import _build
+    argv = ["--steps", "48", "--platforms", "tabla", "--scenarios", "burse", "--device", "cpu"]
+    plain = _table(_run(tcampaign.main, argv, capsys))
+    saved = _build.BUILD_DIR
+    try:
+        extra = [flag, str(tmp_path / "kc")] if flag == "--cache-dir" else [flag]
+        out = _run(tcampaign.main, argv + extra, capsys)
+    finally:
+        _build.set_build_dir(saved)
+    assert _table(out) == plain
+    assert ("# kernel build cache: " if flag == "--cache-dir"
+            else "# warmed fleet path: ") in out
 
 
 def test_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch):

@@ -67,7 +67,11 @@ def test_port_package_covers_the_slice():
                  "configs/falcon_mamba_7b.py", "models/ssm.py",
                  "kernels/ssm_scan/ops.py", "kernels/ssm_scan/ref.py",
                  "core/traces.py", "core/scenarios.py", "runtime/fault.py",
-                 "runtime/elastic.py", "launch/campaign.py"):
+                 "runtime/elastic.py", "launch/campaign.py",
+                 "core/predictors/ewma.py", "core/predictors/holt_winters.py",
+                 "core/predictors/hierarchy.py", "core/predictors/seasonal.py",
+                 "core/predictors/periodic.py", "core/composition.py", "core/aot.py",
+                 "launch/compose.py", "serving/batching.py"):
         assert want in names, want
     for name, src in _build.SOURCES.items():
         assert (_build.KERNELS_DIR / src).exists(), name
@@ -127,7 +131,10 @@ def test_entry_points_raise_without_a_card(monkeypatch):
 
 CAMPAIGN_MODULES = ("repro_torch.core.traces", "repro_torch.core.scenarios",
                     "repro_torch.runtime.fault", "repro_torch.runtime.elastic",
-                    "repro_torch.launch.campaign", "repro_torch.core.controller")
+                    "repro_torch.launch.campaign", "repro_torch.core.controller",
+                    "repro_torch.core.predictors", "repro_torch.core.composition",
+                    "repro_torch.core.aot", "repro_torch.launch.compose",
+                    "repro_torch.serving.autoscale")
 
 
 @pytest.mark.parametrize("module", CAMPAIGN_MODULES)
