@@ -34,11 +34,23 @@ printing its seconds:
    card, every case in both dtypes, each on the kernel ``ops.route`` gives
    it: float32 on the CUDA-core kernel (2e-5), bfloat16 on the tensor-core
    kernel (2e-2) (the cases of ``tests/test_kernels_flash.py``, two ragged
-   lengths, head_dim 16, the serving shape); the tensor-core kernel's SASS
-   must hold HGMMA and UTMALDG, and its ptxas report and shared memory are
-   printed; at the serving shape (B = 4, S = 2048, 32 query / 8 KV heads,
-   D = 64, causal) each kernel's time in its dtype (bf16, float32) beside
-   its plain version's, ``scaled_dot_product_attention``'s and its bound;
+   lengths, head_dim 16, the serving shape, head_dim 256 and 128 with GQA
+   8/4, a window and softcap 50, a ragged S and a non-causal call, and k, v
+   as strided halves of one fused projection); the tensor-core kernel's
+   SASS must hold HGMMA and UTMALDG, also in each head_dim-256
+   instantiation, whose ptxas report must show no spill bytes; its ptxas
+   report and shared memory per head_dim (within the card's opt-in limit)
+   are printed; at the serving shape (B = 4, S = 2048, 32 query / 8 KV
+   heads, D = 64, causal) each kernel's time in its dtype (bf16, float32)
+   beside its plain version's, ``scaled_dot_product_attention``'s and its
+   bound; at gemma2-2b's prefill (B = 2, S = 8160, 8/4 heads of 256,
+   softcap 50) the tensor-core kernel's global layer and local layer
+   (window 4096) and at gemma3-27b's (32/16 heads of 128, window 1024) its
+   local layer, each beside its plain version's time and the bound of its
+   band (no library call takes a softcap or that window; gemma2's global
+   layer is also timed without the softcap, on the kernel and on
+   ``scaled_dot_product_attention``, for reference), and the CUDA-core
+   kernel at gemma2's local layer in float32 (B = 1, S = 4160);
 6. serving path — ``python -m repro_torch.launch.serve --no-reduced`` on
    ``cuda``; ``ServeEngine`` on full-width llama3.2-1b (random weights from
    a seed, bf16 activations) at B = 4, a 2048-token prompt and 32 new
@@ -107,7 +119,23 @@ printing its seconds:
    ``hybrid/closed_loop_serving`` (``run_request_load``, λ = 1 for 4096
    steps): counts and latencies equal, gains within 0.006; then
    ``run_request_load`` on ``cuda`` against the CPU for the three workload
-   signals and three tenants.
+   signals and three tenants;
+15. local:global serving — ``launch.serve --arch gemma2-2b --no-reduced`` on
+   ``cuda``; ``ServeEngine`` on full-width gemma2-2b (26 layers, 13 local
+   with window 4096, 8/4 heads of 256, softcaps, 2.614 B float32 parameters
+   from a seed) and on full-width gemma3-27b cut to 8 layers (one period of
+   6 and 2 remainder layers, 7 local with window 1024, QK-norm; the 62
+   layers in float32 would not fit one card) at B = 2, an 8160-token prompt
+   (past both windows) and 32 new tokens, capacity 8192: the times of
+   phase 6, the flash launches of one ``generate`` (one a layer, all on the
+   tensor-core kernel, windowed exactly on the local layers), the decode
+   cache's rings (4096 / 1024 slots) and size, peak device memory; the
+   first layers of the same weights in float32 on ``cuda`` and on the CPU
+   (gemma2: 2 layers, prompt 4160; gemma3: 6 layers, prompt 1040; both past
+   the window, so the CUDA-core kernel runs the band at the model's
+   head_dim and decode wraps the rings); ``windowed_attention`` on ``cuda``
+   against the CUDA-core kernel with the same band, float32, at gemma2's
+   local layer (B = 1).
 
 It ends with a ``{"kernels": [...]}`` line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}`` as the last line.  Without a
@@ -167,8 +195,33 @@ FLASH_CASES = [
     (2, 77, 2, 2, 64, True, 16, None),
     # the reduced llama's head_dim
     (1, 128, 2, 2, 16, True, None, None),
+    # gemma2's head_dim 256 and gemma3's 128 with GQA 8/4, a window shorter than S and
+    # gemma2's softcap; ragged lengths; a non-causal call
+    (1, 1000, 4, 2, 256, True, 300, 50.0),
+    (2, 333, 4, 2, 256, True, None, None),
+    (1, 256, 2, 1, 256, False, None, None),
+    (1, 700, 4, 2, 128, True, 200, 50.0),
 ]
+# The softcap in its nonlinear range: q scaled so that the scores reach past the cap,
+# where the capped and the uncapped function differ by far more than the bf16
+# tolerance (phase 5 checks that they do): (B, S, KV, G, D, window, softcap, q's scale)
+FLASH_SOFTCAP_CASES = [(1, 700, 4, 2, 256, 300, 50.0, 40.0), (2, 333, 4, 2, 256, None, 50.0, 40.0),
+                       (1, 640, 4, 2, 128, 128, 5.0, 4.0)]
+SOFTCAP_EFFECT_MIN = 10 * FLASH_TOL[torch.bfloat16]
+# k and v as the two strided halves of one fused projection [B, S, 2, KV, D]:
+# (B, S, KV, G, D, window, softcap)
+FLASH_STRIDED_CASES = [(1, 600, 4, 2, 256, 100, 50.0), (2, 520, 4, 2, 128, 64, None)]
 SERVING_SHAPE = (4, 2048, 8, 4, 64, True, None, None)   # llama3.2-1b prefill, bf16
+# The local:global family's prefill attention, bf16, B = 2, a prompt of 8160 (past
+# gemma2's 4096 window): name -> (B, S, KV, G, D, causal, window, softcap)
+GEMMA_FLASH_SHAPES = {
+    "gemma2_global": (2, 8160, 4, 2, 256, True, None, 50.0),
+    "gemma2_local": (2, 8160, 4, 2, 256, True, 4096, 50.0),
+    "gemma3_local": (2, 8160, 16, 2, 128, True, 1024, None),
+}
+# ... and the float32 CUDA-core kernel at gemma2's local layer as phase 15's float32
+# check runs it (B = 1, a prompt of 4160)
+GEMMA_FLASH_F32_SHAPES = {"gemma2_local_f32": (1, 4160, 4, 2, 256, True, 4096, 50.0)}
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 2048, 32
 # Float32 logits of full-width llama3.2-1b, card vs CPU: the same weights
 # and arithmetic with sums in other orders through 16 layers; logits are
@@ -204,6 +257,15 @@ SCAN_OFFSET_CASES = [((2, 70, 256, 16, torch.float32), 1, 3),
 SCAN_SERVING = (4, 2048, 8192, 16, torch.float32)   # falcon-mamba-7b prefill scan
 MAMBA_ARCH = "falcon-mamba-7b"
 MAMBA_F32_LAYERS = 2    # layers of the float32 card-vs-CPU check
+# Phase 15: gemma2-2b at full depth and gemma3-27b cut to 8 layers (one period of 6
+# and 2 remainder layers; 62 float32 layers would not fit one card), B = 2, a prompt
+# past gemma2's window, 32 new tokens, capacity gemma2's 8192 context.
+GEMMA_BATCH, GEMMA_PROMPT, GEMMA_NEW, GEMMA_CAPACITY = 2, 8160, 32, 8192
+GEMMA3_LAYERS = 8
+# Float32 card vs CPU: (layers, prompt) with a global layer and a prompt past the
+# window, so the window, the CUDA-core kernel at the arch's head_dim and the ring's
+# wrap during decode all run in float32.
+GEMMA_F32 = {"gemma2-2b": (2, 4160), "gemma3-27b": (6, 1040)}
 # An H100 SM issues 16 special-function results (ex2 of expf) per clock.
 SFU_PER_SM_CLOCK = 16
 # The §III analytic platforms of phase 3 (α, β): α = 0 zeroes the BRAM delay term.
@@ -666,76 +728,146 @@ def _flash_inputs(case, dtype, gen, dev):
                  for shape in ((b, s, kv * g, d), (b, s, kv, d), (b, s, kv, d)))
 
 
-def _causal_flops(q) -> int:
-    """4·B·H·D per visible score of causal self-attention, S(S+1)/2 scores."""
+def _causal_flops(q, window=None) -> int:
+    """4·B·H·D per visible score of causal self-attention: Σ_q min(q + 1, window)
+    scores, S(S+1)/2 without a window."""
     b, s, h, d = q.shape
-    return 4 * b * h * d * (s * (s + 1) // 2)
+    w = s if window is None else min(window, s)
+    return 4 * b * h * d * (w * (w + 1) // 2 + (s - w) * w)
 
 
-def _flash_bound(q, k, v, out) -> tuple[float, str]:
+def _flash_bound(q, k, v, out, window=None) -> tuple[float, str]:
     """Least time on an H100 for causal attention: q, k, v and out moved
     once over HBM vs its FLOPs at the dtype's peak."""
     n_bytes = sum(t.numel() * t.element_size() for t in (q, k, v, out))
-    flops = _causal_flops(q)
+    flops = _causal_flops(q, window)
     peak = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else FP32_OPS_PER_S
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def _sass_check(lib, ops=("HGMMA", "UTMALDG")) -> str:
-    """``cuobjdump -sass`` of a kernel's library: it must hold each of
-    ``ops`` (by default the tensor-core flash kernel's wgmma, HGMMA, and TMA
-    loads, UTMALDG)."""
+def _sass(lib) -> str:
+    """``cuobjdump -sass`` of a kernel's library."""
     from repro_torch.kernels import _build
 
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
-    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+    return subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
                           check=True, timeout=300).stdout
+
+
+def _sass_check(sass: str, what: str, ops=("HGMMA", "UTMALDG")) -> str:
+    """The SASS ``sass`` of ``what`` must hold each of ``ops`` (by default the
+    tensor-core flash kernel's wgmma, HGMMA, and TMA loads, UTMALDG)."""
     counts = {op: len(re.findall(rf"\b{re.escape(op)}\b", sass)) for op in ops}
-    check(all(counts.values()), f"{lib.name}: SASS lacks {[k for k, v in counts.items() if not v]}")
+    check(all(counts.values()), f"{what}: SASS lacks {[k for k, v in counts.items() if not v]}")
     return ", ".join(f"{op} x{n}" for op, n in counts.items())
+
+
+def _flash_build_report(lib) -> None:
+    """The tensor-core kernel's build: HGMMA and UTMALDG in its SASS, and in
+    that of each head_dim-256 instantiation; the ptxas report, with no spill
+    bytes in the head_dim-256 instantiations; shared memory per head_dim
+    within the card's opt-in limit."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops
+
+    sass = _sass(lib)
+    print(f"[flash] {ops.TENSOR_CORE} SASS: {_sass_check(sass, lib.name)}")
+    tile256 = [part for part in sass.split("Function : ")[1:]
+               if "ILi256E" in part.split("\n", 1)[0]]
+    check(len(tile256) == 2, f"{len(tile256)} Tile<256> instantiations in the SASS, want 2")
+    for part in tile256:
+        name = f"Tile<256> {'with' if 'Lb1E' in part[:200] else 'without'} softcap"
+        _sass_check(part, name)
+        counts = {op: len(re.findall(rf"\b{re.escape(op)}\b", part))
+                  for op in ("HGMMA", "UTMALDG", "MUFU.EX2", "MUFU.TANH")}
+        print(f"[flash] {name} SASS: " + ", ".join(f"{op} x{n}" for op, n in counts.items()))
+    entry = ""
+    for line in (lib.parent / "build.log").read_text().splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"kernelILi(\d+)ELb(\d)E", line)
+            entry = f"D={m[1]}{' softcap' if m[2] == '1' else ''}" if m else ""
+        elif "registers" in line or "spill" in line:
+            print(f"[flash] {ops.TENSOR_CORE} {entry} ptxas: {line.strip()[:110]}")
+            spills = [int(n) for n in re.findall(r"(\d+) bytes spill", line)]
+            check(not (entry.startswith("D=256") and any(spills)),
+                  f"the Tile<256> kernel spills: {line.strip()}")
+    limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    for d in ops.TC_HEAD_DIMS:
+        smem = _build.load(ops.TENSOR_CORE).flash_attention_wgmma_smem_bytes(d)
+        check(0 < smem <= limit, f"D={d}: {smem} bytes of shared memory, limit {limit}")
+        print(f"[flash] {ops.TENSOR_CORE} D={d}: dynamic shared memory {smem} bytes "
+              f"(the card's opt-in limit {limit})")
+
+
+def _flash_case_check(name, q, k, v, dtype, causal, window, cap) -> tuple[str, float]:
+    """One call of the op against the plain version: it must launch the
+    kernel ``ops.route`` names, once, and agree within FLASH_TOL."""
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+    from repro_torch.kernels.flash_attention import ops
+
+    kernel = ops.route(dtype, q.shape[-1])
+    before = dict(flash_attention.kernel_launches)
+    out = flash_attention(q, k, v, causal=causal, window=window, softcap=cap)
+    ref = flash_attention_ref(q, k, v, causal=causal, window=window, softcap=cap)
+    torch.cuda.synchronize()
+    served = {n: flash_attention.kernel_launches[n] - before[n] for n in before}
+    check(served == {n: int(n == kernel) for n in served},
+          f"{name} {dtype}: launched {served}, want one {kernel}")
+    check(out.dtype == dtype and out.shape == q.shape, f"{name}: bad output")
+    err = (out.float() - ref.float()).abs().max().item()
+    check(err <= FLASH_TOL[dtype], f"{kernel} {name} {dtype}: max|Δ| {err} "
+          f"> {FLASH_TOL[dtype]}")
+    print(f"[flash] {name} {str(dtype)[6:]} on {kernel}: max|Δ| vs plain {err:.3g} "
+          f"(tol {FLASH_TOL[dtype]})")
+    return kernel, err
 
 
 def phase_flash_kernels(dev) -> list:
     """Both flash kernels against the plain version on every case, each in
-    the dtype ``ops.route`` gives it; their times at the serving shape."""
+    the dtype ``ops.route`` gives it; their times at the serving shape and
+    the tensor-core kernel's at the gemma shapes."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
     from repro_torch.kernels.flash_attention import ops
 
-    lib = _build.library_path(ops.TENSOR_CORE)
-    log = (lib.parent / "build.log").read_text()
-    print(f"[flash] {ops.TENSOR_CORE} SASS: {_sass_check(lib)}")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[flash] {ops.TENSOR_CORE} ptxas: {line.strip()[:120]}")
-    for d in ops.TC_HEAD_DIMS:
-        print(f"[flash] {ops.TENSOR_CORE} D={d}: dynamic shared memory "
-              f"{_build.load(ops.TENSOR_CORE).flash_attention_wgmma_smem_bytes(d)} bytes")
-
+    _flash_build_report(_build.library_path(ops.TENSOR_CORE))
     gen = torch.Generator(device=dev).manual_seed(0)
     max_err = {ops.TENSOR_CORE: 0.0, ops.CUDA_CORE: 0.0}
     cases = [(c, dt) for c in FLASH_CASES for dt in (torch.float32, torch.bfloat16)]
     for case, dtype in cases + [(SERVING_SHAPE, torch.bfloat16)]:
-        _, _, _, _, d, causal, window, cap = case
         q, k, v = _flash_inputs(case, dtype, gen, dev)
-        kernel = ops.route(dtype, d)
-        before = dict(flash_attention.kernel_launches)
-        out = flash_attention(q, k, v, causal=causal, window=window, softcap=cap)
-        ref = flash_attention_ref(q, k, v, causal=causal, window=window, softcap=cap)
-        torch.cuda.synchronize()
-        served = {n: flash_attention.kernel_launches[n] - before[n] for n in before}
-        check(served == {n: int(n == kernel) for n in served},
-              f"{case} {dtype}: launched {served}, want one {kernel}")
-        check(out.dtype == dtype and out.shape == q.shape, f"{case}: bad output")
-        err = (out.float() - ref.float()).abs().max().item()
-        check(err <= FLASH_TOL[dtype], f"{kernel} {case} {dtype}: max|Δ| {err} "
-              f"> {FLASH_TOL[dtype]}")
+        kernel, err = _flash_case_check(case, q, k, v, dtype, *case[5:])
         max_err[kernel] = max(max_err[kernel], err)
-        print(f"[flash] {case} {str(dtype)[6:]} on {kernel}: max|Δ| vs plain {err:.3g} "
-              f"(tol {FLASH_TOL[dtype]})")
+    for b, s, kv, g, d, window, cap in FLASH_STRIDED_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q = torch.randn(b, s, kv * g, d, generator=gen, device=dev).to(dtype)
+            packed = torch.randn(b, s, 2, kv, d, generator=gen, device=dev).to(dtype)
+            kernel, err = _flash_case_check(f"strided k, v of [{b}, {s}, 2, {kv}, {d}]", q,
+                                            packed[:, :, 0], packed[:, :, 1], dtype, True,
+                                            window, cap)
+            max_err[kernel] = max(max_err[kernel], err)
+    for b, s, kv, g, d, window, cap, q_scale in FLASH_SOFTCAP_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = _flash_inputs((b, s, kv, g, d), dtype, gen, dev)
+            q = (q.float() * q_scale).to(dtype)
+            kernel, err = _flash_case_check(f"{(b, s, kv, g, d)} q x{q_scale:g}", q, k, v,
+                                            dtype, True, window, cap)
+            max_err[kernel] = max(max_err[kernel], err)
+            effect = (flash_attention_ref(q, k, v, window=window, softcap=cap).float()
+                      - flash_attention_ref(q, k, v, window=window).float()).abs().max().item()
+            check(effect >= SOFTCAP_EFFECT_MIN, f"softcap {cap} moves the plain version by "
+                  f"only {effect}: the case cannot show a wrong softcap")
+            print(f"[flash]   softcap {cap} moves the plain version's output by up to "
+                  f"{effect:.3g} (the kernel's max|Δ| {err:.3g})")
+    q, k, v = _flash_inputs((1, 40, 2, 1, 64), torch.bfloat16, gen, dev)
+    try:
+        flash_attention(q, k[:, :16], v[:, :16], causal=False, window=8)
+        raise AssertionError("a windowed kernel call with Sq != Sk was not refused")
+    except ValueError as e:
+        print(f"[flash] a windowed call with Sq 40 != Sk 16 on cuda raises: {e}")
 
     records = []
     for kernel, dtype in ((ops.TENSOR_CORE, torch.bfloat16), (ops.CUDA_CORE, torch.float32)):
@@ -761,7 +893,105 @@ def phase_flash_kernels(dev) -> list:
               f"TFLOP/s)")
         records.append(_record(kernel, kernel, "src/repro/kernels/flash_attention/kernel.py:38",
                                max_err[kernel], ms, plain_ms, bound_ms, bound_by, lib_ms))
+    records[0]["gemma_shapes"] = _gemma_flash_times(GEMMA_FLASH_SHAPES, torch.bfloat16,
+                                                    gen, dev)
+    records[1]["gemma_shapes"] = _gemma_flash_times(GEMMA_FLASH_F32_SHAPES, torch.float32,
+                                                    gen, dev)
     return records
+
+
+def _library_attention(q, k, v, window, cap) -> dict:
+    """The PyTorch calls that compute causal attention with ``window`` and
+    softcap ``cap`` on q [B,S,H,D], k, v [B,S,KV,D] in one call, by name:
+    ``flex_attention`` (compiled; a tanh ``score_mod``, a band block mask,
+    GQA) and, without a softcap, ``scaled_dot_product_attention`` with a
+    boolean band mask.  Timed here only; the port calls neither."""
+    import torch.nn.functional as F
+    from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+
+    build = os.path.join(ROOT, "src", "repro_torch", "kernels", ".build")
+    os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR", os.path.join(build, "inductor"))
+    os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(build, "triton"))
+    s, d = q.shape[1], q.shape[-1]
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+    def band(b, h, qi, ki):
+        keep = qi >= ki
+        return keep if window is None else keep & (qi - ki < window)
+
+    def softcap(score, b, h, qi, ki):
+        return cap * torch.tanh(score / cap)
+
+    mask = create_block_mask(band, None, None, s, s, device=q.device)
+    flex = torch.compile(flex_attention, dynamic=False)
+    calls = {"flex_attention": lambda: flex(
+        qt, kt, vt, score_mod=softcap if cap else None, block_mask=mask, scale=d ** -0.5,
+        enable_gqa=True).transpose(1, 2)}
+    if cap is None:
+        i = torch.arange(s, device=q.device)
+        dense = band(None, None, i[:, None], i[None, :])
+        calls["scaled_dot_product_attention with a band mask"] = lambda: (
+            F.scaled_dot_product_attention(qt, kt, vt, attn_mask=dense, enable_gqa=True)
+            .transpose(1, 2))
+    return calls
+
+
+def _gemma_flash_times(shapes: dict, dtype, gen, dev) -> dict:
+    """A flash kernel at the local:global family's prefill shapes: its time
+    beside the plain version's, the bound of the band it computes and the
+    fastest PyTorch call of the same function (``_library_attention``, each
+    held to the plain version first).  For reference only, gemma2's global
+    layer is also timed without its softcap, on the kernel and on
+    ``scaled_dot_product_attention`` (not the same function)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+
+    out = {}
+    for name, case in shapes.items():
+        q, k, v = _flash_inputs(case, dtype, gen, dev)
+        window, cap = case[6], case[7]
+        fn = lambda: flash_attention(q, k, v, window=window, softcap=cap)  # noqa: E731
+        got = fn()
+        ref = flash_attention_ref(q, k, v, window=window, softcap=cap)
+        err = (got.float() - ref.float()).abs().max().item()
+        check(err <= FLASH_TOL[dtype], f"{name}: max|Δ| {err}")
+        library = {}
+        for call, lib_fn in _library_attention(q, k, v, window, cap).items():
+            lib_err = (lib_fn().float() - ref.float()).abs().max().item()
+            check(lib_err <= FLASH_TOL[dtype], f"{name}: {call} max|Δ| vs plain {lib_err}")
+            library[call] = device_time_ms(lib_fn, 10)
+            print(f"[flash] {name}: {call} {library[call]:.4f} ms, max|Δ| vs plain "
+                  f"{lib_err:.3g}")
+        del ref
+        torch.cuda.empty_cache()
+        ms = device_time_ms(fn, 10)
+        plain_ms = device_time_ms(
+            lambda: flash_attention_ref(q, k, v, window=window, softcap=cap), 3)
+        bound_ms, bound_by = _flash_bound(q, k, v, got, window)
+        best = min(library, key=library.get)
+        rec = {"shape": list(case), "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "library_ms": library[best], "library": best,
+               "library_calls_ms": library, "max_abs_err": err}
+        note = ""
+        if name == "gemma2_global":
+            rec["no_softcap_ms"] = device_time_ms(lambda: flash_attention(q, k, v), 10)
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            rec["sdpa_no_softcap_ms"] = device_time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), 10)
+            note = (f"; without the softcap {rec['no_softcap_ms']:.4f} ms, "
+                    f"scaled_dot_product_attention without it {rec['sdpa_no_softcap_ms']:.4f} "
+                    f"ms (not the same function)")
+        tflops = _causal_flops(q, window) / (ms * 1e-3) / 1e12
+        print(f"[flash] {name} q {tuple(q.shape)} k/v {tuple(k.shape)} {str(dtype)[6:]} "
+              f"causal window {window} softcap {cap}: kernel {ms:.4f} ms ({tflops:.2f} TFLOP/s, "
+              f"{ms / bound_ms:.2f}x its bound, {ms / library[best]:.2f}x {best}), plain "
+              f"{plain_ms:.4f} ms, {best} {library[best]:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}), max|Δ| vs plain {err:.3g}{note}")
+        out[name] = rec
+        del q, k, v, got
+        torch.cuda.empty_cache()
+    return out
 
 
 def _median_s(fn, n: int) -> float:
@@ -805,7 +1035,7 @@ def phase_serving(dev) -> dict:
           f"{cfg.attention.n_heads}/{cfg.attention.n_kv_heads} heads, d_ff {cfg.d_ff}, vocab "
           f"{cfg.vocab_size}: {n_params} float32 parameters drawn in "
           f"{time.perf_counter() - t0:.2f} s")
-    launches, by_kernel = phase_generate(cfg, params, dev, flash_attention, "[serve]")
+    launches, by_kernel, _ = phase_generate(cfg, params, dev, flash_attention, "[serve]")
     want = {ops.TENSOR_CORE: cfg.n_layers, ops.CUDA_CORE: 0}
     check(by_kernel == want, f"one bf16 generate launched {by_kernel}, want {want}")
     flash_attention.kernel_launches.update(dict.fromkeys(want, 0))
@@ -818,17 +1048,18 @@ def phase_serving(dev) -> dict:
     return {ops.TENSOR_CORE: launches, ops.CUDA_CORE: f32[ops.CUDA_CORE]}
 
 
-def phase_generate(cfg, params, dev, op, tag: str) -> tuple:
+def phase_generate(cfg, params, dev, op, tag: str, b: int = SERVE_BATCH,
+                   s: int = SERVE_PROMPT, n_new: int = SERVE_NEW, capacity=None) -> tuple:
     """One timed ``generate`` at B = 4, a 2048-token prompt and 32 new
-    tokens, with ``op`` (the path's kernel wrapper) launched once per layer;
-    then a profiled prefill and a profiled window of decode steps.  Returns
-    the launches of that ``generate`` and, where ``op`` has more than one
-    kernel, its launches by kernel."""
+    tokens (or the shapes given), with ``op`` (the path's kernel wrapper)
+    launched once per layer; then a profiled prefill and a profiled window
+    of decode steps.  Returns the launches of that ``generate``, where
+    ``op`` has more than one kernel its launches by kernel, and a prefill's
+    decode cache."""
     from repro_torch.serving.engine import ServeEngine
 
-    b, s, n_new = SERVE_BATCH, SERVE_PROMPT, SERVE_NEW
-    engine = ServeEngine(cfg=cfg, params=params, capacity=s + n_new, batch_size=b,
-                         device=dev)
+    engine = ServeEngine(cfg=cfg, params=params, capacity=capacity or s + n_new,
+                         batch_size=b, device=dev)
     prompts = torch.randint(0, cfg.vocab_size, (b, s), device=dev,
                             generator=torch.Generator(device=dev).manual_seed(1))
     name = op.__name__
@@ -871,7 +1102,7 @@ def phase_generate(cfg, params, dev, op, tag: str) -> tuple:
         dec = _device_kernels(steps)
     if not pre or not dec:
         print(f"{tag} the profiler saw no device work: busy shares not measured")
-        return launches, by_kernel
+        return launches, by_kernel, cache
     busy = sum(e.time_range.elapsed_us() for e in pre)
     mine = sum(e.time_range.elapsed_us() for e in pre if name in e.name)
     print(f"{tag} prefill profile: {len(pre)} device kernels, {busy / 1e3:.2f} ms busy "
@@ -883,10 +1114,10 @@ def phase_generate(cfg, params, dev, op, tag: str) -> tuple:
           f"per step, {busy_d:.1f} us device busy per step = "
           f"{busy_d / (decode_s * 1e6):.1%} of the unprofiled {decode_s * 1e3:.3f} ms step")
     print(f"{tag} decode top kernels per step: {_top_kernels(dec, n_steps)}")
-    return launches, by_kernel
+    return launches, by_kernel, cache
 
 
-def phase_float32_cuda_vs_cpu(cfg, params, dev, tag: str) -> None:
+def phase_float32_cuda_vs_cpu(cfg, params, dev, tag: str, s: int = 128) -> None:
     """The same full-width weights in float32, card vs CPU, in lockstep:
     the CPU's token feeds both, logits agree within F32_LOGIT_ATOL at every
     step, tokens are equal unless the CPU's top-two gap is below it."""
@@ -894,7 +1125,7 @@ def phase_float32_cuda_vs_cpu(cfg, params, dev, tag: str) -> None:
     from repro_torch.serving.engine import ServeEngine, greedy_sample
 
     cfg32 = dataclasses.replace(cfg, dtype="float32")
-    s, n_tok = 128, 4
+    n_tok = 4
     t0 = time.perf_counter()
     engines = {d: ServeEngine(cfg=cfg32, batch_size=1, capacity=s + n_tok, device=d,
                               params=common.tree_map(lambda t: t.to(d), params))
@@ -996,7 +1227,7 @@ def _scan_build_check() -> None:
             print(f"[scan] ptxas: {line.strip()[:140]}")
             spills = [int(n) for n in re.findall(r"(\d+) bytes spill", line)]
             check(not any(spills), f"the scan kernel spills: {line.strip()}")
-    print(f"[scan] SASS: {_sass_check(lib, ('MUFU.EX2', 'LDGSTS'))}")
+    print(f"[scan] SASS: {_sass_check(_sass(lib), lib.name, ('MUFU.EX2', 'LDGSTS'))}")
 
 
 def _offset_copy(t: torch.Tensor, k: int) -> torch.Tensor:
@@ -1087,7 +1318,7 @@ def phase_mamba_serving(dev) -> int:
           f"{cfg.d_model}, d_inner {cfg.ssm.d_inner(cfg.d_model)}, d_state {cfg.ssm.d_state}, "
           f"vocab {cfg.vocab_size}: {n_params} float32 parameters drawn in "
           f"{time.perf_counter() - t0:.2f} s")
-    launches, _ = phase_generate(cfg, params, dev, selective_scan, "[mamba]")
+    launches, _, _ = phase_generate(cfg, params, dev, selective_scan, "[mamba]")
     print(f"[mamba] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
           f"(float32 weights and the engine's bf16 copy)")
 
@@ -1821,6 +2052,190 @@ def phase_serving_loop(dev) -> None:
           f"(worst rel {worst:.3g}); {time.perf_counter() - t0:.2f} s")
 
 
+def _gemma_cache_check(cfg, cache, b: int, capacity: int) -> None:
+    """A prefill's decode cache: the local layers' rings hold
+    ``min(window, capacity)`` slots and the global layers ``capacity``; its
+    bytes beside ``kvcache.cache_bytes`` (every leaf at the cache dtype)."""
+    from repro_torch.models import common, transformer
+    from repro_torch.serving import kvcache
+
+    leaves = dict(common.tree_leaves(cache))
+    layout = dict(common.tree_leaves(transformer.cache_layout(cfg, b, capacity)))
+    check({p: tuple(t.shape) for p, t in leaves.items()} ==
+          {p: d.shape for p, d in layout.items()}, "the decode cache is not the layout's")
+    rings = sorted({d.shape[d.axes.index("kv_seq")] for d in layout.values()})
+    check(rings == sorted({min(cfg.attention.sliding_window, capacity), capacity}),
+          f"kv_seq lengths {rings}")
+    real = sum(t.numel() * t.element_size() for t in leaves.values())
+    print(f"[gemma] {cfg.name} decode cache B={b} capacity={capacity}: kv_seq "
+          f"{rings} (local rings, global layers), {real} bytes on the card "
+          f"(int32 position tags); kvcache.cache_bytes {kvcache.cache_bytes(cfg, b, capacity)}")
+
+
+def _gemma_prefill_attention_check(cfg, params, dev) -> None:
+    """Every flash call of one bf16 prefill of the served model (B = 2, the
+    8160-token prompt of ``generate``) against the plain version on the
+    q, k, v the model gave it: the tensor-core kernel at the model's own
+    inputs, within FLASH_TOL.  The plain version runs a batch row at a time
+    to bound its fp32 scores' memory."""
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.serving.engine import ServeEngine
+
+    engine = ServeEngine(cfg=cfg, params=params, capacity=GEMMA_CAPACITY,
+                         batch_size=GEMMA_BATCH, device=dev)
+    prompts = torch.randint(0, cfg.vocab_size, (GEMMA_BATCH, GEMMA_PROMPT), device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(1))
+    real, errs, moved = attn_mod.flash_attention, [], []
+
+    def plain(q, k, v, **kw):
+        return torch.cat([flash_attention_ref(q[i:i + 1], k[i:i + 1], v[i:i + 1], **kw)
+                          for i in range(q.shape[0])]).float()
+
+    def held(q, k, v, **kw):
+        out = real(q, k, v, **kw)
+        ref = plain(q, k, v, **kw)
+        errs.append((out.float() - ref).abs().max().item())
+        if kw.get("softcap"):
+            moved.append((ref - plain(q, k, v, **dict(kw, softcap=None))).abs().max().item())
+        return out
+
+    attn_mod.flash_attention = held
+    try:
+        with torch.inference_mode():
+            engine._prefill(engine._params, {"tokens": prompts})
+    finally:
+        attn_mod.flash_attention = real
+    tol = FLASH_TOL[torch.bfloat16]
+    check(len(errs) == cfg.n_layers, f"{len(errs)} flash calls in a prefill")
+    check(max(errs) <= tol, f"{cfg.name}: the kernel at the model's inputs, max|Δ| vs plain "
+          f"by layer {errs}")
+    cap = (f"; the softcap moves the plain output by up to {max(moved):.3g} at these "
+           f"inputs" if moved else "")
+    print(f"[gemma] {cfg.name} bf16 prefill, every layer's flash call vs the plain version on "
+          f"the model's q, k, v: max|Δ| {max(errs):.3g} (tol {tol}, layers "
+          f"{min(errs):.3g}–{max(errs):.3g}){cap}")
+
+
+def _gemma_windowed_vs_flash(dev) -> None:
+    """``windowed_attention`` on the card against the CUDA-core flash kernel
+    with the same band, float32, at gemma2's local-layer shape cut to B = 1."""
+    from repro_torch.kernels.flash_attention import flash_attention, ops
+    from repro_torch.models.attention import windowed_attention
+
+    b, s, kv, g, d, _, window, cap = GEMMA_FLASH_SHAPES["gemma2_local"]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q, k, v = _flash_inputs((1, s, kv, g, d), torch.float32, gen, dev)
+    scale = d ** -0.5
+    before = flash_attention.kernel_launches[ops.CUDA_CORE]
+    flash = flash_attention(q, k, v, causal=True, window=window, softcap=cap, scale=scale)
+    band = windowed_attention(q, k.repeat_interleave(g, 2), v.repeat_interleave(g, 2),
+                              window=window, scale=scale, cap=cap, q_chunk=1020)
+    torch.cuda.synchronize()
+    check(flash_attention.kernel_launches[ops.CUDA_CORE] == before + 1, "no CUDA-core launch")
+    err = (band - flash).abs().max().item()
+    check(err <= FLASH_TOL[torch.float32], f"windowed_attention vs flash: max|Δ| {err}")
+    print(f"[gemma] windowed_attention (q_chunk 1020) vs the CUDA-core flash kernel, float32 "
+          f"q {tuple(q.shape)} window {window} softcap {cap}: max|Δ| {err:.3g} "
+          f"(tol {FLASH_TOL[torch.float32]})")
+
+
+def phase_gemma_serving(dev) -> dict:
+    """The local:global family's serving path; returns, per model, the flash
+    launches of one bf16 ``generate`` by kernel and how many had a window."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention, ops
+    from repro_torch.kernels.grid_argmin import grid_argmin
+    from repro_torch.launch import serve
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import common, transformer
+
+    torch.cuda.empty_cache()
+    # 15a. the serving launcher at full width, as a user runs it
+    flash_attention.launches = grid_argmin.launches = 0
+    t0 = time.perf_counter()
+    check(serve.main(["--arch", "gemma2-2b", "--no-reduced", "--device", "cuda"]) == 0,
+          "serve.main failed")
+    torch.cuda.synchronize()
+    fa, ga = flash_attention.launches, grid_argmin.launches
+    print(f"[gemma] launch.serve --arch gemma2-2b --no-reduced --device cuda: "
+          f"{time.perf_counter() - t0:.2f} s, flash_attention launches {fa}, grid_argmin "
+          f"launches {ga}")
+    check(fa > 0 and ga > 0, "the serving launcher launched no flash_attention or grid_argmin")
+    torch.cuda.empty_cache()
+
+    # the window of every flash call, through the name the model calls
+    windows, real = [], attn_mod.flash_attention
+
+    def spy(*args, **kw):
+        windows.append(kw.get("window"))
+        return real(*args, **kw)
+
+    out = {}
+    for arch, n_layers in (("gemma2-2b", None), ("gemma3-27b", GEMMA3_LAYERS)):
+        cfg = get_config(arch)
+        if n_layers:
+            cfg = dataclasses.replace(cfg, n_layers=n_layers)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = common.init_params(torch.Generator(device=dev).manual_seed(0),
+                                    transformer.model_layout(cfg))
+        torch.cuda.synchronize()
+        n_params = sum(t.numel() for _, t in common.tree_leaves(params))
+        local = [transformer._is_local(cfg, i) for i in range(cfg.n_layers)]
+        a = cfg.attention
+        print(f"[gemma] {arch}: {cfg.n_layers} layers ({sum(local)} local, window "
+              f"{a.sliding_window}), d_model {cfg.d_model}, {a.n_heads}/{a.n_kv_heads} heads "
+              f"of {a.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}: {n_params} float32 "
+              f"parameters drawn in {time.perf_counter() - t0:.2f} s")
+        windows.clear()
+        attn_mod.flash_attention = spy
+        try:
+            launches, by_kernel, cache = phase_generate(
+                cfg, params, dev, flash_attention, "[gemma]", b=GEMMA_BATCH, s=GEMMA_PROMPT,
+                n_new=GEMMA_NEW, capacity=GEMMA_CAPACITY)
+        finally:
+            attn_mod.flash_attention = real
+        _gemma_cache_check(cfg, cache, GEMMA_BATCH, GEMMA_CAPACITY)
+        del cache
+        want = {ops.TENSOR_CORE: cfg.n_layers, ops.CUDA_CORE: 0}
+        check(by_kernel == want, f"one bf16 generate launched {by_kernel}, want {want}")
+        # every prefill of the phase (the timed generate's among them) had one call a
+        # layer, windowed exactly where the layer is local
+        per_layer = [w is not None for w in windows]
+        check(len(per_layer) % cfg.n_layers == 0 and per_layer == local * (
+            len(per_layer) // cfg.n_layers), f"flash windows {windows[:cfg.n_layers]}")
+        check(all(w in (None, a.sliding_window) for w in windows), "a window other than the config's")
+        windowed = sum(local)
+        print(f"[gemma] {arch} flash launches per generate: {by_kernel} ({windowed} windowed, "
+              f"window {a.sliding_window}); peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (float32 weights, the "
+              f"engine's bf16 copy, activations)")
+        out[arch] = {"tensor_core": by_kernel[ops.TENSOR_CORE], "windowed": windowed,
+                     "layers": cfg.n_layers}
+        _gemma_prefill_attention_check(cfg, params, dev)
+        torch.cuda.empty_cache()
+
+        # 15d. float32, card vs CPU, on the first layers of the same weights
+        f32_layers, f32_prompt = GEMMA_F32[arch]
+        period = transformer.period_of(cfg)
+        cut = dataclasses.replace(cfg, n_layers=f32_layers)
+        few = dict(params, slots=[common.tree_map(lambda t: t[:f32_layers // period], sl)
+                                  for sl in params["slots"]], rem=[])
+        flash_attention.kernel_launches.update(dict.fromkeys(flash_attention.kernel_launches, 0))
+        phase_float32_cuda_vs_cpu(cut, few, dev, "[gemma]", s=f32_prompt)
+        f32 = dict(flash_attention.kernel_launches)
+        check(f32 == {ops.CUDA_CORE: f32_layers, ops.TENSOR_CORE: 0},
+              f"the float32 check launched {f32}, want {f32_layers} on the CUDA-core kernel")
+        print(f"[gemma] {arch} float32 check: {f32_layers} layers ({sum(local[:f32_layers])} "
+              f"local), prompt {f32_prompt} past the window {a.sliding_window}; flash launches "
+              f"{f32}")
+        del params, few
+        torch.cuda.empty_cache()
+    _gemma_windowed_vs_flash(dev)
+    return out
+
+
 def _timed(label: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -1851,6 +2266,7 @@ def main() -> int:
     _timed("12 predictors", phase_predictors, dev)
     _timed("13 composition", phase_composition, dev)
     _timed("14 serving loop", phase_serving_loop, dev)
+    flash[0]["launches_gemma"] = _timed("15 local:global serving", phase_gemma_serving, dev)
     records = [argmin, *flash, scan]
     print(f"[time] all phases: {time.perf_counter() - t0:.2f} s")
     print("kernels: " + ", ".join(r["name"] for r in records))

@@ -1,15 +1,16 @@
 """Architecture registry of the port: ``--arch <id>`` resolution.
 
 Only the architectures whose every layer the port can run are registered;
-the JAX package's other eight (``repro.configs.ARCH_NAMES``) raise a
-``KeyError`` that says they are not ported yet (ROADMAP A10).
+the JAX package's other six (``repro.configs.ARCH_NAMES``: MoE, MLA,
+Mamba-2 / hybrid, the frontends and llama3-405b, ROADMAP A12) raise a
+``KeyError`` that says they are not ported yet.
 """
 
 from __future__ import annotations
 
 from typing import Dict, List
 
-from repro_torch.configs import falcon_mamba_7b, llama3_2_1b
+from repro_torch.configs import falcon_mamba_7b, gemma2_2b, gemma3_27b, llama3_2_1b
 from repro_torch.configs.base import (SHAPES, AttentionConfig, ModelConfig,
                                       MoEConfig, OptimizerConfig, ShapeConfig,
                                       SSMConfig, TrainConfig, count_params,
@@ -18,14 +19,15 @@ from repro_torch.configs.base import (SHAPES, AttentionConfig, ModelConfig,
 _MODULES = {
     "llama3.2-1b": llama3_2_1b,
     "falcon-mamba-7b": falcon_mamba_7b,
+    "gemma2-2b": gemma2_2b,
+    "gemma3-27b": gemma3_27b,
 }
 
 ARCH_NAMES: List[str] = list(_MODULES)
 
 #: Architectures of the JAX package that the port cannot run yet.
-NOT_PORTED = ("gemma2-2b", "llama3-405b", "gemma3-27b", "internvl2-1b",
-              "qwen3-moe-235b-a22b", "deepseek-v2-236b", "zamba2-2.7b",
-              "hubert-xlarge")
+NOT_PORTED = ("llama3-405b", "internvl2-1b", "qwen3-moe-235b-a22b",
+              "deepseek-v2-236b", "zamba2-2.7b", "hubert-xlarge")
 
 
 def get_config(name: str, reduced: bool = False) -> ModelConfig:

@@ -29,10 +29,11 @@
 // row sum are 4-step xor shuffles and the P tile is shared through shared memory with a
 // __syncwarp only.  Offsets come from the element strides of the [B, S, heads, D] inputs
 // (head_dim contiguous); there are no transposes and no lane padding.  Ragged sequence
-// ends are masked, so any S works, and D ≤ 128.  Rows of the Q and K tiles are padded by
+// ends are masked, so any S works, and D ≤ 256.  Rows of the Q and K tiles are padded by
 // one float and P rows by four, which keeps the shared-memory reads free of bank
-// conflicts.  Shared memory is 66 KB at D = 64 and 114 KB at D = 128, above the 48 KB
-// default, so the launch opts in with cudaFuncSetAttribute.  Query tiles run heaviest
+// conflicts.  Shared memory is 66 KB at D = 64, 114 KB at D = 128 and 214.5 KB at
+// D = 256 (one block an SM), above the 48 KB default, so the launch opts in with
+// cudaFuncSetAttribute.  Query tiles run heaviest
 // first (the z axis counts down) so the causal triangle's long tiles do not trail.
 //
 // What bounds it on an H100.  At the serving shape in float32 (B = 4, S = 2048, 32 query
@@ -75,7 +76,8 @@ __host__ __device__ constexpr size_t smem_floats(int d) {
          static_cast<size_t>(kBK) * d + static_cast<size_t>(kBQ) * kLdP;
 }
 
-// NJ = output columns per thread (tx + 16·jj for jj < NJ): 2, 4 or 8 for D ≤ 32, 64, 128.
+// NJ = output columns per thread (tx + 16·jj for jj < NJ): 2, 4, 8 or 16 for D ≤ 32, 64,
+// 128, 256.
 template <typename T, int NJ>
 __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -249,8 +251,11 @@ int launch_d(const void* q, const void* k, const void* v, void* o, int B, int Sq
   if (D <= 64)
     return launch<T, 4>(q, k, v, o, B, Sq, Sk, H, KV, D, qs, ks, vs, scale, causal, window,
                         has_cap, cap, stream);
-  return launch<T, 8>(q, k, v, o, B, Sq, Sk, H, KV, D, qs, ks, vs, scale, causal, window,
-                      has_cap, cap, stream);
+  if (D <= 128)
+    return launch<T, 8>(q, k, v, o, B, Sq, Sk, H, KV, D, qs, ks, vs, scale, causal, window,
+                        has_cap, cap, stream);
+  return launch<T, 16>(q, k, v, o, B, Sq, Sk, H, KV, D, qs, ks, vs, scale, causal, window,
+                       has_cap, cap, stream);
 }
 
 }  // namespace
@@ -259,7 +264,7 @@ int launch_d(const void* q, const void* k, const void* v, void* o, int B, int Sq
 // (cudaGetLastError() after the launch).  q: [B, Sq, H, D]; k, v: [B, Sk, KV, D], each
 // given by its batch, sequence and head strides in elements (head_dim contiguous);
 // o: a contiguous [B, Sq, H, D]; all float32.  window <= 0 means none; has_cap = 0
-// means no softcap.  The caller checks D <= 128 and H % KV == 0.
+// means no softcap.  The caller checks D <= 256 and H % KV == 0.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk,
     int H, int KV, int D, long long q_sb, long long q_ss, long long q_sh, long long k_sb,

@@ -2,7 +2,7 @@
 //
 // Replaces the TPU kernel `_fa_kernel` in src/repro/kernels/flash_attention/kernel.py:38
 // (launched by `flash_attention_fwd`, `pallas_call` at :141) for bfloat16 inputs with
-// head_dim D in {16, 32, 64, 128}; float32 inputs stay on the CUDA-core kernel in
+// head_dim D in {16, 32, 64, 128, 256}; float32 inputs stay on the CUDA-core kernel in
 // flash_attention.cu.  It computes what that kernel computes, as
 // repro_torch/kernels/flash_attention/ref.py does in one pass:
 //
@@ -23,32 +23,41 @@
 // peak of 989 TFLOP/s), so operations bound it, and only the tensor cores reach that
 // rate: both products run on wgmma.  At D = 64 the exponentials weigh as much: one per
 // score against 4·D = 256 tensor-core FLOP, and the special-function units do 16 a clock
-// per SM where the tensor cores do 4096 FLOP, so they too need about 70 µs.
+// per SM where the tensor cores do 4096 FLOP, so they too need about 70 µs.  At gemma2-2b's
+// prefill (B = 2, S = 8160, 8 query / 4 KV heads, D = 256, softcap 50) a global layer does
+// 546 GFLOP (0.552 ms at peak) and a local one (window 4096) 410 GFLOP (0.415 ms); there
+// the softcap's accurate tanhf and its IEEE division, a score at a time on the CUDA cores,
+// take longer than the products (PERF.md has the times with and without it).
 //
 // Design.  One block per (query head, batch, query tile), query tiles heaviest first
 // (the z axis counts down).  The first warpgroups are consumers of 64 query rows each,
-// three at D <= 64 (192-row tiles), two at D = 128; the last warpgroup is the producer,
-// one thread of which issues every TMA load.  The producer drops to 24 registers
-// (setmaxnreg) so that each consumer thread gets 160 (232 at D = 128).
+// three at D <= 64 (192-row tiles), two at D = 128 and 256; the last warpgroup is the
+// producer, one thread of which issues every TMA load.  The producer drops to 24
+// registers with setmaxnreg, so that each consumer thread gets 160 (232 at D = 128, 240
+// at D = 256, where the output fragment alone is 128 floats a thread); ptxas allocates
+// the code after each setmaxnreg for its count, not for the launch bound's 128 or 168.
 //  * TMA: the host encodes one CUtensorMap each for q, k and v over the caller's
 //    [B, S, heads, D] view (dims innermost first {D, S, heads, B}, the caller's byte
 //    strides, head_dim contiguous), with a box of 64 (q) or kBK (k, v) rows by
 //    min(D, 64) columns and a swizzle of the box row's bytes (128 B at D >= 64, so
-//    D = 128 takes two column boxes).  GQA is folded in the coordinates: query head h
-//    reads KV head h / G.  TMA fills rows past the end with zeros; keys at or past Sk
-//    are still masked, and query rows at or past Sq are not stored.  The maps hold the
-//    base pointers, so they are encoded on every call, by libcuda's
-//    cuTensorMapEncodeTiled looked up with cudaGetDriverEntryPoint (no -lcuda).
-//  * Pipeline: Q is loaded once; K and V tiles of kBK keys (128; 64 at D = 128, for
-//    registers) go through a ring of three stages with full barriers (one per K and per
-//    V tile) and an empty barrier per stage that each consumer warp arrives on once.
-//    The producer walks the tiles of the causal / window band [lo, hi) of the block's
-//    rows, so tiles outside it are never loaded; a tile no row of a warpgroup can see is
-//    waited for and released by it, not computed.
+//    D = 128 takes two column boxes and D = 256 four).  GQA is folded in the
+//    coordinates: query head h reads KV head h / G.  TMA fills rows past the end with
+//    zeros; keys at or past Sk are still masked, and query rows at or past Sq are not
+//    stored.  The maps hold the base pointers, so they are encoded on every call, by
+//    libcuda's cuTensorMapEncodeTiled looked up with cudaGetDriverEntryPoint (no -lcuda).
+//  * Pipeline: Q is loaded once; K and V tiles of kBK keys (128; 64 at D >= 128, for
+//    registers) go through a K ring and a V ring of three stages each (two at D = 256,
+//    where a tile is 32 KB: Q, 64 KB, and the rings then take 192 KB), each stage with a
+//    full barrier and an empty barrier that each consumer warp arrives on once: on K's
+//    as soon as S of that tile is done, on V's once its P·V is.  The producer walks the
+//    tiles of the causal / window band [lo, hi) of the block's rows, so tiles outside
+//    it are never loaded; a tile no row of a warpgroup can see is waited for and
+//    released by it, not computed.
 //  * S = Q·Kᵀ: wgmma m64nkBKk16, both operands K-major in swizzled shared memory, D/16
-//    steps.  O += P·V: wgmma m64nDk16 with A = P from registers (the fp32 S fragment
-//    packed to bf16 pairs is the A fragment) and B = the V tile [keys, D] MN-major, read
-//    through the transpose-B bit, so V is never copied or transposed.
+//    steps.  O += P·V: wgmma m64nDk16 (m64n256k16 at D = 256, the widest wgmma) with
+//    A = P from registers (the fp32 S fragment packed to bf16 pairs is the A fragment)
+//    and B = the V tile [keys, D] MN-major, read through the transpose-B bit, so V is
+//    never copied or transposed.
 //  * Overlap: step j issues S(j) and P(j−1)·V(j−1) together, waits for S(j) only, and
 //    runs the softmax of S(j) while the tensor cores do P·V; the wait for P·V opens
 //    step j + 1, behind the loop's branch, because ptxas hoists a wgmma wait placed
@@ -79,26 +88,29 @@
 
 namespace {
 
-constexpr int kStages = 3;                // K/V ring depth
 constexpr float kNegInf = -2.0e38f;
 constexpr float kLog2e = 1.4426950408889634f;
 
 // Shared-memory geometry of one head_dim.  A tile is stored as column boxes of
 // kRowBytes-byte rows, each swizzled by TMA in atoms of 8 rows.  KV tiles hold 128 keys,
-// 64 at D = 128, where the S, P and output fragments of 128 keys would not fit in
-// registers (ops.kv_box_rows says the same).
+// 64 at D = 128 and 256, where the S, P and output fragments of 128 keys would not fit
+// in registers (ops.kv_box_rows says the same).
 template <int D>
 struct Tile {
   // Consumer warpgroups of 64 query rows, and the registers each of their threads gets
   // once the producer warpgroup has dropped to 24 (the 64K of an SM, less the
-  // producer's 3K, split over them): three at D <= 64; two at D = 128, whose 64-column
-  // output fragment would not fit in 160.
-  static constexpr int kWG = D == 128 ? 2 : 3;
+  // producer's 3K, split over them): three at D <= 64; two at D = 128 and 256, whose 64-
+  // and 128-float output fragments would not fit in 160.  At D = 256 the consumers take
+  // all the producer gives up: 2 · 128 · (240 − 168) = 128 · (168 − 24).
+  static constexpr int kWG = D >= 128 ? 2 : 3;
   static constexpr int kBQ = 64 * kWG;             // query rows per block
   static constexpr int kConsumers = 128 * kWG;
   static constexpr int kThreads = kConsumers + 128;  // and one producer warpgroup
-  static constexpr int kConsumerRegs = kWG == 3 ? 160 : 232;
-  static constexpr int kBK = D == 128 ? 64 : 128;  // keys per KV tile
+  static constexpr int kConsumerRegs = kWG == 3 ? 160 : D == 256 ? 240 : 232;
+  static constexpr int kBK = D >= 128 ? 64 : 128;  // keys per KV tile
+  // Stages of the K ring and of the V ring: three, two at D = 256, where a tile is 32 KB
+  // and three stages of both beside Q would pass the 227 KB a block can have.
+  static constexpr int kStages = D == 256 ? 2 : 3;
   static constexpr int kRowBytes = D * 2 < 128 ? D * 2 : 128;
   static constexpr int kBoxCols = kRowBytes / 2;
   static constexpr int kQRows = 64 * D * 2;    // bytes of one warpgroup's Q rows
@@ -106,7 +118,7 @@ struct Tile {
   static constexpr int kAtom = 8 * kRowBytes;  // bytes of one swizzle atom (8 rows)
   // wgmma descriptor layout code: 1 = 128-byte, 2 = 64-byte, 3 = 32-byte swizzle
   static constexpr int kLayout = kRowBytes == 128 ? 1 : kRowBytes == 64 ? 2 : 3;
-  // Q, the K and V rings, 10 mbarriers, and slack to align the base to 1024 bytes
+  // Q, the K and V rings, 1 + 4·kStages mbarriers, and slack to align the base to 1024
   static constexpr int kSmem = kWG * kQRows + 2 * kStages * kKV + 128 + 1024;
 };
 
@@ -159,6 +171,14 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint3
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
          (static_cast<uint64_t>(layout) << 62);
+}
+
+// The descriptor `desc` moved `bytes` further into shared memory: an add to its 14-bit
+// start-address field, which cannot carry out of it (shared memory ends below 256 KB).
+// A step's descriptors are one base and such adds, so none of them has to stay live in
+// a register across the loop.
+__device__ __forceinline__ uint64_t desc_add(uint64_t desc, uint32_t bytes) {
+  return desc + (bytes >> 4);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -310,20 +330,58 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D[64 x 256] += A[64 x 16] * B[16 x 256]; A from registers (four bf16 pairs), B from
+// shared memory, MN-major (the transpose-B bit set).
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&a)[4],
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18,"
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52,"
+      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69,"
+      "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86,"
+      "%87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102,"
+      "%103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116,"
+      "%117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]),
+        "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),
+        "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]),
+        "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]),
+        "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
 
 // S = Q·Kᵀ of one warpgroup: D/16 wgmma steps along head_dim, committed as one group.
 template <int D>
 __device__ __forceinline__ void issue_qk(float (&s)[Tile<D>::kBK / 2], uint32_t q_tile,
                                          uint32_t k_tile) {
   using T = Tile<D>;
+  const uint64_t qa = smem_desc(q_tile, 16, T::kAtom, T::kLayout);
+  const uint64_t ka = smem_desc(k_tile, 16, T::kAtom, T::kLayout);
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const int box = kk * 16 / T::kBoxCols;
     const uint32_t col = (kk * 16 % T::kBoxCols) * 2;
-    const uint64_t da =
-        smem_desc(q_tile + box * 64 * T::kRowBytes + col, 16, T::kAtom, T::kLayout);
-    const uint64_t db =
-        smem_desc(k_tile + box * T::kBK * T::kRowBytes + col, 16, T::kAtom, T::kLayout);
+    const uint64_t da = desc_add(qa, box * 64 * T::kRowBytes + col);
+    const uint64_t db = desc_add(ka, box * T::kBK * T::kRowBytes + col);
     if constexpr (T::kBK == 128) wgmma_ss_n128(s, da, db, kk > 0);
     else wgmma_ss_n64(s, da, db, kk > 0);
   }
@@ -331,21 +389,22 @@ __device__ __forceinline__ void issue_qk(float (&s)[Tile<D>::kBK / 2], uint32_t 
 }
 
 // O += P·V of one warpgroup: kBK/16 wgmma steps along the keys, committed as one group.
-// V is MN-major: a step moves 16 rows down the tile; at D = 128 its two column boxes
-// are kBK·128 bytes apart (the descriptor's leading byte offset).
+// V is MN-major: a step moves 16 rows down the tile; at D = 128 and 256 its two and four
+// column boxes are kBK·128 bytes apart (the descriptor's leading byte offset).
 template <int D>
 __device__ __forceinline__ void issue_pv(float (&acc)[D / 2],
                                          const uint32_t (&p)[Tile<D>::kBK / 16][4],
                                          uint32_t v_tile) {
   using T = Tile<D>;
+  const uint64_t va = smem_desc(v_tile, T::kBK * T::kRowBytes, T::kAtom, T::kLayout);
 #pragma unroll
   for (int kk = 0; kk < T::kBK / 16; ++kk) {
-    const uint64_t db = smem_desc(v_tile + kk * 16 * T::kRowBytes, T::kBK * T::kRowBytes,
-                                  T::kAtom, T::kLayout);
+    const uint64_t db = desc_add(va, kk * 16 * T::kRowBytes);
     if constexpr (D == 16) wgmma_rs_n16(acc, p[kk], db);
     else if constexpr (D == 32) wgmma_rs_n32(acc, p[kk], db);
     else if constexpr (D == 64) wgmma_rs_n64(acc, p[kk], db);
-    else wgmma_rs_n128(acc, p[kk], db);
+    else if constexpr (D == 128) wgmma_rs_n128(acc, p[kk], db);
+    else wgmma_rs_n256(acc, p[kk], db);
   }
   wgmma_commit();
 }
@@ -451,6 +510,7 @@ __global__ void __launch_bounds__(Tile<D>::kThreads, 1) flash_attention_wgmma_ke
     int H, int G, float scale, int causal, int window, float cap) {
   using T = Tile<D>;
   constexpr int BK = T::kBK;
+  constexpr int kStages = T::kStages;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sK = sQ + T::kWG * T::kQRows;
@@ -459,7 +519,8 @@ __global__ void __launch_bounds__(Tile<D>::kThreads, 1) flash_attention_wgmma_ke
   const uint32_t q_full = bars;
   auto k_full = [&](int s) { return bars + 8u * (1 + s); };
   auto v_full = [&](int s) { return bars + 8u * (1 + kStages + s); };
-  auto empty = [&](int s) { return bars + 8u * (1 + 2 * kStages + s); };
+  auto k_empty = [&](int s) { return bars + 8u * (1 + 2 * kStages + s); };
+  auto v_empty = [&](int s) { return bars + 8u * (1 + 3 * kStages + s); };
 
   const int h = blockIdx.x;
   const int b = blockIdx.y;
@@ -469,7 +530,7 @@ __global__ void __launch_bounds__(Tile<D>::kThreads, 1) flash_attention_wgmma_ke
   const int nk = (Sk + BK - 1) / BK;
   const int hi = causal ? min((min(q0 + T::kBQ, Sq) - 1) / BK + 1, nk) : nk;
   const int lo = window > 0 ? max(q0 - window + 1, 0) / BK : 0;
-  // tile j sits in ring stage (j − lo) % kStages, in round (j − lo) / kStages
+  // tile j sits in stage (j − lo) % kStages of both rings, in round (j − lo) / kStages
   auto stage = [&](int j) { return (j - lo) % kStages; };
   auto parity = [&](int j) { return static_cast<uint32_t>(((j - lo) / kStages) & 1); };
 
@@ -478,7 +539,8 @@ __global__ void __launch_bounds__(Tile<D>::kThreads, 1) flash_attention_wgmma_ke
     for (int s = 0; s < kStages; ++s) {
       mbar_init(k_full(s), 1);
       mbar_init(v_full(s), 1);
-      mbar_init(empty(s), T::kConsumers / 32);  // one arrival per consumer warp
+      mbar_init(k_empty(s), T::kConsumers / 32);  // one arrival per consumer warp
+      mbar_init(v_empty(s), T::kConsumers / 32);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -497,11 +559,12 @@ __global__ void __launch_bounds__(Tile<D>::kThreads, 1) flash_attention_wgmma_ke
                    c * T::kBoxCols, q0 + 64 * half, h, b);
       for (int j = lo; j < hi; ++j) {
         const int s = stage(j);
-        mbar_wait(empty(s), parity(j) ^ 1);  // the first round passes at once
+        mbar_wait(k_empty(s), parity(j) ^ 1);  // the first round passes at once
         mbar_expect_tx(k_full(s), T::kKV);
         for (int c = 0; c < D / T::kBoxCols; ++c)
           tma_load(sK + s * T::kKV + c * BK * T::kRowBytes, &tk, k_full(s), c * T::kBoxCols,
                    j * BK, kvh, b);
+        mbar_wait(v_empty(s), parity(j) ^ 1);
         mbar_expect_tx(v_full(s), T::kKV);
         for (int c = 0; c < D / T::kBoxCols; ++c)
           tma_load(sV + s * T::kKV + c * BK * T::kRowBytes, &tv, v_full(s), c * T::kBoxCols,
@@ -534,14 +597,15 @@ __global__ void __launch_bounds__(Tile<D>::kThreads, 1) flash_attention_wgmma_ke
     mbar_wait(bar, parity(j));
     __syncwarp();  // the .aligned wgmma instructions need the warp converged
   };
-  auto release = [&](int j) {
+  auto release = [&](uint32_t bar) {
     __syncwarp();
-    if (lane == 0) mbar_arrive(empty(stage(j)));
+    if (lane == 0) mbar_arrive(bar);
   };
   auto pass = [&](int j) {
     wait_full(k_full(stage(j)), j);
+    release(k_empty(stage(j)));
     wait_full(v_full(stage(j)), j);
-    release(j);
+    release(v_empty(stage(j)));
   };
   float m[2] = {kNegInf, kNegInf};  // running row max, in the base-2 domain
   float l[2] = {0.0f, 0.0f};        // this thread's share of the row sums
@@ -564,22 +628,25 @@ __global__ void __launch_bounds__(Tile<D>::kThreads, 1) flash_attention_wgmma_ke
     // The first tile's scores, alone.  Then, per tile j: S(j) and P(j−1)·V(j−1) are
     // issued together, and the softmax of S(j) runs while the tensor cores do P·V.  The
     // wait for that P·V comes at the top of the next step, behind the loop's branch, so
-    // the compiler cannot hoist it above the softmax; the step then releases tile j − 2
-    // (so the ring needs three stages), rescales O and packs P(j).
-    static_assert(kStages >= 3, "a tile is released two steps after its K arrived");
+    // the compiler cannot hoist it above the softmax; the step then releases V(j − 2),
+    // rescales O and packs P(j − 1).  K(j) is released as soon as S(j) is done, so the
+    // producer can refill its stage a step before V's (two stages are enough to never
+    // wait on a load that was not already asked for).
+    static_assert(kStages >= 2, "V(j) is loaded into the stage V(j − 2) leaves");
     wait_full(k_full(stage(lo_w)), lo_w);
     fence_regs(s);
     wgmma_fence();
     issue_qk<D>(s, q_tile, sK + stage(lo_w) * T::kKV);
     wgmma_wait<0>();
     fence_regs(s);
+    release(k_empty(stage(lo_w)));
     if (w.edge(lo_w * BK, BK)) softmax_tile<BK, kCap, true>(s, m, l, corr, w, lo_w * BK);
     else softmax_tile<BK, kCap, false>(s, m, l, corr, w, lo_w * BK);
-    // O·corr + P·V of the previous step is done: release its tile, fold in corr, pack P
+    // O·corr + P·V of the previous step is done: release its V, fold in corr, pack P
     auto settle = [&](int j) {
       wgmma_wait<0>();
       fence_regs(acc);
-      if (j - 2 >= lo_w) release(j - 2);
+      if (j - 2 >= lo_w) release(v_empty(stage(j - 2)));
 #pragma unroll
       for (int e = 0; e < D / 2; ++e) acc[e] *= corr[(e >> 1) & 1];
       pack_p<BK>(p, s);
@@ -595,6 +662,7 @@ __global__ void __launch_bounds__(Tile<D>::kThreads, 1) flash_attention_wgmma_ke
       issue_pv<D>(acc, p, sV + stage(j - 1) * T::kKV);
       wgmma_wait<1>();  // S(j) is done; P·V may still run
       fence_regs(s);
+      release(k_empty(stage(j)));
       softmax_tile<BK, kCap, decltype(edge)::value>(s, m, l, corr, w, j * BK);
     };
     // Tiles that need the mask lie at the ends of the band (the window's edge first, the
@@ -614,7 +682,7 @@ __global__ void __launch_bounds__(Tile<D>::kThreads, 1) flash_attention_wgmma_ke
     issue_pv<D>(acc, p, sV + stage(hi_w - 1) * T::kKV);
     wgmma_wait<0>();
     fence_regs(acc);
-    release(hi_w - 1);
+    release(v_empty(stage(hi_w - 1)));
     for (int j = hi_w; j < hi; ++j) pass(j);
   }
 
@@ -705,9 +773,9 @@ int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv, 
 // Launches on `stream` without synchronizing; returns 0, a CUDA error code, or one of
 // the codes above.  q: [B, Sq, H, D]; k, v: [B, Sk, KV, D], bfloat16, each described by
 // its tensor-map arguments (ops.tma_map_args: q with 64-row boxes, k and v with
-// 128-row boxes); o: a contiguous [B, Sq, H, D].  window <= 0 means none; has_cap = 0
-// means no softcap.  The caller checks D in {16, 32, 64, 128}, H % KV == 0 and the
-// alignment TMA needs.
+// ops.kv_box_rows(D)-row boxes); o: a contiguous [B, Sq, H, D].  window <= 0 means none;
+// has_cap = 0 means no softcap.  The caller checks D in {16, 32, 64, 128, 256},
+// H % KV == 0 and the alignment TMA needs.
 extern "C" int flash_attention_wgmma_launch(const void* q, const void* k, const void* v,
                                             void* o, const unsigned long long* q_map,
                                             const unsigned long long* k_map,
@@ -731,19 +799,23 @@ extern "C" int flash_attention_wgmma_launch(const void* q, const void* k, const 
     case 128:
       return launch<128>(tq, tk, tv, o, B, Sq, Sk, H, KV, scale, causal, window, has_cap, cap,
                          st);
+    case 256:
+      return launch<256>(tq, tk, tv, o, B, Sq, Sk, H, KV, scale, causal, window, has_cap, cap,
+                         st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 // Dynamic shared memory a launch of head_dim D asks for (0 for a D the kernel does not
-// take): Q, the three-stage K/V ring, the mbarriers and the alignment slack.
+// take): Q, the K and V rings, the mbarriers and the alignment slack.
 extern "C" int flash_attention_wgmma_smem_bytes(int D) {
   switch (D) {
     case 16: return Tile<16>::kSmem;
     case 32: return Tile<32>::kSmem;
     case 64: return Tile<64>::kSmem;
     case 128: return Tile<128>::kSmem;
+    case 256: return Tile<256>::kSmem;
     default: return 0;
   }
 }

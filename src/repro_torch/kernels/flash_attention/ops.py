@@ -11,11 +11,14 @@ fixed rule on dtype and head_dim (``route``):
   TMA.  ``tma_map_args`` computes each input's tensor-map arguments and
   raises ``ValueError`` where TMA cannot take the view (base address not
   16-byte aligned, a stride not a multiple of 16 bytes);
-* float32 → ``flash_attention`` (``csrc/flash_attention.cu``): fp32 FMAs
-  on the CUDA cores, so float32 stays float32 (TF32 would miss 2e-5).
+* float32 with head_dim up to ``MAX_HEAD_DIM`` → ``flash_attention``
+  (``csrc/flash_attention.cu``): fp32 FMAs on the CUDA cores, so float32
+  stays float32 (TF32 would miss 2e-5).
 
-A bfloat16 head_dim outside ``TC_HEAD_DIMS`` raises.  There is no
-fallback between the kernels or to the plain version.
+A bfloat16 head_dim outside ``TC_HEAD_DIMS`` or a float32 one above
+``MAX_HEAD_DIM`` raises on a CUDA tensor; the plain version takes any
+head_dim.  There is no fallback between the kernels or to the plain
+version.
 ``flash_attention.launches`` counts all kernel launches and
 ``flash_attention.kernel_launches`` the launches of each kernel.
 """
@@ -30,12 +33,12 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
-#: Largest head_dim the kernels take (the CUDA-core kernel's per-thread
-#: output columns; the tensor-core kernel's two 64-column TMA boxes).
-MAX_HEAD_DIM = 128
+#: Largest head_dim the kernels take (the CUDA-core kernel's 16 output
+#: columns a thread; the tensor-core kernel's four 64-column TMA boxes).
+MAX_HEAD_DIM = 256
 #: bfloat16 head_dims of the tensor-core kernel: a multiple of wgmma's
-#: depth of 16, and a swizzled TMA box row of D·2 bytes holds at most 128.
-TC_HEAD_DIMS = (16, 32, 64, 128)
+#: depth of 16 whose swizzled TMA box row (D·2 bytes, at most 128) tiles D.
+TC_HEAD_DIMS = (16, 32, 64, 128, 256)
 #: The two kernels, by their ``_build.SOURCES`` names.
 TENSOR_CORE, CUDA_CORE = "flash_attention_wgmma", "flash_attention"
 #: Query rows per TMA box of q in the tensor-core kernel (a consumer
@@ -57,9 +60,12 @@ _NO_ENCODER, _ENCODE_FAILED = 9999, 10000
 def route(dtype: torch.dtype, head_dim: int) -> str:
     """The kernel that serves CUDA inputs of ``dtype`` and ``head_dim``:
     ``TENSOR_CORE`` for bfloat16, ``CUDA_CORE`` for float32.  A fixed rule,
-    not a fallback: a bfloat16 head_dim the tensor-core kernel cannot take
-    raises ``ValueError``."""
+    not a fallback: a head_dim the dtype's kernel cannot take raises
+    ``ValueError``."""
     if dtype == torch.float32:
+        if not 1 <= head_dim <= MAX_HEAD_DIM:
+            raise ValueError(f"flash_attention: the float32 CUDA-core kernel takes "
+                             f"head_dim <= {MAX_HEAD_DIM}, got {head_dim}")
         return CUDA_CORE
     if dtype != torch.bfloat16:
         raise TypeError(f"flash_attention kernels take float32 or bfloat16, got {dtype}")
@@ -71,9 +77,9 @@ def route(dtype: torch.dtype, head_dim: int) -> str:
 
 def kv_box_rows(head_dim: int) -> int:
     """Keys per TMA box of k, v (one KV tile of the tensor-core kernel):
-    128, or 64 at head_dim 128, where the fragments of 128 keys would not
-    fit in registers (``Tile::kBK`` in the kernel)."""
-    return 64 if head_dim == 128 else 128
+    128, or 64 at head_dim 128 and 256, where the fragments of 128 keys
+    would not fit in registers (``Tile::kBK`` in the kernel)."""
+    return 64 if head_dim >= 128 else 128
 
 
 class TmaMap(NamedTuple):
@@ -90,7 +96,8 @@ class TmaMap(NamedTuple):
 def tma_map_args(t: torch.Tensor, rows: int) -> TmaMap:
     """The tensor map of a bfloat16 [B, S, heads, D] view ``t`` (any
     strides, head_dim contiguous) with boxes of ``rows`` rows by
-    ``min(D, 64)`` columns, swizzled by the box row's bytes.  Raises
+    ``min(D, 64)`` columns (D / 64 boxes a row at D = 128 and 256),
+    swizzled by the box row's bytes.  Raises
     ``ValueError`` naming the condition TMA needs that ``t`` breaks."""
     b, s, n, d = t.shape
     if d not in TC_HEAD_DIMS:
@@ -127,12 +134,10 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     b, sq, h, d = q.shape
     _, sk, kv, _ = k.shape
-    if k.shape[0] != b or k.shape[-1] != d or min(b, sq, sk, kv) < 1 or h % kv:
+    if k.shape[0] != b or k.shape[-1] != d or min(b, sq, sk, kv, d) < 1 or h % kv:
         raise ValueError(f"flash_attention: q {tuple(q.shape)} and k, v {tuple(k.shape)} "
                          "need the same batch and head_dim, non-empty axes and "
                          "H a multiple of KV")
-    if not 1 <= d <= MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention kernel takes head_dim <= {MAX_HEAD_DIM}, got {d}")
     if causal and sq != sk:
         raise ValueError(f"causal flash_attention needs Sq == Sk (got {sq}, {sk}): the "
                          "kernel aligns the causal mask at 0, the plain version on the right")
@@ -141,6 +146,11 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     if softcap is not None and not softcap > 0:
         raise ValueError(f"softcap must be None or > 0, got {softcap}")
     if dev.type == "cuda":
+        route(q.dtype, d)
+        if window is not None and sq != sk:
+            raise ValueError(f"a windowed flash_attention kernel needs Sq == Sk (got {sq}, "
+                             f"{sk}): it aligns the window at 0, the plain version on the "
+                             "right")
         if b > 65535 or -(-sq // 64) > 65535:
             raise ValueError(f"flash_attention kernel grid too large for B={b}, Sq={sq}")
         for name, t in (("q", q), ("k", k), ("v", v)):
@@ -157,7 +167,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: [B,Sq,H,D]; k,v: [B,Sk,KV,D] (GQA: H = KV·G, query head ``h`` reads
     KV head ``h // G``).  Returns [B,Sq,H,D] in q's dtype.
 
-    ``causal`` needs ``Sq == Sk``; ``window`` keeps keys with
+    ``causal`` needs ``Sq == Sk``, and so does ``window`` on a CUDA tensor
+    (the kernels align masks at 0, the plain version on the right);
+    ``window`` keeps keys with
     ``qpos − kpos < window``; ``softcap`` caps scores at ``c·tanh(s/c)``;
     ``scale`` defaults to ``1/sqrt(D)``.  On a CUDA tensor the head_dim
     axis must be contiguous and the kernels read the other axes through

@@ -2,8 +2,12 @@
 
 The same function as ``repro.kernels.flash_attention.ref``: full scores,
 right-aligned causal mask, ``-2e38`` fill, one softmax, in fp32, the
-result cast once to q's dtype.  It is what the op runs for CPU tensors
-and what the CUDA kernel is held against on the card.
+result cast once to q's dtype.  As the kernels and the JAX model's
+``full_attention`` do, the unnormalised probabilities are rounded to v's
+dtype before ``p·v`` (which sums in fp32) and the rows are divided by
+their fp32 sums after it; in float32 that rounding is the identity.  It is
+what the op runs for CPU tensors and what the CUDA kernel is held against
+on the card.
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   scale: Optional[float] = None) -> torch.Tensor:
     """q: [B,Sq,H,D]; k,v: [B,Sk,H,D] (kv already GQA-expanded).
 
-    Returns [B,Sq,H,Dv] in q's dtype; math in fp32.
+    Returns [B,Sq,H,Dv] in q's dtype; math in fp32, p rounded to v's dtype.
     """
     sq, d = q.shape[1], q.shape[-1]
     sk = k.shape[1]
@@ -37,9 +41,10 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if window is not None:
         mask &= (qpos - kpos) < window
     s = torch.where(mask, s, NEG_INF)
-    p = torch.exp(s - s.amax(-1, keepdim=True))
-    p = p / p.sum(-1, keepdim=True)
-    return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+    p = (s - s.amax(-1, keepdim=True)).exp_()
+    del s
+    o = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
+    return (o / p.sum(-1).transpose(1, 2)[..., None]).to(q.dtype)
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

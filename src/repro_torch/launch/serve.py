@@ -4,6 +4,7 @@ Usage (from the repository root):
   PYTHONPATH=src python -m repro_torch.launch.serve --no-reduced      # on the card
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu      # plain path
   PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b --no-reduced
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b --no-reduced
 
 Generates tokens with a real model (``--arch``, one of
 ``configs.ARCH_NAMES``; ``--reduced``, the default, or the full-width

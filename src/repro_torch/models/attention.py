@@ -1,7 +1,8 @@
 """Attention, the GQA half (port of ``repro.models.attention``).
 
 GQA with RoPE, sliding-window layers, logit softcap, QK-norm and qkv
-bias, in two compute paths:
+bias (everything the local:global gemma2 / gemma3 layers need), in two
+compute paths:
 
 * prefill — ``kernels.flash_attention`` on the un-repeated k, v: GQA is
   folded into the kernel (query head ``h`` reads KV head ``h // G``), the
@@ -14,8 +15,10 @@ bias, in two compute paths:
   linear KV cache with position tags (a ring buffer for window layers),
   plain PyTorch as in the JAX package.
 
-MLA, ``windowed_attention`` (which no GQA path of the JAX package calls)
-and the attention backward are not ported yet (ROADMAP A10).
+``windowed_attention`` is the JAX package's banded form of a causal
+sliding-window attention, plain PyTorch here; no GQA path of either
+package calls it (the flash op skips the same band tile by tile).  MLA
+and the attention backward are not ported yet (ROADMAP A12).
 """
 
 from __future__ import annotations
@@ -64,7 +67,7 @@ def gqa_layout(cfg: ModelConfig) -> Dict[str, ParamDef]:
 def _gqa_only(cfg: ModelConfig) -> None:
     if cfg.attention.kind != "gqa":
         raise NotImplementedError(f"{cfg.name}: {cfg.attention.kind} attention is not "
-                                  "ported yet (ROADMAP A10); the port runs GQA")
+                                  "ported yet (MLA, ROADMAP A12); the port runs GQA")
 
 
 def attention_layout(cfg: ModelConfig) -> Dict[str, ParamDef]:
@@ -98,6 +101,46 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgt,btkd->bkgd", p.to(v_cache.dtype).float(), v_cache.float())
     return o.reshape(b, 1, h, d).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Banded attention
+# ---------------------------------------------------------------------------
+
+
+def windowed_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                       window: int, scale: float, cap: Optional[float] = None,
+                       q_chunk: int = 1024) -> torch.Tensor:
+    """Banded causal attention: each token sees the previous ``window``
+    positions (itself included), O(S·window) work.
+
+    q, k, v: [B,S,H,D] aligned (self-attention, heads already repeated).
+    Query chunks of ``q_chunk`` rows (S must be a multiple) each attend
+    to a band of ``min(window + q_chunk, S)`` keys whose start is clipped
+    to ``[0, S − band]``, as the JAX package's; scores and softmax in
+    fp32 (softcap and the ``-2e38`` fill included), p rounded to v's
+    dtype before p·v, which accumulates in fp32.
+    """
+    b, s, h, d = q.shape
+    q_chunk = min(q_chunk, s)
+    if s % q_chunk:
+        raise ValueError(f"windowed_attention: S = {s} is not a multiple of "
+                         f"q_chunk = {q_chunk}")
+    band = min(window + q_chunk, s)
+    out = []
+    for q0 in range(0, s, q_chunk):
+        start = min(max(q0 + q_chunk - band, 0), s - band)
+        ki, vi = k[:, start:start + band], v[:, start:start + band]
+        sc = torch.einsum("bqhd,bkhd->bhqk", q[:, q0:q0 + q_chunk].float(),
+                          ki.float()) * scale
+        sc = common.softcap(sc, cap)
+        qpos = torch.arange(q0, q0 + q_chunk, device=q.device)[:, None]
+        kpos = torch.arange(start, start + band, device=q.device)[None, :]
+        keep = (qpos >= kpos) & (qpos - kpos < window)
+        p = torch.softmax(torch.where(keep, sc, NEG_INF), dim=-1)
+        o = torch.einsum("bhqk,bkhd->bqhd", p.to(vi.dtype).float(), vi.float())
+        out.append(o.to(q.dtype))
+    return torch.cat(out, dim=1)
 
 
 # ---------------------------------------------------------------------------

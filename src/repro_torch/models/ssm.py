@@ -9,7 +9,7 @@ is one step of the recurrence in plain torch.  The cache is the state
 decode writes both in place, into the caller's cache.
 
 The Mamba-2 layouts are kept (pure shape code); ``mamba_apply`` raises
-``NotImplementedError`` for Mamba-2, which is not ported yet (ROADMAP A10).
+``NotImplementedError`` for Mamba-2, which is not ported yet (ROADMAP A12).
 """
 
 from __future__ import annotations
@@ -130,7 +130,7 @@ def mamba_apply(params: Dict, x: torch.Tensor, cfg: ModelConfig, *,
     s = cfg.ssm
     if s.kind != "mamba1":
         raise NotImplementedError(f"{cfg.name}: {s.kind} is not ported yet "
-                                  "(ROADMAP A10); the port runs Mamba-1")
+                                  "(ROADMAP A12); the port runs Mamba-1")
     S = x.shape[1]
     dt = x.dtype
 

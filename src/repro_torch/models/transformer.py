@@ -6,8 +6,10 @@ otherwise); each period slot's parameters are stacked ``[n_per, ...]``,
 and the remainder layers keep their own, so the parameter tree has the
 JAX package's ``prefix`` / ``slots`` / ``rem`` structure leaf for leaf.
 The JAX ``lax.scan`` over periods is a Python loop over the stacked axis
-here.  MoE, Mamba-2, the hybrid shared block and the VLM/audio frontends
-are not ported yet (ROADMAP A10): their configs raise
+here; a layer's locality (``_is_local``) follows its global index, so the
+remainder layers of a local:global config (gemma3-27b: 62 = 10 × 6 + 2)
+keep the pattern.  MoE, MLA, Mamba-2, the hybrid shared block and the
+VLM/audio frontends are not ported yet (ROADMAP A12): their configs raise
 ``NotImplementedError``.
 """
 
@@ -36,8 +38,8 @@ def _check_ported(cfg: ModelConfig) -> None:
     if (not (dense or mamba1) or cfg.moe is not None or cfg.frontend is not None
             or cfg.shared_attn_every):
         raise NotImplementedError(f"{cfg.name}: the {cfg.family} family is not ported "
-                                  "yet (ROADMAP A10); the port runs dense GQA and "
-                                  "Mamba-1 models")
+                                  "yet (MoE, Mamba-2 / hybrid, frontends: ROADMAP A12); "
+                                  "the port runs dense GQA and Mamba-1 models")
 
 
 def period_of(cfg: ModelConfig) -> int:

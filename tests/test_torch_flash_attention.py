@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from repro.kernels.flash_attention.ops import flash_attention_ref as jax_flash_ref
+from repro.kernels.flash_attention.ref import attention_ref as jax_attention_ref
 from repro.models.attention import full_attention
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -116,9 +117,12 @@ def test_op_checks_raise_and_cpu_leaves_launches_at_zero():
     assert flash_attention.launches == before == 0
     with pytest.raises(ValueError, match="Sq == Sk"):
         flash_attention(q, k[:, :16], v[:, :16], causal=True)
-    big = torch.zeros(1, 8, 2, 160)
-    with pytest.raises(ValueError, match="head_dim <= 128"):
-        flash_attention(big, big[:, :, :1], big[:, :, :1])
+    big = torch.zeros(1, 8, 2, 160)           # the plain version takes any head_dim
+    assert flash_attention(big, big[:, :, :1], big[:, :, :1]).shape == big.shape
+    with pytest.raises(ValueError, match="head_dim <= 256"):
+        fa_ops.route(torch.float32, 320)       # what a CUDA call checks first
+    with pytest.raises(ValueError, match="head_dim in"):
+        fa_ops.route(torch.bfloat16, 160)
     with pytest.raises(ValueError, match="span devices"):
         flash_attention(q, k.to("meta"), v)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
@@ -129,5 +133,46 @@ def test_op_checks_raise_and_cpu_leaves_launches_at_zero():
         flash_attention(torch.zeros(1, 32, 3, 16), k, v)
     with pytest.raises(ValueError, match="window"):
         flash_attention(q, k, v, window=0)
-    assert fa_ops.MAX_HEAD_DIM == 128
+    assert fa_ops.MAX_HEAD_DIM == 256
 
+
+
+HEAD_DIM_CASES = [
+    # B, S, KV, G, D, window, softcap: gemma2's head_dim, and one no kernel tile divides
+    (1, 96, 4, 2, 256, 40, 50.0),
+    (1, 64, 1, 2, 160, 24, 30.0),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", HEAD_DIM_CASES)
+def test_head_dims_past_128_match_jax(case, dtype):
+    """The plain version takes every head_dim the JAX package takes: GQA,
+    causal, a window shorter than S and a softcap, against the kernel's
+    oracle ``attention_ref`` (on GQA-repeated k, v) and the model's XLA
+    path ``full_attention``."""
+    B, S, KV, G, D, window, cap = case
+    (q, k, v), (jq, jk, jv) = _both(_inputs(B, S, KV, G, D, seed=4), dtype)
+    scale = 1.0 / np.sqrt(D)
+    out = flash_attention(q, k, v, causal=True, window=window, softcap=cap)
+    assert out.dtype == q.dtype and out.shape == q.shape
+    jk, jv = jnp.repeat(jk, G, axis=2), jnp.repeat(jv, G, axis=2)
+    oracle = jax_attention_ref(jq, jk, jv, causal=True, window=window, softcap=cap)
+    xla = full_attention(jq, jk, jv, causal=True, scale=scale, cap=cap, window=window,
+                         q_chunk=32, kv_chunk=32)
+    for name, ref in (("attention_ref", oracle), ("full_attention", xla)):
+        np.testing.assert_allclose(out.float().numpy(), np.asarray(ref, np.float32),
+                                   rtol=TOL[dtype], atol=TOL[dtype], err_msg=name)
+
+
+def test_a_window_needs_aligned_sequences():
+    """The kernels align masks at position 0 and the plain version on the
+    right: with Sq != Sk a window keeps other keys on the card than on the
+    CPU (40 queries, 16 keys, window 8: 17 rows see no key when aligned at
+    0).  So only a CUDA call refuses it (``chip_smoke.py`` phase 5); the
+    CPU computes it as the JAX package's ``attention_ref`` does."""
+    (q, k, v), (jq, jk, jv) = _both(_inputs(1, 40, 2, 1, 256), "float32")
+    out = flash_attention(q, k[:, :16], v[:, :16], causal=False, window=8)
+    ref = jax_attention_ref(jq, jk[:, :16], jv[:, :16], causal=False, window=8)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=2e-5, atol=2e-5)
+    assert flash_attention(q, k[:, :16], v[:, :16], causal=False).shape == q.shape

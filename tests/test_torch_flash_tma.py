@@ -15,20 +15,27 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention import ops
 
 
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
 def test_route_bf16_goes_to_the_tensor_core_kernel(d):
     assert ops.route(torch.bfloat16, d) == ops.TENSOR_CORE == "flash_attention_wgmma"
 
 
-@pytest.mark.parametrize("d", [8, 16, 64, 100, 128])
+@pytest.mark.parametrize("d", [8, 16, 64, 100, 128, 160, 256])
 def test_route_float32_stays_on_the_cuda_core_kernel(d):
     assert ops.route(torch.float32, d) == ops.CUDA_CORE == "flash_attention"
 
 
-@pytest.mark.parametrize("d", [8, 48, 96, 112])
+@pytest.mark.parametrize("d", [8, 48, 96, 112, 160, 192, 320])
 def test_route_refuses_bf16_head_dims_tma_cannot_box(d):
     with pytest.raises(ValueError, match="head_dim in"):
         ops.route(torch.bfloat16, d)
+
+
+@pytest.mark.parametrize("d", [0, 257, 320, 512])
+def test_route_refuses_float32_head_dims_past_the_cuda_core_kernel(d):
+    """The CUDA-core kernel holds 16 output columns a thread: D <= 256."""
+    with pytest.raises(ValueError, match="head_dim <= 256"):
+        ops.route(torch.float32, d)
 
 
 def test_route_refuses_other_dtypes():
@@ -62,15 +69,34 @@ def test_map_of_a_contiguous_query():
 
 
 @pytest.mark.parametrize("d, cols, swizzle", [(16, 16, 32), (32, 32, 64), (64, 64, 128),
-                                              (128, 64, 128)])
+                                              (128, 64, 128), (256, 64, 128)])
 def test_box_and_swizzle_follow_head_dim(d, cols, swizzle):
-    """A swizzled box row holds at most 128 bytes: D = 128 is read as two
-    64-column boxes, smaller D as one box of D columns."""
+    """A swizzled box row holds at most 128 bytes: D = 128 and 256 are read
+    as two and four 64-column boxes, smaller D as one box of D columns;
+    KV tiles of 64 keys from D = 128 on (the kernel's ``Tile::kBK``)."""
     t = torch.empty(1, 512, 2, d, dtype=torch.bfloat16)
     m = ops.tma_map_args(t, ops.kv_box_rows(d))
     assert m.box == (cols, ops.kv_box_rows(d), 1, 1)
     assert m.swizzle == swizzle
-    assert ops.kv_box_rows(d) == (64 if d == 128 else 128)
+    assert d // m.box[0] == max(1, d // 64)
+    assert ops.kv_box_rows(d) == (64 if d >= 128 else 128)
+
+
+def test_maps_of_the_gemma2_call_site():
+    """gemma2-2b's prefill (B = 2, S = 8160, 8 query / 4 KV heads, D = 256):
+    q contiguous, k and v the strided halves of the fused projection
+    ``kv[:, :, 0]`` and ``kv[:, :, 1]``; four 64-column boxes a row, 64-key
+    KV tiles, 128-byte swizzle."""
+    b, s, h, kv, d = 2, 8160, 8, 4, 256
+    q = torch.empty(b, s, h, d, dtype=torch.bfloat16)
+    packed = torch.empty(b, s, 2, kv, d, dtype=torch.bfloat16)
+    mq = ops.tma_map_args(q, ops.Q_BOX_ROWS)
+    assert mq == ops.TmaMap((d, s, h, b), (h * d * 2, d * 2, s * h * d * 2), (64, 64, 1, 1), 128)
+    for half in (0, 1):
+        m = ops.tma_map_args(packed[:, :, half], ops.kv_box_rows(d))
+        assert m.dims == (d, s, kv, b)
+        assert m.strides == (2 * kv * d * 2, d * 2, s * 2 * kv * d * 2)
+        assert m.box == (64, 64, 1, 1) and m.swizzle == 128
 
 
 def test_map_of_a_transposed_view():

@@ -61,7 +61,7 @@ def _close(out, ref, dtype, msg=""):
 
 
 def test_configs_match_and_unported_archs_raise():
-    assert ARCH_NAMES == ["llama3.2-1b", "falcon-mamba-7b"]
+    assert ARCH_NAMES == ["llama3.2-1b", "falcon-mamba-7b", "gemma2-2b", "gemma3-27b"]
     assert sorted(ARCH_NAMES + list(NOT_PORTED)) == sorted(JAX_ARCHS)
     for name in ARCH_NAMES:
         for reduced in (False, True):

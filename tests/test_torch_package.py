@@ -71,7 +71,8 @@ def test_port_package_covers_the_slice():
                  "core/predictors/ewma.py", "core/predictors/holt_winters.py",
                  "core/predictors/hierarchy.py", "core/predictors/seasonal.py",
                  "core/predictors/periodic.py", "core/composition.py", "core/aot.py",
-                 "launch/compose.py", "serving/batching.py"):
+                 "launch/compose.py", "serving/batching.py",
+                 "configs/gemma2_2b.py", "configs/gemma3_27b.py", "serving/kvcache.py"):
         assert want in names, want
     for name, src in _build.SOURCES.items():
         assert (_build.KERNELS_DIR / src).exists(), name
