@@ -135,7 +135,24 @@ printing its seconds:
    the window, so the CUDA-core kernel runs the band at the model's
    head_dim and decode wraps the rings); ``windowed_attention`` on ``cuda``
    against the CUDA-core kernel with the same band, float32, at gemma2's
-   local layer (B = 1).
+   local layer (B = 1);
+16. MoE serving — ``launch.serve --arch qwen3-moe-235b-a22b`` and ``--arch
+   deepseek-v2-236b`` on ``cuda`` (REDUCED: neither fits one card at full
+   depth); the tensor-core kernel at both models' prefill layers (qwen3: B = 2,
+   S = 4096, 64/4 heads of 128; deepseek's MLA: 128 heads, q, k of 192 and v of
+   128 padded to 256) beside its plain version, ``scaled_dot_product_attention``
+   (for deepseek on the unpadded tensors) and the bound; ``ServeEngine`` on
+   full-width qwen3-moe-235b-a22b cut to 8 layers and deepseek-v2-236b cut to 6
+   (its dense layer and 5 MoE layers), bf16 weights drawn from a seed, at B = 2, a
+   4096-token prompt (two dispatch groups), 32 new tokens, capacity 4128: the
+   times of phase 6, one tensor-core flash launch a layer (D = 128 / 256), peak
+   device memory, each MoE layer's ``moe_dropped`` in the prefill, every flash
+   call of one prefill against the plain version on the model's q, k, v (and
+   deepseek's padded call against the unpadded plain attention); one qwen3 MoE
+   layer on one 4096-token group against the reference's one-hot einsum
+   formulation (``xe`` bit-equal, y within 2e-2, both timed); the first layers in
+   float32 on ``cuda`` and on the CPU (qwen3: 1 layer, a 512-token prompt;
+   deepseek: 2 layers, 128), routing compared call for call.
 
 It ends with a ``{"kernels": [...]}`` line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}`` as the last line.  Without a
@@ -266,6 +283,19 @@ GEMMA3_LAYERS = 8
 # window, so the window, the CUDA-core kernel at the arch's head_dim and the ring's
 # wrap during decode all run in float32.
 GEMMA_F32 = {"gemma2-2b": (2, 4160), "gemma3-27b": (6, 1040)}
+# Phase 16: the MoE family at full width, cut in depth (at 94 and 60 layers the models are
+# 235 B and 236 B parameters): qwen3-moe-235b-a22b at 8 layers, deepseek-v2-236b at 6 (its
+# dense layer and 5 MoE layers), weights drawn in bf16; B = 2, a 4096-token prompt (two
+# dispatch groups of 4096 tokens), 32 new tokens, capacity 4128.
+MOE_LAYERS = {"qwen3-moe-235b-a22b": 8, "deepseek-v2-236b": 6}
+MOE_BATCH, MOE_PROMPT, MOE_NEW = 2, 4096, 32
+MOE_CAPACITY = MOE_PROMPT + MOE_NEW
+# Float32 card vs CPU: (layers, prompt): qwen3's first layer on one 512-token group
+# (capacity 40); deepseek's dense layer and its first MoE layer.
+MOE_F32 = {"qwen3-moe-235b-a22b": (1, 512), "deepseek-v2-236b": (2, 128)}
+# B2 at the two models' prefill layers, bf16: (B, S, KV, G, D of q and k, D of v)
+MOE_FLASH_SHAPES = {"qwen3_moe": (2, 4096, 4, 16, 128, 128),
+                    "deepseek_v2_mla": (2, 4096, 128, 1, 192, 128)}
 # An H100 SM issues 16 special-function results (ex2 of expf) per clock.
 SFU_PER_SM_CLOCK = 16
 # The §III analytic platforms of phase 3 (α, β): α = 0 zeroes the BRAM delay term.
@@ -728,19 +758,21 @@ def _flash_inputs(case, dtype, gen, dev):
                  for shape in ((b, s, kv * g, d), (b, s, kv, d), (b, s, kv, d)))
 
 
-def _causal_flops(q, window=None) -> int:
-    """4·B·H·D per visible score of causal self-attention: Σ_q min(q + 1, window)
-    scores, S(S+1)/2 without a window."""
+def _causal_flops(q, window=None, dv=None) -> int:
+    """2·B·H·(D + Dv) per visible score of causal self-attention (4·B·H·D
+    where v's head_dim ``dv`` is q's): Σ_q min(q + 1, window) scores,
+    S(S+1)/2 without a window."""
     b, s, h, d = q.shape
+    dv = d if dv is None else dv
     w = s if window is None else min(window, s)
-    return 4 * b * h * d * (w * (w + 1) // 2 + (s - w) * w)
+    return 2 * b * h * (d + dv) * (w * (w + 1) // 2 + (s - w) * w)
 
 
 def _flash_bound(q, k, v, out, window=None) -> tuple[float, str]:
     """Least time on an H100 for causal attention: q, k, v and out moved
     once over HBM vs its FLOPs at the dtype's peak."""
     n_bytes = sum(t.numel() * t.element_size() for t in (q, k, v, out))
-    flops = _causal_flops(q, window)
+    flops = _causal_flops(q, window, v.shape[-1])
     peak = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else FP32_OPS_PER_S
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -2076,9 +2108,8 @@ def _gemma_prefill_attention_check(cfg, params, dev) -> None:
     """Every flash call of one bf16 prefill of the served model (B = 2, the
     8160-token prompt of ``generate``) against the plain version on the
     q, k, v the model gave it: the tensor-core kernel at the model's own
-    inputs, within FLASH_TOL.  The plain version runs a batch row at a time
-    to bound its fp32 scores' memory."""
-    from repro_torch.kernels.flash_attention import flash_attention_ref
+    inputs, within FLASH_TOL.  The plain version runs a batch row and 16
+    heads at a time (``_plain_attention``) to bound its fp32 scores' memory."""
     from repro_torch.models import attention as attn_mod
     from repro_torch.serving.engine import ServeEngine
 
@@ -2088,16 +2119,13 @@ def _gemma_prefill_attention_check(cfg, params, dev) -> None:
                             generator=torch.Generator(device=dev).manual_seed(1))
     real, errs, moved = attn_mod.flash_attention, [], []
 
-    def plain(q, k, v, **kw):
-        return torch.cat([flash_attention_ref(q[i:i + 1], k[i:i + 1], v[i:i + 1], **kw)
-                          for i in range(q.shape[0])]).float()
-
     def held(q, k, v, **kw):
         out = real(q, k, v, **kw)
-        ref = plain(q, k, v, **kw)
+        ref = _plain_attention(q, k, v, **kw)
         errs.append((out.float() - ref).abs().max().item())
         if kw.get("softcap"):
-            moved.append((ref - plain(q, k, v, **dict(kw, softcap=None))).abs().max().item())
+            moved.append((ref - _plain_attention(q, k, v, **dict(kw, softcap=None)))
+                         .abs().max().item())
         return out
 
     attn_mod.flash_attention = held
@@ -2236,6 +2264,337 @@ def phase_gemma_serving(dev) -> dict:
     return out
 
 
+def _plain_attention(q, k, v, heads: int = 16, **kw) -> torch.Tensor:
+    """The plain version (``attention_ref``) of a GQA call, a batch row and
+    ``heads`` query heads at a time to bound its fp32 scores' memory; float32."""
+    from repro_torch.kernels.flash_attention import attention_ref
+
+    g = q.shape[2] // k.shape[2]
+    k, v = k.repeat_interleave(g, 2), v.repeat_interleave(g, 2)
+    out = torch.empty(q.shape[:3] + v.shape[3:], dtype=torch.float32, device=q.device)
+    for i in range(q.shape[0]):
+        for h in range(0, q.shape[2], heads):
+            sl = (slice(i, i + 1), slice(None), slice(h, h + heads))
+            out[sl] = attention_ref(q[sl], k[sl], v[sl], **kw).float()
+    return out
+
+
+def _moe_flash_times(dev) -> dict:
+    """The tensor-core kernel at the MoE models' prefill layers, bf16: its
+    time beside the plain version's, its bound and
+    ``scaled_dot_product_attention``'s (each held to the plain version
+    first).  The plain version runs a batch row and 16 heads at a time
+    (``_plain_attention``).  deepseek's MLA call is the padded one the
+    model makes (q, k from 192 and v from 128 columns to 256, scale
+    1/sqrt(192)); its plain version, its SDPA call (which takes Dv != Dqk)
+    and its bound are of the unpadded function."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    out = {}
+    for name, (b, s, kv, g, dqk, dv) in MOE_FLASH_SHAPES.items():
+        q = torch.randn(b, s, kv * g, dqk, generator=gen, device=dev).to(torch.bfloat16)
+        k = torch.randn(b, s, kv, dqk, generator=gen, device=dev).to(torch.bfloat16)
+        v = torch.randn(b, s, kv, dv, generator=gen, device=dev).to(torch.bfloat16)
+        scale = dqk ** -0.5
+        hd = 256 if dqk > 128 else dqk
+        pq, pk, pv = (F.pad(t, (0, hd - t.shape[-1])) for t in (q, k, v))
+        fn = lambda: flash_attention(pq, pk, pv, causal=True, scale=scale)  # noqa: E731
+        got = fn()[..., :dv]
+        ref = _plain_attention(q, k, v, scale=scale)
+        err = (got.float() - ref).abs().max().item()
+        check(err <= FLASH_TOL[torch.bfloat16], f"{name}: max|Δ| vs plain {err}")
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=True, scale=scale, enable_gqa=g > 1)
+        lib_err = (sdpa().transpose(1, 2).float() - ref).abs().max().item()
+        check(lib_err <= FLASH_TOL[torch.bfloat16], f"{name}: SDPA max|Δ| vs plain {lib_err}")
+        del ref
+        torch.cuda.empty_cache()
+        ms = device_time_ms(fn, 10)
+        lib_ms = device_time_ms(sdpa, 10)
+        plain_ms = device_time_ms(lambda: _plain_attention(q, k, v, scale=scale), 3)
+        flops = _causal_flops(q, dv=dv)
+        bound_ms, bound_by = _flash_bound(q, k, v, got)
+        print(f"[moe] flash {name} q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)} "
+              f"bf16 causal{f', padded to D = {hd}' if hd != dqk else ''}: kernel {ms:.4f} ms "
+              f"({flops / (ms * 1e-3) / 1e12:.2f} useful TFLOP/s, {ms / bound_ms:.2f}x its bound, "
+              f"{ms / lib_ms:.2f}x scaled_dot_product_attention), plain {plain_ms:.4f} ms, "
+              f"scaled_dot_product_attention {lib_ms:.4f} ms (max|Δ| vs plain {lib_err:.3g}), "
+              f"bound {bound_ms:.4f} ms ({bound_by}), max|Δ| vs plain {err:.3g}")
+        out[name] = {"shape": [b, s, kv, g, dqk, dv], "padded_head_dim": hd, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": lib_ms, "max_abs_err": err}
+        del q, k, v, pq, pk, pv, got, qt, kt, vt
+        torch.cuda.empty_cache()
+    return out
+
+
+def _moe_prefill_check(cfg, params, dev) -> list:
+    """One bf16 prefill of the served model (B = 2, the 4096-token prompt of
+    ``generate``): every flash call against the plain version on the q, k,
+    v the model gave it (an MLA call also, cut to v_head_dim, against the
+    plain attention on the unpadded q, k, v), every call at the padded or
+    native head_dim the config gives; returns each MoE layer's
+    ``moe_dropped``."""
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.serving.engine import ServeEngine
+
+    engine = ServeEngine(cfg=cfg, params=params, capacity=MOE_CAPACITY, batch_size=MOE_BATCH,
+                         device=dev)
+    prompts = torch.randint(0, cfg.vocab_size, (MOE_BATCH, MOE_PROMPT), device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(1))
+    a = cfg.attention
+    mla = a.kind == "mla"
+    want_d = attn_mod._flash_head_dim(a.qk_nope_dim + a.qk_rope_dim) if mla else a.head_dim
+    real_flash, real_moe = attn_mod.flash_attention, moe_mod.moe_apply
+    errs, unpadded, dims, dropped = [], [], [], []
+
+    def held(q, k, v, **kw):
+        out = real_flash(q, k, v, **kw)
+        dims.append(q.shape[-1])
+        errs.append((out.float() - _plain_attention(q, k, v, **kw)).abs().max().item())
+        if mla:
+            qk = a.qk_nope_dim + a.qk_rope_dim
+            ref = _plain_attention(q[..., :qk], k[..., :qk], v[..., :a.v_head_dim], **kw)
+            unpadded.append((out[..., :a.v_head_dim].float() - ref).abs().max().item())
+        return out
+
+    def watched(*args):
+        y, aux = real_moe(*args)
+        dropped.append(aux["moe_dropped"].item())
+        return y, aux
+
+    attn_mod.flash_attention, moe_mod.moe_apply = held, watched
+    try:
+        with torch.inference_mode():
+            engine._prefill(engine._params, {"tokens": prompts})
+    finally:
+        attn_mod.flash_attention, moe_mod.moe_apply = real_flash, real_moe
+    tol = FLASH_TOL[torch.bfloat16]
+    check(len(errs) == cfg.n_layers and set(dims) == {want_d},
+          f"{cfg.name}: flash calls at head_dims {dims}, want {cfg.n_layers} at {want_d}")
+    check(max(errs) <= tol, f"{cfg.name}: the kernel at the model's inputs, max|Δ| vs plain "
+          f"by layer {errs}")
+    note = ""
+    if mla:
+        check(max(unpadded) <= tol, f"{cfg.name}: the padded call vs the unpadded plain "
+              f"attention, max|Δ| by layer {unpadded}")
+        note = (f"; cut to {a.v_head_dim} columns vs the plain attention on the unpadded "
+                f"q, k ({a.qk_nope_dim + a.qk_rope_dim}) and v ({a.v_head_dim}): max|Δ| "
+                f"{max(unpadded):.3g}")
+    print(f"[moe] {cfg.name} bf16 prefill, every layer's flash call (D = {want_d}) vs the "
+          f"plain version on the model's q, k, v: max|Δ| {max(errs):.3g} (tol {tol}, layers "
+          f"{min(errs):.3g}-{max(errs):.3g}){note}")
+    n_moe = cfg.n_layers - cfg.moe.first_dense_layers
+    check(len(dropped) == n_moe, f"{len(dropped)} MoE calls in a prefill, want {n_moe}")
+    print(f"[moe] {cfg.name} prefill moe_dropped by MoE layer: "
+          + " ".join(f"{d:.4f}" for d in dropped))
+    return dropped
+
+
+def _one_hot_moe(lp, x, cfg):
+    """The JAX package's formulation of ``moe_apply`` without the shared
+    expert (``repro/models/moe.py:77-112``), in torch: one-hot ``disp`` and
+    ``comb`` ``[g, s, e, C]`` around the port's routing; returns (xe, y)."""
+    import torch.nn.functional as F
+
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.common import activation
+
+    b, s, d = x.shape
+    xg = x.reshape(1, b * s, d)
+    cap = moe_mod._capacity(b * s, cfg)
+    r = moe_mod.route(lp["router"], xg, cfg, cap)
+    keep = F.one_hot(r.expert_idx, cfg.moe.n_experts).float() * r.keep[..., None]
+    slot_oh = F.one_hot(r.slot, cap).float()
+    disp = torch.einsum("gske,gskc->gsec", keep, slot_oh).to(x.dtype)
+    comb = torch.einsum("gsk,gske,gskc->gsec", r.gate, keep, slot_oh)
+    del keep, slot_oh
+    xe = torch.einsum("gsec,gsd->gecd", disp, xg)
+    del disp
+    gu = torch.einsum("gecd,edxf->gecxf", xe, lp["w_in"].to(x.dtype))
+    h = activation(cfg.act)(gu[:, :, :, 0]) * gu[:, :, :, 1]
+    ye = torch.einsum("gecf,efd->gecd", h, lp["w_down"].to(x.dtype))
+    y = torch.einsum("gsec,gecd->gsd", comb.to(x.dtype), ye)
+    return xe, y.reshape(b, s, d)
+
+
+def _moe_layer_check(cfg, params, dev) -> dict:
+    """One full-width qwen3 MoE layer on one 4096-token group (capacity
+    320), bf16: the index dispatch's ``xe`` bit-equal to the one-hot
+    einsum's, the outputs within FLASH_TOL's bf16 2e-2, and both timed."""
+    from repro_torch.models import common
+    from repro_torch.models import moe as moe_mod
+
+    lp = common.tree_map(lambda t: t[0], params["slots"][0]["moe"])
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(1, MOE_PROMPT, cfg.d_model, generator=gen, device=dev)
+    x = (x * torch.rsqrt(x.square().mean(-1, keepdim=True))).to(torch.bfloat16)
+    with torch.inference_mode():
+        xe_ref, y_ref = _one_hot_moe(lp, x, cfg)
+        cap = moe_mod._capacity(MOE_PROMPT, cfg)
+        r = moe_mod.route(lp["router"], x, cfg, cap)
+        xe = moe_mod.dispatch(x, r, cfg.moe.n_experts, cap)
+        check(torch.equal(xe.transpose(0, 1), xe_ref), "index dispatch xe != one-hot xe")
+        y, aux = moe_mod.moe_apply(lp, x, cfg)
+        err = (y.float() - y_ref.float()).abs().max().item()
+        check(err <= FLASH_TOL[torch.bfloat16], f"moe_apply vs one-hot: max|Δ| {err}")
+        del xe, xe_ref, y_ref
+        torch.cuda.empty_cache()
+        index_ms = device_time_ms(lambda: moe_mod.moe_apply(lp, x, cfg), 5)
+        one_hot_ms = device_time_ms(lambda: _one_hot_moe(lp, x, cfg), 5)
+        tops = {name: _top_kernels(_device_kernels(fn), 1, k=6) for name, fn in (
+            ("index", lambda: moe_mod.moe_apply(lp, x, cfg)),
+            ("one-hot", lambda: _one_hot_moe(lp, x, cfg)))}
+    m = cfg.moe
+    expert_flops = 2 * m.n_experts * cap * cfg.d_model * 3 * m.d_ff_expert
+    onehot_flops = 2 * 2 * MOE_PROMPT * m.n_experts * cap * cfg.d_model
+    print(f"[moe] one qwen3 MoE layer, 1 group of {MOE_PROMPT} tokens, capacity {cap}, bf16: "
+          f"xe of the index dispatch bit-equal to the one-hot einsum's; y max|Δ| {err:.3g} (tol "
+          f"{FLASH_TOL[torch.bfloat16]}); moe_dropped {aux['moe_dropped'].item():.4f}; "
+          f"index dispatch {index_ms:.4f} ms, one-hot einsums {one_hot_ms:.4f} ms "
+          f"({one_hot_ms / index_ms:.2f}x); expert FLOPs {expert_flops / 1e12:.3f} T, one-hot "
+          f"dispatch + combine {onehot_flops / 1e12:.3f} T more")
+    for name, top in tops.items():
+        print(f"[moe] one MoE layer, {name} top kernels: {top}")
+    return {"index_ms": index_ms, "one_hot_ms": one_hot_ms, "max_abs_err": err}
+
+
+def _moe_float32_check(arch, cfg, few, dev) -> None:
+    """The first layers of the served weights in float32, card vs CPU
+    (``phase_float32_cuda_vs_cpu``), with every MoE call's routing
+    compared: equal, or a token's expert set different only where its
+    k-th and (k+1)-th probabilities (CPU) lie within twice the call's
+    largest probability difference."""
+    from repro_torch.kernels.flash_attention import flash_attention, ops
+    from repro_torch.models import moe as moe_mod
+
+    n_layers, prompt = MOE_F32[arch]
+    cut = dataclasses.replace(cfg, n_layers=n_layers)
+    real, calls = moe_mod.route, {"cuda": [], "cpu": []}
+
+    def watched(*args):
+        r = real(*args)
+        calls[r.probs.device.type].append([t.cpu() for t in (r.probs, r.expert_idx, r.keep)])
+        return r
+
+    flash_attention.kernel_launches.update(dict.fromkeys(flash_attention.kernel_launches, 0))
+    moe_mod.route = watched
+    try:
+        phase_float32_cuda_vs_cpu(cut, few, dev, "[moe]", s=prompt)
+    finally:
+        moe_mod.route = real
+    f32 = dict(flash_attention.kernel_launches)
+    check(f32 == {ops.CUDA_CORE: n_layers, ops.TENSOR_CORE: 0},
+          f"the float32 check launched {f32}, want {n_layers} on the CUDA-core kernel")
+    check(len(calls["cuda"]) == len(calls["cpu"]) > 0, f"MoE calls {len(calls['cuda'])} "
+          f"on cuda, {len(calls['cpu'])} on the CPU")
+    k, flips, worst = cfg.moe.top_k, 0, 0.0
+    for (pg, ig, kg), (pc, ic, kc) in zip(calls["cuda"], calls["cpu"]):
+        delta = (pg - pc).abs().max().item()
+        worst = max(worst, delta)
+        differ = (ig.sort(-1).values != ic.sort(-1).values).any(-1)
+        top = pc.topk(k + 1, dim=-1).values
+        gap = top[..., k - 1] - top[..., k]
+        check(bool((gap[differ] <= 2 * delta).all()), f"a routing flip at a gap of "
+              f"{gap[differ].tolist()} > 2 x {delta}")
+        check(torch.equal(kg, kc) or bool(differ.any()), "keep differs with no flip")
+        flips += int(differ.sum())
+    print(f"[moe] {arch} float32 check: {n_layers} layers, prompt {prompt}; {len(calls['cpu'])} "
+          f"MoE calls a device, routing cuda vs cpu: {flips} token flips (each at a near tie), "
+          f"probabilities max|Δ| {worst:.3g}; flash launches {f32}")
+
+
+def phase_moe_serving(dev) -> tuple:
+    """The MoE family's serving path; returns, per model, the flash launches
+    of one bf16 ``generate`` by kernel with its head_dim, and the tensor-core
+    kernel's times at both prefill layers."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention, ops
+    from repro_torch.kernels.grid_argmin import grid_argmin
+    from repro_torch.launch import serve
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import common, transformer
+
+    torch.cuda.empty_cache()
+    # 16a. the serving launcher, REDUCED (neither model fits one card at full depth)
+    for arch in MOE_LAYERS:
+        flash_attention.launches = grid_argmin.launches = 0
+        t0 = time.perf_counter()
+        check(serve.main(["--arch", arch, "--device", "cuda"]) == 0, "serve.main failed")
+        torch.cuda.synchronize()
+        fa, ga = flash_attention.launches, grid_argmin.launches
+        print(f"[moe] launch.serve --arch {arch} --device cuda (REDUCED): "
+              f"{time.perf_counter() - t0:.2f} s, flash_attention launches {fa}, grid_argmin "
+              f"launches {ga}")
+        check(fa > 0 and ga > 0, "the serving launcher launched no flash_attention or grid_argmin")
+    times = _moe_flash_times(dev)
+
+    out = {}
+    for arch, n_layers in MOE_LAYERS.items():
+        cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = common.init_params(torch.Generator(device=dev).manual_seed(0),
+                                    transformer.model_layout(cfg), dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        n_params = sum(t.numel() for _, t in common.tree_leaves(params))
+        kinds = [transformer._layer_kind(cfg, i) for i in range(n_layers)]
+        a, m = cfg.attention, cfg.moe
+        print(f"[moe] {arch}: {n_layers} of {get_config(arch).n_layers} layers "
+              f"({kinds.count('dense')} dense, {kinds.count('moe')} MoE: {m.n_experts} experts "
+              f"top-{m.top_k}, {m.n_shared} shared, d_ff_expert {m.d_ff_expert}), d_model "
+              f"{cfg.d_model}, {a.kind} {a.n_heads}/{a.n_kv_heads} heads, vocab "
+              f"{cfg.vocab_size}: {n_params} bf16 parameters, {2 * n_params} bytes, drawn in "
+              f"{time.perf_counter() - t0:.2f} s")
+        dims, real = [], attn_mod.flash_attention
+
+        def spy(q, *args, **kw):
+            dims.append(q.shape[-1])
+            return real(q, *args, **kw)
+
+        attn_mod.flash_attention = spy
+        try:
+            launches, by_kernel, cache = phase_generate(
+                cfg, params, dev, flash_attention, "[moe]", b=MOE_BATCH, s=MOE_PROMPT,
+                n_new=MOE_NEW, capacity=MOE_CAPACITY)
+        finally:
+            attn_mod.flash_attention = real
+        del cache
+        want = {ops.TENSOR_CORE: n_layers, ops.CUDA_CORE: 0}
+        check(by_kernel == want, f"one bf16 generate launched {by_kernel}, want {want}")
+        head_dim = dims[0]
+        check(set(dims) == {attn_mod._flash_head_dim(
+            a.qk_nope_dim + a.qk_rope_dim) if a.kind == "mla" else a.head_dim},
+            f"flash head_dims {sorted(set(dims))}")
+        print(f"[moe] {arch} flash launches per generate: {by_kernel} at D = {head_dim}; peak "
+              f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (bf16 "
+              f"weights, activations, the decode cache)")
+        dropped = _moe_prefill_check(cfg, params, dev)
+        out[arch] = {"tensor_core": by_kernel[ops.TENSOR_CORE], "head_dim": head_dim,
+                     "layers": n_layers, "prefill_moe_dropped": dropped}
+        if arch == "qwen3-moe-235b-a22b":
+            out[arch]["one_layer"] = _moe_layer_check(cfg, params, dev)
+
+        # 16f. float32, card vs CPU, on the first layers of the same weights (copies, so
+        # that the rest can go)
+        prefix, _, _ = transformer.scanned_layers(cfg)
+        n_slot = MOE_F32[arch][0] - prefix
+        few = dict(params, slots=[common.tree_map(lambda t: t[:n_slot].clone(), sl)
+                                  for sl in params["slots"]], rem=[])
+        del params
+        torch.cuda.empty_cache()
+        _moe_float32_check(arch, cfg, few, dev)
+        del few
+        torch.cuda.empty_cache()
+    return out, times
+
+
 def _timed(label: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -2267,6 +2626,8 @@ def main() -> int:
     _timed("13 composition", phase_composition, dev)
     _timed("14 serving loop", phase_serving_loop, dev)
     flash[0]["launches_gemma"] = _timed("15 local:global serving", phase_gemma_serving, dev)
+    flash[0]["launches_moe"], flash[0]["moe_shapes"] = _timed("16 MoE serving",
+                                                              phase_moe_serving, dev)
     records = [argmin, *flash, scan]
     print(f"[time] all phases: {time.perf_counter() - t0:.2f} s")
     print("kernels: " + ", ".join(r["name"] for r in records))

@@ -1,8 +1,8 @@
 """Architecture registry of the port: ``--arch <id>`` resolution.
 
 Only the architectures whose every layer the port can run are registered;
-the JAX package's other six (``repro.configs.ARCH_NAMES``: MoE, MLA,
-Mamba-2 / hybrid, the frontends and llama3-405b, ROADMAP A12) raise a
+the JAX package's other four (``repro.configs.ARCH_NAMES``: Mamba-2 /
+hybrid, the two frontends and llama3-405b, ROADMAP A12) raise a
 ``KeyError`` that says they are not ported yet.
 """
 
@@ -10,7 +10,8 @@ from __future__ import annotations
 
 from typing import Dict, List
 
-from repro_torch.configs import falcon_mamba_7b, gemma2_2b, gemma3_27b, llama3_2_1b
+from repro_torch.configs import (deepseek_v2_236b, falcon_mamba_7b, gemma2_2b, gemma3_27b,
+                                 llama3_2_1b, qwen3_moe_235b_a22b)
 from repro_torch.configs.base import (SHAPES, AttentionConfig, ModelConfig,
                                       MoEConfig, OptimizerConfig, ShapeConfig,
                                       SSMConfig, TrainConfig, count_params,
@@ -21,13 +22,14 @@ _MODULES = {
     "falcon-mamba-7b": falcon_mamba_7b,
     "gemma2-2b": gemma2_2b,
     "gemma3-27b": gemma3_27b,
+    "qwen3-moe-235b-a22b": qwen3_moe_235b_a22b,
+    "deepseek-v2-236b": deepseek_v2_236b,
 }
 
 ARCH_NAMES: List[str] = list(_MODULES)
 
 #: Architectures of the JAX package that the port cannot run yet.
-NOT_PORTED = ("llama3-405b", "internvl2-1b", "qwen3-moe-235b-a22b",
-              "deepseek-v2-236b", "zamba2-2.7b", "hubert-xlarge")
+NOT_PORTED = ("llama3-405b", "internvl2-1b", "zamba2-2.7b", "hubert-xlarge")
 
 
 def get_config(name: str, reduced: bool = False) -> ModelConfig:

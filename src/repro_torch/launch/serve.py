@@ -5,12 +5,14 @@ Usage (from the repository root):
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu      # plain path
   PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b --no-reduced
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b --no-reduced
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-235b-a22b --device cpu
 
 Generates tokens with a real model (``--arch``, one of
 ``configs.ARCH_NAMES``; ``--reduced``, the default, or the full-width
-``--no-reduced``) whose weights come from a seeded generator,
-then runs the §V controller over a bursty trace and reports the power
-gain vs an uncontrolled fleet and the QoS stats.  The flags are those of
+``--no-reduced``) whose weights come from a seeded generator (the MoE
+models at full depth, 235 B and 236 B parameters, do not fit one card:
+run them REDUCED), then runs the §V controller over a bursty trace and
+reports the power gain vs an uncontrolled fleet and the QoS stats.  The flags are those of
 ``repro.launch.serve`` plus ``--device``.
 """
 

@@ -1,5 +1,5 @@
-"""Model zoo of the port, the dense GQA and Mamba-1 families (``repro.models``
-in PyTorch).
+"""Model zoo of the port: the dense and MoE families (GQA or MLA attention)
+and Mamba-1 (``repro.models`` in PyTorch).
 
 Public API:
   transformer.model_layout(cfg)      → ParamDef tree (shapes + logical axes)
@@ -8,6 +8,6 @@ Public API:
   transformer.cache_layout(cfg, batch, seq)    → decode-cache layout
 """
 
-from repro_torch.models import attention, common, ffn, ssm, transformer
+from repro_torch.models import attention, common, ffn, moe, ssm, transformer
 
-__all__ = ["attention", "common", "ffn", "ssm", "transformer"]
+__all__ = ["attention", "common", "ffn", "moe", "ssm", "transformer"]

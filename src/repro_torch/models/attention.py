@@ -1,24 +1,31 @@
-"""Attention, the GQA half (port of ``repro.models.attention``).
+"""Attention: GQA (RoPE, sliding-window, local:global patterns, softcap,
+QK-norm, qkv bias) and MLA (DeepSeek-V2 latent attention with absorbed
+decode); port of ``repro.models.attention``.
 
-GQA with RoPE, sliding-window layers, logit softcap, QK-norm and qkv
-bias (everything the local:global gemma2 / gemma3 layers need), in two
-compute paths:
+Two compute paths for each kind:
 
-* prefill — ``kernels.flash_attention`` on the un-repeated k, v: GQA is
-  folded into the kernel (query head ``h`` reads KV head ``h // G``), the
-  causal / window band skips whole KV tiles, and the online softmax
-  keeps p in fp32 as the Pallas kernel does.  On CPU tensors the op runs
+* prefill — ``kernels.flash_attention``.  GQA passes the un-repeated k,
+  v: GQA is folded into the kernel (query head ``h`` reads KV head
+  ``h // G``), the causal / window band skips whole KV tiles, and the
+  online softmax keeps p in fp32 as the Pallas kernel does.  MLA
+  decompresses per-head k, v and pads q, k (``qk_nope + qk_rope``) and v
+  (``v_head_dim``) with zero columns to one head_dim the op routes
+  (``_flash_head_dim``: 192 and 128 → 256), with the scale of the
+  unpadded ``qk`` width; zero columns add exactly 0 to every score, and
+  the output is cut back to ``v_head_dim``.  On CPU tensors the op runs
   its plain version.  (The JAX package's XLA twin ``full_attention``
-  casts p to the activation dtype before p·v, so in bf16 the two agree
+  rounds p to the activation dtype before p·v, so in bf16 the two agree
   to bf16 rounding, not bit for bit.)
-* decode — ``decode_attention``: single-token queries against a padded
-  linear KV cache with position tags (a ring buffer for window layers),
-  plain PyTorch as in the JAX package.
+* decode — plain PyTorch as in the JAX package: ``decode_attention``,
+  single-token queries against a padded linear KV cache with position
+  tags (a ring buffer for window layers); MLA's absorbed products over
+  the compressed cache ``c_kv`` [B,T,r] + ``k_rope`` [B,T,rope], written
+  in place at ``cache_pos`` (no ring, no position tags, as the reference).
 
 ``windowed_attention`` is the JAX package's banded form of a causal
 sliding-window attention, plain PyTorch here; no GQA path of either
-package calls it (the flash op skips the same band tile by tile).  MLA
-and the attention backward are not ported yet (ROADMAP A12).
+package calls it (the flash op skips the same band tile by tile).  The
+attention backward is not ported yet (ROADMAP A12).
 """
 
 from __future__ import annotations
@@ -29,7 +36,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import flash_attention, ops
 from repro_torch.models import common
 from repro_torch.models.common import ParamDef, fan_in_def
 
@@ -64,15 +71,27 @@ def gqa_layout(cfg: ModelConfig) -> Dict[str, ParamDef]:
     return out
 
 
-def _gqa_only(cfg: ModelConfig) -> None:
-    if cfg.attention.kind != "gqa":
-        raise NotImplementedError(f"{cfg.name}: {cfg.attention.kind} attention is not "
-                                  "ported yet (MLA, ROADMAP A12); the port runs GQA")
+def mla_layout(cfg: ModelConfig) -> Dict[str, ParamDef]:
+    a = cfg.attention
+    d = cfg.d_model
+    qk = a.qk_nope_dim + a.qk_rope_dim
+    return {
+        "wq_a": fan_in_def((d, a.q_lora_rank), ("embed", None)),
+        "q_norm": ParamDef((a.q_lora_rank,), (None,), "ones"),
+        "wq_b": fan_in_def((a.q_lora_rank, a.n_heads, qk), (None, "heads", "head_dim")),
+        "wkv_a": fan_in_def((d, a.kv_lora_rank + a.qk_rope_dim), ("embed", None)),
+        "kv_norm": ParamDef((a.kv_lora_rank,), (None,), "ones"),
+        "wk_b": fan_in_def((a.kv_lora_rank, a.n_heads, a.qk_nope_dim),
+                           (None, "heads", "head_dim")),
+        "wv_b": fan_in_def((a.kv_lora_rank, a.n_heads, a.v_head_dim),
+                           (None, "heads", "head_dim")),
+        "wo": fan_in_def((a.n_heads, a.v_head_dim, d), ("heads", "head_dim", "embed"),
+                         n_in=a.n_heads * a.v_head_dim),
+    }
 
 
 def attention_layout(cfg: ModelConfig) -> Dict[str, ParamDef]:
-    _gqa_only(cfg)
-    return gqa_layout(cfg)
+    return mla_layout(cfg) if cfg.attention.kind == "mla" else gqa_layout(cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -259,11 +278,107 @@ def gqa_cache_layout(cfg: ModelConfig, batch: int, seq_len: int,
     }
 
 
+# ---------------------------------------------------------------------------
+# MLA block (DeepSeek-V2)
+# ---------------------------------------------------------------------------
+
+
+def _flash_head_dim(d: int) -> int:
+    """The head_dim an MLA prefill pads q, k and v to: the least of the
+    tensor-core kernel's ``TC_HEAD_DIMS`` that holds ``d`` (``d`` itself
+    past the largest; the op then raises on a CUDA tensor)."""
+    return next((t for t in ops.TC_HEAD_DIMS if t >= d), d)
+
+
+def mla_apply(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig, *,
+              positions: torch.Tensor, is_local: bool = False,
+              cache: Optional[Dict[str, torch.Tensor]] = None,
+              cache_pos: Optional[torch.Tensor] = None,
+              return_state: bool = False,
+              cache_capacity: Optional[int] = None
+              ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """One MLA attention block (no residual/norm).
+
+    Prefill: per-head k, v decompressed from the latent, through the
+    flash op at a padded head_dim (module docstring); ``return_state``
+    builds the compressed cache ``{c_kv, k_rope}`` sized
+    ``cache_capacity``.  Decode: the step's latent and rope key are
+    written **in place** at ``cache_pos`` and the query attends over the
+    whole compressed cache through the absorbed ``W_UK`` / ``W_UV``
+    products, scores in fp32 (the reference's ``preferred_element_type``).
+    """
+    a = cfg.attention
+    b, s, d = x.shape
+    dt = x.dtype
+    nope, rope, r = a.qk_nope_dim, a.qk_rope_dim, a.kv_lora_rank
+    qk_dim = nope + rope
+    scale = 1.0 / math.sqrt(qk_dim)
+
+    cq = common.rms_norm(x @ params["wq_a"].to(dt), params["q_norm"], cfg.norm_eps)
+    q = (cq @ params["wq_b"].to(dt).reshape(a.q_lora_rank, -1)).unflatten(-1, (a.n_heads, qk_dim))
+    q_nope = q[..., :nope]
+    q_rope = common.apply_rope(q[..., nope:], positions, a.rope_theta)
+
+    ckv_full = x @ params["wkv_a"].to(dt)
+    c_kv = common.rms_norm(ckv_full[..., :r], params["kv_norm"], cfg.norm_eps)
+    k_rope = common.apply_rope(ckv_full[..., None, r:], positions, a.rope_theta)  # [B,S,1,rope]
+
+    new_cache = None
+    if cache is None:
+        k_nope = (c_kv @ params["wk_b"].to(dt).reshape(r, -1)).unflatten(-1, (a.n_heads, nope))
+        v = (c_kv @ params["wv_b"].to(dt).reshape(r, -1)).unflatten(-1, (a.n_heads, a.v_head_dim))
+        hd = _flash_head_dim(max(qk_dim, a.v_head_dim))
+        qf, kf, vf = (x.new_zeros((b, s, a.n_heads, hd)) for _ in range(3))
+        qf[..., :nope], qf[..., nope:qk_dim] = q_nope, q_rope
+        kf[..., :nope], kf[..., nope:qk_dim] = k_nope, k_rope
+        vf[..., :a.v_head_dim] = v
+        o = flash_attention(qf, kf, vf, causal=cfg.causal, scale=scale)[..., :a.v_head_dim]
+        if return_state:
+            cap_len = cache_capacity or s
+            new_cache = {"c_kv": c_kv.new_zeros((b, cap_len, r)),
+                         "k_rope": k_rope.new_zeros((b, cap_len, rope))}
+            new_cache["c_kv"][:, :s] = c_kv
+            new_cache["k_rope"][:, :s] = k_rope[:, :, 0]
+    else:
+        # absorbed decode over the compressed latent cache, written in place
+        assert s == 1 and cache_pos is not None
+        t = cache["c_kv"].shape[1]
+        bidx = torch.arange(b, device=x.device)
+        pos = cache_pos.long()
+        cache["c_kv"][bidx, pos] = c_kv[:, 0].to(cache["c_kv"].dtype)
+        cache["k_rope"][bidx, pos] = k_rope[:, 0, 0].to(cache["k_rope"].dtype)
+        new_cache = cache
+        ckv_c, kr_c = cache["c_kv"].to(dt), cache["k_rope"].to(dt)
+        q_abs = torch.einsum("bshk,rhk->bshr", q_nope, params["wk_b"].to(dt))   # absorb W_UK
+        sc = (torch.einsum("bshr,btr->bhst", q_abs.float(), ckv_c.float())
+              + torch.einsum("bshp,btp->bhst", q_rope.float(), kr_c.float())) * scale
+        valid = torch.arange(t, device=x.device)[None, :] <= cache_pos[:, None]
+        p = torch.softmax(torch.where(valid[:, None, None, :], sc, NEG_INF), dim=-1)
+        ctx = torch.einsum("bhst,btr->bshr", p.to(dt), ckv_c)
+        o = torch.einsum("bshr,rhv->bshv", ctx, params["wv_b"].to(dt))
+
+    y = o.reshape(b, s, -1) @ params["wo"].to(dt).reshape(-1, d)
+    return y, new_cache
+
+
+def mla_cache_layout(cfg: ModelConfig, batch: int, seq_len: int,
+                     is_local: bool = False) -> Dict[str, ParamDef]:
+    """The compressed decode cache: the latent and the shared rope key, no
+    head axis and no position tags."""
+    a = cfg.attention
+    return {
+        "c_kv": ParamDef((batch, seq_len, a.kv_lora_rank), ("batch", "kv_seq", None), "zeros"),
+        "k_rope": ParamDef((batch, seq_len, a.qk_rope_dim), ("batch", "kv_seq", None), "zeros"),
+    }
+
+
 def attention_apply(params, x, cfg, **kw):
-    _gqa_only(cfg)
+    if cfg.attention.kind == "mla":
+        return mla_apply(params, x, cfg, **kw)
     return gqa_apply(params, x, cfg, **kw)
 
 
 def attention_cache_layout(cfg, batch, seq_len, is_local):
-    _gqa_only(cfg)
+    if cfg.attention.kind == "mla":
+        return mla_cache_layout(cfg, batch, seq_len, is_local)
     return gqa_cache_layout(cfg, batch, seq_len, is_local)

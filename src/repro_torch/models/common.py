@@ -88,8 +88,9 @@ def init_params(generator: torch.Generator, layout: Any,
             return torch.ones(d.shape, dtype=dtype, device=dev)
         if d.init == "constant":
             return torch.full(d.shape, d.scale, dtype=dtype, device=dev)
-        return d.scale * torch.randn(d.shape, generator=generator, dtype=dtype,
-                                     device=dev)
+        # scaled in place: a temporary the size of the largest leaf (a
+        # stacked expert weight of tens of GB) would double the peak
+        return torch.randn(d.shape, generator=generator, dtype=dtype, device=dev).mul_(d.scale)
 
     made = {path: make(d) for path, d in tree_leaves(layout)}
     return place_leaves(layout, made)

@@ -1,4 +1,4 @@
-"""Top-level model, the dense and Mamba-1 families (port of
+"""Top-level model, the dense, MoE and Mamba-1 families (port of
 ``repro.models.transformer``).
 
 Layers are grouped into *periods* (the local:global pattern length, 1
@@ -8,7 +8,9 @@ JAX package's ``prefix`` / ``slots`` / ``rem`` structure leaf for leaf.
 The JAX ``lax.scan`` over periods is a Python loop over the stacked axis
 here; a layer's locality (``_is_local``) follows its global index, so the
 remainder layers of a local:global config (gemma3-27b: 62 = 10 × 6 + 2)
-keep the pattern.  MoE, MLA, Mamba-2, the hybrid shared block and the
+keep the pattern.  An MoE config's leading ``first_dense_layers`` are the
+unrolled ``prefix`` (FFN width ``d_ff_dense`` where it is set), every
+later layer an MoE layer.  Mamba-2, the hybrid shared block and the
 VLM/audio frontends are not ported yet (ROADMAP A12): their configs raise
 ``NotImplementedError``.
 """
@@ -23,6 +25,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import common
 from repro_torch.models import ffn as ffn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import ParamDef, fan_in_def, stacked
 
@@ -33,13 +36,14 @@ from repro_torch.models.common import ParamDef, fan_in_def, stacked
 
 
 def _check_ported(cfg: ModelConfig) -> None:
-    dense = cfg.family == "dense" and cfg.ssm is None
-    mamba1 = cfg.family == "ssm" and cfg.ssm is not None and cfg.ssm.kind == "mamba1"
-    if (not (dense or mamba1) or cfg.moe is not None or cfg.frontend is not None
-            or cfg.shared_attn_every):
+    dense = cfg.family == "dense" and cfg.ssm is None and cfg.moe is None
+    moe = cfg.family == "moe" and cfg.ssm is None and cfg.moe is not None
+    mamba1 = (cfg.family == "ssm" and cfg.moe is None and cfg.ssm is not None
+              and cfg.ssm.kind == "mamba1")
+    if not (dense or moe or mamba1) or cfg.frontend is not None or cfg.shared_attn_every:
         raise NotImplementedError(f"{cfg.name}: the {cfg.family} family is not ported "
-                                  "yet (MoE, Mamba-2 / hybrid, frontends: ROADMAP A12); "
-                                  "the port runs dense GQA and Mamba-1 models")
+                                  "yet (Mamba-2 / hybrid, frontends: ROADMAP A12); the "
+                                  "port runs dense and MoE (GQA or MLA) and Mamba-1 models")
 
 
 def period_of(cfg: ModelConfig) -> int:
@@ -60,9 +64,11 @@ def scanned_layers(cfg: ModelConfig) -> Tuple[int, int, int]:
 
 
 def _layer_kind(cfg: ModelConfig, global_idx: int) -> str:
-    """"mamba" or "dense" (MoE layers are not ported: ``_check_ported``
-    refuses their configs)."""
-    return "mamba" if cfg.family in ("ssm", "hybrid") else "dense"
+    if cfg.family in ("ssm", "hybrid"):
+        return "mamba"
+    if cfg.moe is not None and global_idx >= cfg.moe.first_dense_layers:
+        return "moe"
+    return "dense"
 
 
 def _is_local(cfg: ModelConfig, global_idx: int) -> bool:
@@ -75,12 +81,21 @@ def _is_local(cfg: ModelConfig, global_idx: int) -> bool:
 # ---------------------------------------------------------------------------
 
 
-def _dense_layer_layout(cfg: ModelConfig) -> Dict[str, Any]:
+def _dense_layer_layout(cfg: ModelConfig, d_ff: int) -> Dict[str, Any]:
     return {
         "ln1": ParamDef((cfg.d_model,), (None,), "ones"),
         "attn": attn_mod.attention_layout(cfg),
         "ln2": ParamDef((cfg.d_model,), (None,), "ones"),
-        "ffn": ffn_mod.ffn_layout(cfg.d_model, cfg.d_ff),
+        "ffn": ffn_mod.ffn_layout(cfg.d_model, d_ff),
+    }
+
+
+def _moe_layer_layout(cfg: ModelConfig) -> Dict[str, Any]:
+    return {
+        "ln1": ParamDef((cfg.d_model,), (None,), "ones"),
+        "attn": attn_mod.attention_layout(cfg),
+        "ln2": ParamDef((cfg.d_model,), (None,), "ones"),
+        "moe": moe_mod.moe_layout(cfg),
     }
 
 
@@ -92,9 +107,13 @@ def _mamba_layer_layout(cfg: ModelConfig) -> Dict[str, Any]:
 
 
 def _layer_layout(cfg: ModelConfig, global_idx: int) -> Dict[str, Any]:
-    if _layer_kind(cfg, global_idx) == "mamba":
+    kind = _layer_kind(cfg, global_idx)
+    if kind == "mamba":
         return _mamba_layer_layout(cfg)
-    return _dense_layer_layout(cfg)
+    if kind == "moe":
+        return _moe_layer_layout(cfg)
+    d_ff = cfg.moe.d_ff_dense if (cfg.moe and cfg.moe.d_ff_dense) else cfg.d_ff
+    return _dense_layer_layout(cfg, d_ff)
 
 
 def model_layout(cfg: ModelConfig) -> Dict[str, Any]:
@@ -142,8 +161,8 @@ def cache_layout(cfg: ModelConfig, batch: int, seq_len: int) -> Dict[str, Any]:
 # ---------------------------------------------------------------------------
 
 
-def _apply_dense(lp, x, cfg, *, is_local, positions, cache, cache_pos,
-                 return_state, cache_capacity):
+def _apply_dense_or_moe(lp, x, cfg, *, kind, is_local, positions, cache, cache_pos,
+                        return_state, cache_capacity):
     h = common.rms_norm(x, lp["ln1"], cfg.norm_eps)
     h, new_cache = attn_mod.attention_apply(
         lp["attn"], h, cfg, positions=positions, is_local=is_local,
@@ -151,14 +170,26 @@ def _apply_dense(lp, x, cfg, *, is_local, positions, cache, cache_pos,
         cache_capacity=cache_capacity)
     x = x + h
     h = common.rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + ffn_mod.ffn_apply(lp["ffn"], h, cfg), new_cache
+    aux: Dict[str, torch.Tensor] = {}
+    if kind == "moe":
+        h, aux = moe_mod.moe_apply(lp["moe"], h, cfg)
+    else:
+        h = ffn_mod.ffn_apply(lp["ffn"], h, cfg)
+    return x + h, new_cache, aux
 
 
 def _apply_mamba(lp, x, cfg, *, cache, return_state):
     h = common.rms_norm(x, lp["ln"], cfg.norm_eps)
     h, new_cache = ssm_mod.mamba_apply(lp["mamba"], h, cfg, cache=cache,
                                        return_state=return_state)
-    return x + h, new_cache
+    return x + h, new_cache, {}
+
+
+def _zero_aux(cfg: ModelConfig, device) -> Dict[str, torch.Tensor]:
+    if cfg.moe is None:
+        return {}
+    return {k: torch.zeros((), device=device)
+            for k in ("moe_load_balance", "moe_router_z", "moe_dropped")}
 
 
 def _embed_inputs(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -182,9 +213,10 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
     in place and returned).  ``return_state`` makes a prefill pass
     additionally build the decode cache sized ``cache_capacity`` (default:
     prefill length).  ``last_only`` computes logits for the final position
-    only (serving prefill — skips the O(S·V) head over the prompt).  The
-    dense and Mamba-1 families have no auxiliary losses: ``aux_losses`` is
-    ``{}``.
+    only (serving prefill — skips the O(S·V) head over the prompt).
+    ``aux_losses`` sums each MoE layer's ``moe_load_balance``,
+    ``moe_router_z`` and ``moe_dropped`` (float32 scalars); the dense and
+    Mamba-1 families have none: ``{}``.
     """
     _check_ported(cfg)
     x = _embed_inputs(params, cfg, batch)
@@ -198,14 +230,21 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
     p = period_of(cfg)
     collect = decoding or return_state
     new_cache: Dict[str, Any] = {"prefix": [], "rem": []}
+    aux_acc = _zero_aux(cfg, x.device)
 
     def run_layer(lp, x, gidx, layer_cache):
-        if _layer_kind(cfg, gidx) == "mamba":
-            return _apply_mamba(lp, x, cfg, cache=layer_cache, return_state=return_state)
-        return _apply_dense(lp, x, cfg, is_local=_is_local(cfg, gidx),
-                            positions=positions, cache=layer_cache,
-                            cache_pos=cache_pos, return_state=return_state,
-                            cache_capacity=cache_capacity)
+        kind = _layer_kind(cfg, gidx)
+        if kind == "mamba":
+            x, nc, aux = _apply_mamba(lp, x, cfg, cache=layer_cache,
+                                      return_state=return_state)
+        else:
+            x, nc, aux = _apply_dense_or_moe(
+                lp, x, cfg, kind=kind, is_local=_is_local(cfg, gidx), positions=positions,
+                cache=layer_cache, cache_pos=cache_pos, return_state=return_state,
+                cache_capacity=cache_capacity)
+        for k, v in aux.items():
+            aux_acc[k] = aux_acc[k] + v
+        return x, nc
 
     for i in range(prefix):
         x, nc = run_layer(params["prefix"][i], x, i,
@@ -246,4 +285,4 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
         valid = torch.arange(cfg.padded_vocab, device=x.device) < cfg.vocab_size
         logits = torch.where(valid, logits,
                              torch.tensor(-1e9, dtype=logits.dtype, device=x.device))
-    return logits, (new_cache if collect else None), {}
+    return logits, (new_cache if collect else None), aux_acc

@@ -4,6 +4,8 @@
 Cache layouts come from ``models.transformer.cache_layout``; this module
 materializes them (zeros, position tags at -1) on an explicit device,
 sizes them, and pads prefill-produced caches out to serving capacity.
+An MLA layer's cache is its compressed latent ``c_kv`` and rope key
+``k_rope``: no head axis, no position tags, padded with zeros.
 ``split_kv_needed`` says whether the kv_heads or the kv_seq axis would
 carry a model-parallel split; the port runs on one card and keeps it only
 for parity.  The JAX package's ``abstract_cache`` (shape specs for its

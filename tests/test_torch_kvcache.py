@@ -2,7 +2,7 @@
 
 Sizes, dtypes and contents of a fresh cache, the split-KV rule, and the
 padding of a prefill cache out to serving capacity (local layers' rings
-included), with both packages' ``ValueError``s; then the property the
+and MLA's compressed latent cache included), with both packages' ``ValueError``s; then the property the
 padding exists for: a short prefill padded to capacity decodes exactly as
 a prefill built at capacity.  Models are REDUCED except for the sizes,
 which are computed from layouts alone.
@@ -72,6 +72,10 @@ def test_cache_bytes_matches_jax(arch, reduced):
         # 4 heads × 256 in bf16, and the position tags
         per_slot = 2 * 2 * 4 * 256 * 2 + 2 * 2
         assert tkv.cache_bytes(t, 2, 8192) == 13 * (4096 + 8192) * per_slot
+    if arch == "deepseek-v2-236b" and not reduced:
+        # MLA: the latent (512) and the shared rope key (64) a slot, bf16, no
+        # head axis and no position tags, in each of the 60 layers
+        assert tkv.cache_bytes(t, 2, 8192) == 60 * 2 * 8192 * (512 + 64) * 2
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -148,9 +152,11 @@ def test_pad_prefill_cache_raises_as_jax_does(arch):
         assert torch.equal(a, b), p
 
 
-@pytest.mark.parametrize("arch", ["gemma2-2b", "gemma3-27b", "llama3.2-1b"])
+@pytest.mark.parametrize("arch", ["gemma2-2b", "gemma3-27b", "llama3.2-1b",
+                                  "qwen3-moe-235b-a22b", "deepseek-v2-236b"])
 def test_padded_short_prefill_decodes_like_a_cache_built_at_capacity(arch):
-    """Decode logits are equal, step for step, past the 32-slot rings' wrap."""
+    """Decode logits are equal, step for step, past the 32-slot rings' wrap
+    (MLA's compressed cache padded with zeros, no position tags)."""
     _, tcfg, _, short, tp = _prefill(arch)
     _, _, _, full, _ = _prefill(arch, capacity=CAPACITY)
     padded = tkv.pad_prefill_cache(tcfg, short, CAPACITY)
