@@ -36,7 +36,10 @@ printing its seconds:
    kernel (2e-2) (the cases of ``tests/test_kernels_flash.py``, two ragged
    lengths, head_dim 16, the serving shape, head_dim 256 and 128 with GQA
    8/4, a window and softcap 50, a ragged S and a non-causal call, and k, v
-   as strided halves of one fused projection); the tensor-core kernel's
+   as strided halves of one fused projection; internvl2's GQA 14/2 (G = 7)
+   and a non-causal D = 128 call at ragged lengths; the models' padded
+   prefill, heads of 80 with zero columns to 128, against the plain version
+   on the unpadded tensors, causal and not); the tensor-core kernel's
    SASS must hold HGMMA and UTMALDG, also in each head_dim-256
    instantiation, whose ptxas report must show no spill bytes; its ptxas
    report and shared memory per head_dim (within the card's opt-in limit)
@@ -152,7 +155,30 @@ printing its seconds:
    layer on one 4096-token group against the reference's one-hot einsum
    formulation (``xe`` bit-equal, y within 2e-2, both timed); the first layers in
    float32 on ``cuda`` and on the CPU (qwen3: 1 layer, a 512-token prompt;
-   deepseek: 2 layers, 128), routing compared call for call.
+   deepseek: 2 layers, 128), routing compared call for call;
+17. hybrid and frontends serving — ``launch.serve --arch zamba2-2.7b`` and
+   ``--arch internvl2-1b`` on ``cuda`` (REDUCED), ``--arch hubert-xlarge``
+   refused (encoder-only); the tensor-core kernel at the three new prefill
+   layers (B = 4, S = 2048: zamba2's shared block, 32/32 heads of 80 padded
+   to 128, causal; hubert's encoder, 16/16 of 80 padded, non-causal;
+   internvl2's 14/2 of 64) beside its plain version,
+   ``scaled_dot_product_attention`` on the unpadded tensors and the bound of
+   the useful work; ``ServeEngine`` on full-width zamba2-2.7b (all 54
+   layers: 54 Mamba-2 layers and the shared block once in each of 9
+   periods, 2,422,907,840 float32 parameters from a seed) at B = 4, a
+   2048-token prompt and 32 new tokens: the times of phase 6, 9 tensor-core
+   flash launches a ``generate`` at D = 128, peak device memory, the SSD's
+   share of prefill device time (``torch.profiler``), every flash call of
+   one prefill against the plain version; full-width internvl2-1b (24
+   layers): a timed prefill with 256 patch positions, its flash calls
+   against the plain version, and a ``generate`` on tokens with 24 launches
+   at D = 64; full-width hubert-xlarge (48 layers): one bf16
+   ``transformer.forward`` on ``features`` at B = 4, S = 2048, timed, 48
+   non-causal launches at D = 128, every flash call against the plain
+   version; float32 on ``cuda`` and on the CPU: zamba2's first period (6
+   Mamba-2 layers and the shared block) at a 512-token prompt and 3 decode
+   steps, internvl2's first 2 layers with patches, hubert's first 2 on
+   features.
 
 It ends with a ``{"kernels": [...]}`` line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}`` as the last line.  Without a
@@ -218,7 +244,15 @@ FLASH_CASES = [
     (2, 333, 4, 2, 256, True, None, None),
     (1, 256, 2, 1, 256, False, None, None),
     (1, 700, 4, 2, 128, True, 200, 50.0),
+    # internvl2's GQA 14/2 (G = 7) at a ragged S; a non-causal D = 128 call at a ragged S
+    # (hubert's padded encoder layer)
+    (2, 301, 2, 7, 64, True, None, None),
+    (2, 450, 4, 1, 128, False, None, None),
 ]
+# The models' padded prefill (``attention._padded_flash``): heads of 80 with zero
+# columns to 128, against the plain version on the unpadded tensors:
+# (B, S, KV, G, D, causal)
+FLASH_PADDED_CASES = [(2, 333, 4, 1, 80, True), (1, 500, 4, 1, 80, False)]
 # The softcap in its nonlinear range: q scaled so that the scores reach past the cap,
 # where the capped and the uncapped function differ by far more than the bf16
 # tolerance (phase 5 checks that they do): (B, S, KV, G, D, window, softcap, q's scale)
@@ -293,9 +327,21 @@ MOE_CAPACITY = MOE_PROMPT + MOE_NEW
 # Float32 card vs CPU: (layers, prompt): qwen3's first layer on one 512-token group
 # (capacity 40); deepseek's dense layer and its first MoE layer.
 MOE_F32 = {"qwen3-moe-235b-a22b": (1, 512), "deepseek-v2-236b": (2, 128)}
-# B2 at the two models' prefill layers, bf16: (B, S, KV, G, D of q and k, D of v)
-MOE_FLASH_SHAPES = {"qwen3_moe": (2, 4096, 4, 16, 128, 128),
-                    "deepseek_v2_mla": (2, 4096, 128, 1, 192, 128)}
+# B2 at the two models' prefill layers, bf16: (B, S, KV, G, D of q and k, D of v, causal)
+MOE_FLASH_SHAPES = {"qwen3_moe": (2, 4096, 4, 16, 128, 128, True),
+                    "deepseek_v2_mla": (2, 4096, 128, 1, 192, 128, True)}
+# Phase 17: the hybrid and frontend families at full width and depth, bf16, B = 4 and a
+# 2048-token prompt (a multiple of zamba2's 256-step SSD chunk), 32 new tokens.
+HYBRID_BATCH, HYBRID_PROMPT, HYBRID_NEW = 4, 2048, 32
+HYBRID_PATCHES = 256              # internvl2's frontend_len: patch positions of a prompt
+# B2 at the three new prefill layers, bf16: (B, S, KV, G, D of q and k, D of v, causal);
+# heads of 80 are padded to 128 as the models pad them
+HYBRID_FLASH_SHAPES = {"zamba2_shared": (4, 2048, 32, 1, 80, 80, True),
+                       "internvl2": (4, 2048, 2, 7, 64, 64, True),
+                       "hubert": (4, 2048, 16, 1, 80, 80, False)}
+# Float32 card vs CPU: (layers, prompt): zamba2's first period (6 Mamba-2 layers and the
+# shared block), internvl2's first 2 layers with patches, hubert's first 2 on features.
+HYBRID_F32 = {"zamba2-2.7b": (6, 512), "internvl2-1b": (2, 512), "hubert-xlarge": (2, 512)}
 # An H100 SM issues 16 special-function results (ex2 of expf) per clock.
 SFU_PER_SM_CLOCK = 16
 # The §III analytic platforms of phase 3 (α, β): α = 0 zeroes the BRAM delay term.
@@ -768,11 +814,21 @@ def _causal_flops(q, window=None, dv=None) -> int:
     return 2 * b * h * (d + dv) * (w * (w + 1) // 2 + (s - w) * w)
 
 
-def _flash_bound(q, k, v, out, window=None) -> tuple[float, str]:
-    """Least time on an H100 for causal attention: q, k, v and out moved
-    once over HBM vs its FLOPs at the dtype's peak."""
+def _attention_flops(q, causal: bool, dv=None) -> int:
+    """``_causal_flops`` of a causal call; 2·B·H·(D + Dv)·S² of a
+    non-causal one."""
+    if causal:
+        return _causal_flops(q, dv=dv)
+    b, s, h, d = q.shape
+    return 2 * b * h * (d + (d if dv is None else dv)) * s * s
+
+
+def _flash_bound(q, k, v, out, window=None, causal=True) -> tuple[float, str]:
+    """Least time on an H100 for attention: q, k, v and out moved once
+    over HBM vs its FLOPs at the dtype's peak."""
     n_bytes = sum(t.numel() * t.element_size() for t in (q, k, v, out))
-    flops = _causal_flops(q, window, v.shape[-1])
+    flops = (_causal_flops(q, window, v.shape[-1]) if causal
+             else _attention_flops(q, False, v.shape[-1]))
     peak = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else FP32_OPS_PER_S
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -832,15 +888,26 @@ def _flash_build_report(lib) -> None:
               f"(the card's opt-in limit {limit})")
 
 
-def _flash_case_check(name, q, k, v, dtype, causal, window, cap) -> tuple[str, float]:
+def _flash_case_check(name, q, k, v, dtype, causal, window, cap,
+                      padded=False) -> tuple[str, float]:
     """One call of the op against the plain version: it must launch the
-    kernel ``ops.route`` names, once, and agree within FLASH_TOL."""
+    kernel ``ops.route`` names, once, and agree within FLASH_TOL.  With
+    ``padded`` the call is the models' ``attention._padded_flash`` (q, k, v
+    with zero columns to the next tensor-core head_dim, the scale of the
+    unpadded one, the output cut back), held to the plain version on the
+    unpadded tensors."""
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
     from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models import attention as attn_mod
 
-    kernel = ops.route(dtype, q.shape[-1])
+    d = q.shape[-1]
+    kernel = ops.route(dtype, attn_mod._flash_head_dim(d) if padded else d)
     before = dict(flash_attention.kernel_launches)
-    out = flash_attention(q, k, v, causal=causal, window=window, softcap=cap)
+    if padded:
+        out = attn_mod._padded_flash([q], [k], v, causal=causal, window=window, softcap=cap,
+                                     scale=d ** -0.5)
+    else:
+        out = flash_attention(q, k, v, causal=causal, window=window, softcap=cap)
     ref = flash_attention_ref(q, k, v, causal=causal, window=window, softcap=cap)
     torch.cuda.synchronize()
     served = {n: flash_attention.kernel_launches[n] - before[n] for n in before}
@@ -850,8 +917,9 @@ def _flash_case_check(name, q, k, v, dtype, causal, window, cap) -> tuple[str, f
     err = (out.float() - ref.float()).abs().max().item()
     check(err <= FLASH_TOL[dtype], f"{kernel} {name} {dtype}: max|Δ| {err} "
           f"> {FLASH_TOL[dtype]}")
-    print(f"[flash] {name} {str(dtype)[6:]} on {kernel}: max|Δ| vs plain {err:.3g} "
-          f"(tol {FLASH_TOL[dtype]})")
+    print(f"[flash] {name} {str(dtype)[6:]} on {kernel}"
+          f"{f' padded to D = {attn_mod._flash_head_dim(d)}' if padded else ''}: max|Δ| vs "
+          f"plain {err:.3g} (tol {FLASH_TOL[dtype]})")
     return kernel, err
 
 
@@ -880,6 +948,12 @@ def phase_flash_kernels(dev) -> list:
             kernel, err = _flash_case_check(f"strided k, v of [{b}, {s}, 2, {kv}, {d}]", q,
                                             packed[:, :, 0], packed[:, :, 1], dtype, True,
                                             window, cap)
+            max_err[kernel] = max(max_err[kernel], err)
+    for b, s, kv, g, d, causal in FLASH_PADDED_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = _flash_inputs((b, s, kv, g, d), dtype, gen, dev)
+            kernel, err = _flash_case_check(f"padded {(b, s, kv, g, d, causal)}", q, k, v,
+                                            dtype, causal, None, None, padded=True)
             max_err[kernel] = max(max_err[kernel], err)
     for b, s, kv, g, d, window, cap, q_scale in FLASH_SOFTCAP_CASES:
         for dtype in (torch.float32, torch.bfloat16):
@@ -1081,13 +1155,14 @@ def phase_serving(dev) -> dict:
 
 
 def phase_generate(cfg, params, dev, op, tag: str, b: int = SERVE_BATCH,
-                   s: int = SERVE_PROMPT, n_new: int = SERVE_NEW, capacity=None) -> tuple:
+                   s: int = SERVE_PROMPT, n_new: int = SERVE_NEW, capacity=None,
+                   per_generate=None) -> tuple:
     """One timed ``generate`` at B = 4, a 2048-token prompt and 32 new
     tokens (or the shapes given), with ``op`` (the path's kernel wrapper)
-    launched once per layer; then a profiled prefill and a profiled window
-    of decode steps.  Returns the launches of that ``generate``, where
-    ``op`` has more than one kernel its launches by kernel, and a prefill's
-    decode cache."""
+    launched once per layer (or ``per_generate`` times); then a profiled
+    prefill and a profiled window of decode steps.  Returns the launches of
+    that ``generate``, where ``op`` has more than one kernel its launches
+    by kernel, and a prefill's decode cache."""
     from repro_torch.serving.engine import ServeEngine
 
     engine = ServeEngine(cfg=cfg, params=params, capacity=capacity or s + n_new,
@@ -1105,8 +1180,8 @@ def phase_generate(cfg, params, dev, op, tag: str, b: int = SERVE_BATCH,
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
     launches, by_kernel = op.launches, dict(by_kernel)
-    check(launches == cfg.n_layers, f"one generate launched {name} {launches} "
-          f"times, want one per layer ({cfg.n_layers})")
+    want = cfg.n_layers if per_generate is None else per_generate
+    check(launches == want, f"one generate launched {name} {launches} times, want {want}")
     check(tuple(toks.shape) == (b, n_new) and int(toks.min()) >= 0
           and int(toks.max()) < cfg.vocab_size, f"bad tokens {tuple(toks.shape)}")
     batch = {"tokens": prompts}
@@ -1149,10 +1224,12 @@ def phase_generate(cfg, params, dev, op, tag: str, b: int = SERVE_BATCH,
     return launches, by_kernel, cache
 
 
-def phase_float32_cuda_vs_cpu(cfg, params, dev, tag: str, s: int = 128) -> None:
+def phase_float32_cuda_vs_cpu(cfg, params, dev, tag: str, s: int = 128,
+                              extra=None, atol: float = F32_LOGIT_ATOL) -> None:
     """The same full-width weights in float32, card vs CPU, in lockstep:
-    the CPU's token feeds both, logits agree within F32_LOGIT_ATOL at every
-    step, tokens are equal unless the CPU's top-two gap is below it."""
+    the CPU's token feeds both, logits agree within ``atol`` at every
+    step, tokens are equal unless the CPU's top-two gap is below it.
+    ``extra`` (CPU tensors, e.g. ``patches``) joins the prefill's batch."""
     from repro_torch.models import common
     from repro_torch.serving.engine import ServeEngine, greedy_sample
 
@@ -1164,20 +1241,22 @@ def phase_float32_cuda_vs_cpu(cfg, params, dev, tag: str, s: int = 128) -> None:
                for d in (dev, torch.device("cpu"))}
     prompts = torch.randint(0, cfg.vocab_size, (1, s),
                             generator=torch.Generator().manual_seed(2))
-    out = {d: e._prefill(e._params, {"tokens": prompts.to(d)}) for d, e in engines.items()}
+    out = {d: e._prefill(e._params, dict({k: t.to(d) for k, t in (extra or {}).items()},
+                                         tokens=prompts.to(d)))
+           for d, e in engines.items()}
     worst, flips, toks = 0.0, 0, []
     with torch.inference_mode():
         for step in range(n_tok):
             lg, lc = out[dev][0].cpu(), out[torch.device("cpu")][0]
             diff = (lg - lc).abs().max().item()
             worst = max(worst, diff)
-            check(diff <= F32_LOGIT_ATOL, f"float32 step {step}: logits cuda vs cpu "
-                  f"max|Δ| {diff} > {F32_LOGIT_ATOL}")
+            check(diff <= atol, f"float32 step {step}: logits cuda vs cpu "
+                  f"max|Δ| {diff} > {atol}")
             tc, tg = greedy_sample(lc), greedy_sample(lg)
             top2 = lc.topk(2, dim=-1).values
             gap = (top2[:, 0] - top2[:, 1]).min().item()
             if not torch.equal(tc, tg):
-                check(gap <= F32_LOGIT_ATOL, f"float32 step {step}: tokens differ with "
+                check(gap <= atol, f"float32 step {step}: tokens differ with "
                       f"a top-two gap of {gap}")
                 flips += 1
             toks.append(int(tc[0]))
@@ -1189,7 +1268,7 @@ def phase_float32_cuda_vs_cpu(cfg, params, dev, tag: str, s: int = 128) -> None:
                 out[d] = e._decode_step(e._params, cache, tc.to(d)[:, None], pos)
     print(f"{tag} float32 full width, {cfg.n_layers} layers, B=1 S={s}, {n_tok} tokens, "
           f"cuda vs cpu: logits "
-          f"max|Δ| {worst:.3g} (tol {F32_LOGIT_ATOL}), token flips {flips}, tokens {toks}; "
+          f"max|Δ| {worst:.3g} (tol {atol}), token flips {flips}, tokens {toks}; "
           f"{time.perf_counter() - t0:.2f} s")
 
 
@@ -2279,54 +2358,63 @@ def _plain_attention(q, k, v, heads: int = 16, **kw) -> torch.Tensor:
     return out
 
 
-def _moe_flash_times(dev) -> dict:
-    """The tensor-core kernel at the MoE models' prefill layers, bf16: its
-    time beside the plain version's, its bound and
-    ``scaled_dot_product_attention``'s (each held to the plain version
-    first).  The plain version runs a batch row and 16 heads at a time
-    (``_plain_attention``).  deepseek's MLA call is the padded one the
-    model makes (q, k from 192 and v from 128 columns to 256, scale
-    1/sqrt(192)); its plain version, its SDPA call (which takes Dv != Dqk)
-    and its bound are of the unpadded function."""
+def _padded_flash_times(shapes: dict, seed: int, dev, tag: str) -> dict:
+    """The tensor-core kernel at models' prefill layers, bf16: its time on
+    q, k, v padded as the model pads them (``attention._padded_flash``: zero
+    columns to the next tensor-core head_dim; MLA's q, k of 192 and v of 128
+    to 256, heads of 80 to 128, at their unpadded scale), and the model's
+    whole call with its copies, beside the plain version,
+    ``scaled_dot_product_attention`` and the bound, all three of the
+    unpadded function (the bound on its useful work); the plain version
+    runs a batch row and 16 heads at a time (``_plain_attention``), and the
+    kernel and SDPA are each held to it first."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import attention as attn_mod
 
-    gen = torch.Generator(device=dev).manual_seed(6)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     out = {}
-    for name, (b, s, kv, g, dqk, dv) in MOE_FLASH_SHAPES.items():
+    for name, (b, s, kv, g, dqk, dv, causal) in shapes.items():
         q = torch.randn(b, s, kv * g, dqk, generator=gen, device=dev).to(torch.bfloat16)
         k = torch.randn(b, s, kv, dqk, generator=gen, device=dev).to(torch.bfloat16)
         v = torch.randn(b, s, kv, dv, generator=gen, device=dev).to(torch.bfloat16)
         scale = dqk ** -0.5
-        hd = 256 if dqk > 128 else dqk
+        hd = attn_mod._flash_head_dim(max(dqk, dv))
         pq, pk, pv = (F.pad(t, (0, hd - t.shape[-1])) for t in (q, k, v))
-        fn = lambda: flash_attention(pq, pk, pv, causal=True, scale=scale)  # noqa: E731
-        got = fn()[..., :dv]
-        ref = _plain_attention(q, k, v, scale=scale)
+        kernel = lambda: flash_attention(pq, pk, pv, causal=causal, scale=scale)  # noqa: E731
+        model = lambda: attn_mod._padded_flash([q], [k], v, causal=causal,  # noqa: E731
+                                               scale=scale)
+        got = model()
+        ref = _plain_attention(q, k, v, causal=causal, scale=scale)
         err = (got.float() - ref).abs().max().item()
         check(err <= FLASH_TOL[torch.bfloat16], f"{name}: max|Δ| vs plain {err}")
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            qt, kt, vt, is_causal=True, scale=scale, enable_gqa=g > 1)
+            qt, kt, vt, is_causal=causal, scale=scale, enable_gqa=g > 1)
         lib_err = (sdpa().transpose(1, 2).float() - ref).abs().max().item()
         check(lib_err <= FLASH_TOL[torch.bfloat16], f"{name}: SDPA max|Δ| vs plain {lib_err}")
         del ref
         torch.cuda.empty_cache()
-        ms = device_time_ms(fn, 10)
+        ms = device_time_ms(kernel, 10)
+        model_ms = device_time_ms(model, 10) if hd != max(dqk, dv) else ms
         lib_ms = device_time_ms(sdpa, 10)
-        plain_ms = device_time_ms(lambda: _plain_attention(q, k, v, scale=scale), 3)
-        flops = _causal_flops(q, dv=dv)
-        bound_ms, bound_by = _flash_bound(q, k, v, got)
-        print(f"[moe] flash {name} q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)} "
-              f"bf16 causal{f', padded to D = {hd}' if hd != dqk else ''}: kernel {ms:.4f} ms "
+        plain_ms = device_time_ms(lambda: _plain_attention(q, k, v, causal=causal,
+                                                           scale=scale), 3)
+        flops = _attention_flops(q, causal, dv)
+        bound_ms, bound_by = _flash_bound(q, k, v, got, causal=causal)
+        pad = (f", padded to D = {hd} ({2 * hd / (dqk + dv):.2f}x the work; the model's call "
+               f"with its copies {model_ms:.4f} ms)" if hd != max(dqk, dv) else "")
+        print(f"{tag} flash {name} q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)} bf16 "
+              f"{'causal' if causal else 'non-causal'}{pad}: kernel {ms:.4f} ms "
               f"({flops / (ms * 1e-3) / 1e12:.2f} useful TFLOP/s, {ms / bound_ms:.2f}x its bound, "
               f"{ms / lib_ms:.2f}x scaled_dot_product_attention), plain {plain_ms:.4f} ms, "
               f"scaled_dot_product_attention {lib_ms:.4f} ms (max|Δ| vs plain {lib_err:.3g}), "
-              f"bound {bound_ms:.4f} ms ({bound_by}), max|Δ| vs plain {err:.3g}")
-        out[name] = {"shape": [b, s, kv, g, dqk, dv], "padded_head_dim": hd, "ms": ms,
-                     "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                     "library_ms": lib_ms, "max_abs_err": err}
+              f"bound {bound_ms:.4f} ms ({bound_by}, {flops / 1e9:.1f} GFLOP), max|Δ| vs plain "
+              f"{err:.3g}")
+        out[name] = {"shape": [b, s, kv, g, dqk, dv, causal], "padded_head_dim": hd, "ms": ms,
+                     "model_ms": model_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": lib_ms, "max_abs_err": err}
         del q, k, v, pq, pk, pv, got, qt, kt, vt
         torch.cuda.empty_cache()
     return out
@@ -2334,12 +2422,8 @@ def _moe_flash_times(dev) -> dict:
 
 def _moe_prefill_check(cfg, params, dev) -> list:
     """One bf16 prefill of the served model (B = 2, the 4096-token prompt of
-    ``generate``): every flash call against the plain version on the q, k,
-    v the model gave it (an MLA call also, cut to v_head_dim, against the
-    plain attention on the unpadded q, k, v), every call at the padded or
-    native head_dim the config gives; returns each MoE layer's
-    ``moe_dropped``."""
-    from repro_torch.models import attention as attn_mod
+    ``generate``): every flash call against the plain version
+    (``_model_flash_check``); returns each MoE layer's ``moe_dropped``."""
     from repro_torch.models import moe as moe_mod
     from repro_torch.serving.engine import ServeEngine
 
@@ -2347,48 +2431,19 @@ def _moe_prefill_check(cfg, params, dev) -> list:
                          device=dev)
     prompts = torch.randint(0, cfg.vocab_size, (MOE_BATCH, MOE_PROMPT), device=dev,
                             generator=torch.Generator(device=dev).manual_seed(1))
-    a = cfg.attention
-    mla = a.kind == "mla"
-    want_d = attn_mod._flash_head_dim(a.qk_nope_dim + a.qk_rope_dim) if mla else a.head_dim
-    real_flash, real_moe = attn_mod.flash_attention, moe_mod.moe_apply
-    errs, unpadded, dims, dropped = [], [], [], []
-
-    def held(q, k, v, **kw):
-        out = real_flash(q, k, v, **kw)
-        dims.append(q.shape[-1])
-        errs.append((out.float() - _plain_attention(q, k, v, **kw)).abs().max().item())
-        if mla:
-            qk = a.qk_nope_dim + a.qk_rope_dim
-            ref = _plain_attention(q[..., :qk], k[..., :qk], v[..., :a.v_head_dim], **kw)
-            unpadded.append((out[..., :a.v_head_dim].float() - ref).abs().max().item())
-        return out
+    real, dropped = moe_mod.moe_apply, []
 
     def watched(*args):
-        y, aux = real_moe(*args)
+        y, aux = real(*args)
         dropped.append(aux["moe_dropped"].item())
         return y, aux
 
-    attn_mod.flash_attention, moe_mod.moe_apply = held, watched
+    moe_mod.moe_apply = watched
     try:
-        with torch.inference_mode():
-            engine._prefill(engine._params, {"tokens": prompts})
+        _model_flash_check(cfg, lambda: engine._prefill(engine._params, {"tokens": prompts}),
+                           cfg.n_layers, "[moe]")
     finally:
-        attn_mod.flash_attention, moe_mod.moe_apply = real_flash, real_moe
-    tol = FLASH_TOL[torch.bfloat16]
-    check(len(errs) == cfg.n_layers and set(dims) == {want_d},
-          f"{cfg.name}: flash calls at head_dims {dims}, want {cfg.n_layers} at {want_d}")
-    check(max(errs) <= tol, f"{cfg.name}: the kernel at the model's inputs, max|Δ| vs plain "
-          f"by layer {errs}")
-    note = ""
-    if mla:
-        check(max(unpadded) <= tol, f"{cfg.name}: the padded call vs the unpadded plain "
-              f"attention, max|Δ| by layer {unpadded}")
-        note = (f"; cut to {a.v_head_dim} columns vs the plain attention on the unpadded "
-                f"q, k ({a.qk_nope_dim + a.qk_rope_dim}) and v ({a.v_head_dim}): max|Δ| "
-                f"{max(unpadded):.3g}")
-    print(f"[moe] {cfg.name} bf16 prefill, every layer's flash call (D = {want_d}) vs the "
-          f"plain version on the model's q, k, v: max|Δ| {max(errs):.3g} (tol {tol}, layers "
-          f"{min(errs):.3g}-{max(errs):.3g}){note}")
+        moe_mod.moe_apply = real
     n_moe = cfg.n_layers - cfg.moe.first_dense_layers
     check(len(dropped) == n_moe, f"{len(dropped)} MoE calls in a prefill, want {n_moe}")
     print(f"[moe] {cfg.name} prefill moe_dropped by MoE layer: "
@@ -2532,7 +2587,7 @@ def phase_moe_serving(dev) -> tuple:
               f"{time.perf_counter() - t0:.2f} s, flash_attention launches {fa}, grid_argmin "
               f"launches {ga}")
         check(fa > 0 and ga > 0, "the serving launcher launched no flash_attention or grid_argmin")
-    times = _moe_flash_times(dev)
+    times = _padded_flash_times(MOE_FLASH_SHAPES, 6, dev, "[moe]")
 
     out = {}
     for arch, n_layers in MOE_LAYERS.items():
@@ -2595,6 +2650,388 @@ def phase_moe_serving(dev) -> tuple:
     return out, times
 
 
+def _model_flash_check(cfg, run, n_calls: int, tag: str) -> None:
+    """Every flash call of one bf16 prefill or forward (``run()``) against
+    the plain version on the q, k, v the model gave it, and, where the model
+    padded them (MLA's 192 / 128, heads of 80), cut back against the plain
+    version on the unpadded tensors; ``n_calls`` calls, each at the padded
+    head_dim and with the config's causality."""
+    from repro_torch.models import attention as attn_mod
+
+    a = cfg.attention
+    dqk, dv = ((a.qk_nope_dim + a.qk_rope_dim, a.v_head_dim) if a.kind == "mla"
+               else (a.head_dim, a.head_dim))
+    real, errs, unpadded, calls = attn_mod.flash_attention, [], [], []
+
+    def held(q, k, v, **kw):
+        out = real(q, k, v, **kw)
+        calls.append((q.shape[-1], kw["causal"]))
+        errs.append((out.float() - _plain_attention(q, k, v, **kw)).abs().max().item())
+        if q.shape[-1] != dqk or v.shape[-1] != dv:
+            ref = _plain_attention(q[..., :dqk], k[..., :dqk], v[..., :dv], **kw)
+            unpadded.append((out[..., :dv].float() - ref).abs().max().item())
+        return out
+
+    attn_mod.flash_attention = held
+    try:
+        with torch.inference_mode():
+            run()
+    finally:
+        attn_mod.flash_attention = real
+    tol = FLASH_TOL[torch.bfloat16]
+    want = (attn_mod._flash_head_dim(max(dqk, dv)), cfg.causal)
+    check(len(calls) == n_calls and set(calls) == {want},
+          f"{cfg.name}: flash calls {sorted(set(calls))} x{len(calls)}, want {n_calls} of {want}")
+    check(max(errs) <= tol, f"{cfg.name}: the kernel at the model's inputs, max|Δ| vs plain "
+          f"by call {errs}")
+    note = ""
+    if unpadded:
+        check(max(unpadded) <= tol, f"{cfg.name}: the padded call vs the unpadded plain "
+              f"attention, max|Δ| by call {unpadded}")
+        note = (f"; cut to {dv} columns vs the plain version on the unpadded q, k ({dqk}) and "
+                f"v ({dv}): {max(unpadded):.3g}")
+    print(f"{tag} {cfg.name} bf16, every flash call ({n_calls}, D = {want[0]}, "
+          f"{'causal' if cfg.causal else 'non-causal'}) vs the plain version on the model's q, "
+          f"k, v: max|Δ| {max(errs):.3g} (tol {tol}, calls {min(errs):.3g}-{max(errs):.3g}){note}")
+
+
+def _ssd_share(engine, batch, prefill_s: float) -> None:
+    """Device time of the 54 ``_ssd_matmul_scan`` calls of one prefill
+    (``torch.profiler``, each call inside a ``record_function`` range)
+    beside the prefill's device busy time."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.models import ssm as ssm_mod
+
+    real = ssm_mod._ssd_matmul_scan
+
+    def ranged(*args):
+        with record_function("ssd_matmul_scan"):
+            return real(*args)
+
+    ssm_mod._ssd_matmul_scan = ranged
+    try:
+        torch.cuda.synchronize()
+        with torch.inference_mode(), profile(
+                activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            engine._prefill(engine._params, batch)
+            torch.cuda.synchronize()
+    finally:
+        ssm_mod._ssd_matmul_scan = real
+    events, cuda = prof.events(), torch.autograd.DeviceType.CUDA
+    # the ranges also appear on the device's timeline as annotations: not kernels
+    busy = sum(e.time_range.elapsed_us() for e in events
+               if e.device_type == cuda and e.name != "ssd_matmul_scan")
+    ssd = [e for e in events if e.name == "ssd_matmul_scan" and e.device_type != cuda]
+    ssd_us = sum(e.device_time_total for e in ssd)
+    if not busy or not ssd_us:
+        print(f"[hybrid] zamba2 SSD share of prefill: not measured (the profiler saw "
+              f"{busy:.0f} us of device work, {len(ssd)} SSD ranges with {ssd_us:.0f} us)")
+        return
+    print(f"[hybrid] zamba2 prefill profile: {len(ssd)} SSD calls, {ssd_us / 1e3:.2f} ms of "
+          f"device time = {ssd_us / busy:.1%} of {busy / 1e3:.2f} ms busy "
+          f"({busy / 1e3 / (prefill_s * 1e3):.1%} of the unprofiled {prefill_s * 1e3:.2f} ms "
+          f"prefill)")
+
+
+def _float32_forward_cuda_vs_cpu(cfg, params, batch, dev, tag: str) -> None:
+    """One float32 forward of the same weights on ``batch`` (CPU tensors),
+    card vs CPU: logits within F32_LOGIT_ATOL."""
+    from repro_torch.models import common, transformer
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    t0 = time.perf_counter()
+    logits = {}
+    with torch.inference_mode():
+        for d in (dev, torch.device("cpu")):
+            tree = common.tree_map(lambda t: t.to(d), params)
+            logits[d.type], _, _ = transformer.forward(tree, cfg32,
+                                                       {k: t.to(d) for k, t in batch.items()})
+    diff = (logits[dev.type].cpu() - logits["cpu"]).abs().max().item()
+    check(diff <= F32_LOGIT_ATOL, f"{cfg.name} float32 forward cuda vs cpu: max|Δ| {diff}")
+    shapes = ", ".join(f"{k} {tuple(t.shape)}" for k, t in batch.items())
+    print(f"{tag} {cfg.name} float32, {cfg.n_layers} layers, {shapes}, cuda vs cpu: logits "
+          f"max|Δ| {diff:.3g} (tol {F32_LOGIT_ATOL}); {time.perf_counter() - t0:.2f} s")
+
+
+def _first_layers(cfg, params, n_layers: int):
+    """The config cut to its first ``n_layers`` and copies of those layers'
+    weights (the rest can then go)."""
+    from repro_torch.models import common, transformer
+
+    period = transformer.period_of(cfg)
+    cut = dataclasses.replace(cfg, n_layers=n_layers)
+    few = dict(params, slots=[common.tree_map(lambda t: t[:n_layers // period].clone(), sl)
+                              for sl in params["slots"]], rem=[])
+    return cut, few
+
+
+def _draw(cfg, dev, tag: str):
+    from repro_torch.models import common, transformer
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = common.init_params(torch.Generator(device=dev).manual_seed(0),
+                                transformer.model_layout(cfg))
+    torch.cuda.synchronize()
+    n = sum(t.numel() for _, t in common.tree_leaves(params))
+    a = cfg.attention
+    print(f"{tag} {cfg.name} full width: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{a.n_heads}/{a.n_kv_heads} heads of {a.head_dim}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}: {n} float32 parameters ({4 * n} bytes) drawn in "
+          f"{time.perf_counter() - t0:.2f} s")
+    return params, n
+
+
+def _zamba2_cell(dev) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention, ops
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import common, transformer
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.serving.engine import ServeEngine
+
+    cfg = get_config("zamba2-2.7b")
+    params, n = _draw(cfg, dev, "[hybrid]")
+    check(n == 2_422_907_840, f"zamba2 holds {n} parameters")
+    s = cfg.ssm
+    print(f"[hybrid] zamba2: {cfg.n_layers} Mamba-2 layers (d_inner {s.d_inner(cfg.d_model)}, "
+          f"{s.n_heads(cfg.d_model)} heads of {s.head_dim}, d_state {s.d_state}, chunk "
+          f"{s.chunk}) and the shared block after each {cfg.shared_attn_every}: "
+          f"{transformer.scanned_layers(cfg)[1]} shared calls a forward")
+    n_shared = cfg.n_layers // cfg.shared_attn_every
+    dims, real = [], attn_mod.flash_attention
+
+    def spy(q, *args, **kw):
+        dims.append(q.shape[-1])
+        return real(q, *args, **kw)
+
+    attn_mod.flash_attention = spy
+    try:
+        launches, by_kernel, cache = phase_generate(
+            cfg, params, dev, flash_attention, "[hybrid]", b=HYBRID_BATCH, s=HYBRID_PROMPT,
+            n_new=HYBRID_NEW, per_generate=n_shared)
+    finally:
+        attn_mod.flash_attention = real
+    want = {ops.TENSOR_CORE: n_shared, ops.CUDA_CORE: 0}
+    check(by_kernel == want, f"one bf16 generate launched {by_kernel}, want {want}")
+    hd = attn_mod._flash_head_dim(cfg.attention.head_dim)
+    check(set(dims) == {hd}, f"flash head_dims {sorted(set(dims))}, want {hd}")
+    layout = dict(common.tree_leaves(transformer.cache_layout(
+        cfg, HYBRID_BATCH, HYBRID_PROMPT + HYBRID_NEW)))
+    leaves = dict(common.tree_leaves(cache))
+    check({p: tuple(t.shape) for p, t in leaves.items()} == {p: d.shape for p, d in layout.items()},
+          "the decode cache is not the layout's")
+    print(f"[hybrid] zamba2 flash launches per generate: {by_kernel} at D = {hd} (heads of "
+          f"{cfg.attention.head_dim}); decode cache: shared k {tuple(cache['shared']['k'].shape)}, Mamba-2 state "
+          f"{tuple(cache['slots'][0]['h'].shape)} {cache['slots'][0]['h'].dtype}, "
+          f"{sum(t.numel() * t.element_size() for t in leaves.values())} bytes; peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (float32 weights, the "
+          f"engine's bf16 copy, activations)")
+    del cache
+    engine = ServeEngine(cfg=cfg, params=params, capacity=HYBRID_PROMPT + HYBRID_NEW,
+                         batch_size=HYBRID_BATCH, device=dev)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (HYBRID_BATCH, HYBRID_PROMPT),
+                                     device=dev,
+                                     generator=torch.Generator(device=dev).manual_seed(1))}
+    with torch.inference_mode():
+        prefill_s = _median_s(lambda: engine._prefill(engine._params, batch), 3)
+    _ssd_share(engine, batch, prefill_s)
+    _model_flash_check(cfg, lambda: engine._prefill(engine._params, batch), n_shared,
+                       "[hybrid]")
+    del engine
+    torch.cuda.empty_cache()
+
+    layers, prompt = HYBRID_F32[cfg.name]
+    cut, few = _first_layers(cfg, params, layers)
+    del params
+    torch.cuda.empty_cache()
+    # The SSD rounds its Gram matrix, M and δ·x to bf16 in a float32 model too (the
+    # reference does): where the card's and the CPU's fp32 sums differ by an ulp, a value
+    # at a bf16 rounding midpoint rounds the other way, by 2^-8 of itself.  So the float32
+    # function is held at F32_LOGIT_ATOL with those roundings taken out on both devices,
+    # and as it is at the bf16 tolerance.
+    for label, rounding, atol in (("without the SSD's bf16 roundings", False, F32_LOGIT_ATOL),
+                                  ("with them", True, FLASH_TOL[torch.bfloat16])):
+        flash_attention.kernel_launches.update(dict.fromkeys(flash_attention.kernel_launches, 0))
+        kept = ssm_mod._bf16
+        if not rounding:
+            ssm_mod._bf16 = lambda t: t  # noqa: E731
+        try:
+            phase_float32_cuda_vs_cpu(cut, few, dev, "[hybrid]", s=prompt, atol=atol)
+        finally:
+            ssm_mod._bf16 = kept
+        f32 = dict(flash_attention.kernel_launches)
+        check(f32 == {ops.CUDA_CORE: 1, ops.TENSOR_CORE: 0}, f"the float32 check launched "
+              f"{f32}, want the shared block's 1 on the CUDA-core kernel")
+        print(f"[hybrid] zamba2 float32 check {label}: the first period ({layers} Mamba-2 "
+              f"layers and the shared block), prompt {prompt}; flash launches {f32}")
+    return {"tensor_core": by_kernel[ops.TENSOR_CORE], "head_dim": hd, "layers": cfg.n_layers}
+
+
+def _internvl2_cell(dev) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention, ops
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.serving.engine import ServeEngine
+
+    cfg = get_config("internvl2-1b")
+    params, n = _draw(cfg, dev, "[hybrid]")
+    check(n == 495_640_192, f"internvl2 holds {n} parameters")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (HYBRID_BATCH, HYBRID_PROMPT), device=dev,
+                           generator=gen)
+    patches = torch.randn(HYBRID_BATCH, HYBRID_PATCHES, cfg.frontend_dim, device=dev,
+                          generator=gen)
+    engine = ServeEngine(cfg=cfg, params=params, capacity=HYBRID_PROMPT + HYBRID_NEW,
+                         batch_size=HYBRID_BATCH, device=dev)
+    batch = {"tokens": tokens, "patches": patches}
+    with torch.inference_mode():
+        prefill_s = _median_s(lambda: engine._prefill(engine._params, batch), 3)
+        with_p, _ = engine._prefill(engine._params, batch)
+        without, _ = engine._prefill(engine._params, {"tokens": tokens})
+    moved = (with_p.float() - without.float()).abs().max().item()
+    check(bool(torch.isfinite(with_p[:, :cfg.vocab_size]).all()) and moved > 0,
+          f"internvl2 prefill with patches: logits moved by {moved}")
+    print(f"[hybrid] internvl2 prefill with {HYBRID_PATCHES} patch positions (frontend_dim "
+          f"{cfg.frontend_dim}) B={HYBRID_BATCH} prompt={HYBRID_PROMPT} (bf16): "
+          f"{prefill_s * 1e3:.2f} ms (median of 3); the patches move the last logits by up to "
+          f"{moved:.3g}")
+    _model_flash_check(cfg, lambda: engine._prefill(engine._params, batch), cfg.n_layers,
+                       "[hybrid]")
+    del engine
+    torch.cuda.empty_cache()
+    dims, real = [], attn_mod.flash_attention
+
+    def spy(q, *args, **kw):
+        dims.append(q.shape[-1])
+        return real(q, *args, **kw)
+
+    attn_mod.flash_attention = spy
+    try:
+        launches, by_kernel, cache = phase_generate(
+            cfg, params, dev, flash_attention, "[hybrid]", b=HYBRID_BATCH, s=HYBRID_PROMPT,
+            n_new=HYBRID_NEW)
+    finally:
+        attn_mod.flash_attention = real
+    del cache
+    want = {ops.TENSOR_CORE: cfg.n_layers, ops.CUDA_CORE: 0}
+    check(by_kernel == want, f"one bf16 generate launched {by_kernel}, want {want}")
+    hd, a = attn_mod._flash_head_dim(cfg.attention.head_dim), cfg.attention
+    check(set(dims) == {hd}, f"flash head_dims {sorted(set(dims))}, want {hd}")
+    print(f"[hybrid] internvl2 flash launches per generate: {by_kernel} at D = {hd}, G = "
+          f"{a.n_heads // a.n_kv_heads}; peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    layers, prompt = HYBRID_F32[cfg.name]
+    cut, few = _first_layers(cfg, params, layers)
+    del params
+    flash_attention.kernel_launches.update(dict.fromkeys(flash_attention.kernel_launches, 0))
+    phase_float32_cuda_vs_cpu(cut, few, dev, "[hybrid]", s=prompt,
+                              extra={"patches": patches[:1].cpu()})
+    f32 = dict(flash_attention.kernel_launches)
+    check(f32 == {ops.CUDA_CORE: layers, ops.TENSOR_CORE: 0},
+          f"the float32 check launched {f32}, want {layers} on the CUDA-core kernel")
+    print(f"[hybrid] internvl2 float32 check: {layers} layers, prompt {prompt} with "
+          f"{HYBRID_PATCHES} patch positions; flash launches {f32}")
+    return {"tensor_core": by_kernel[ops.TENSOR_CORE], "head_dim": hd, "layers": cfg.n_layers}
+
+
+def _hubert_cell(dev) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention, ops
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import transformer
+    from repro_torch.serving.engine import _serving_copy
+
+    cfg = get_config("hubert-xlarge")
+    params, n = _draw(cfg, dev, "[hybrid]")
+    check(n == 1_260_382_720, f"hubert holds {n} parameters")
+    served = _serving_copy(params, torch.bfloat16, dev)
+    feats = torch.randn(HYBRID_BATCH, HYBRID_PROMPT, cfg.frontend_dim, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(1))
+
+    def run():
+        return transformer.forward(served, cfg, {"features": feats})[0]
+
+    with torch.inference_mode():
+        run()                                             # warm
+        flash_attention.launches = 0
+        flash_attention.kernel_launches.update(dict.fromkeys(flash_attention.kernel_launches, 0))
+        logits = run()
+        torch.cuda.synchronize()
+        by_kernel, total = dict(flash_attention.kernel_launches), flash_attention.launches
+        fwd_s = _median_s(run, 3)
+    want = {ops.TENSOR_CORE: cfg.n_layers, ops.CUDA_CORE: 0}
+    check(by_kernel == want and total == cfg.n_layers,
+          f"one hubert forward launched {by_kernel}, want {want}")
+    check(tuple(logits.shape) == (HYBRID_BATCH, HYBRID_PROMPT, cfg.padded_vocab)
+          and bool(torch.isfinite(logits[..., :cfg.vocab_size]).all()), "bad hubert logits")
+    frames = HYBRID_BATCH * HYBRID_PROMPT
+    print(f"[hybrid] hubert transformer.forward on features B={HYBRID_BATCH} S={HYBRID_PROMPT} "
+          f"(bf16, {cfg.n_layers} layers): {fwd_s * 1e3:.2f} ms (median of 3), "
+          f"{frames / fwd_s:.0f} frames/s; flash launches {by_kernel}, non-causal at D = "
+          f"{attn_mod._flash_head_dim(cfg.attention.head_dim)}; "
+          f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    with torch.inference_mode():
+        pre = _device_kernels(run)
+    if pre:
+        busy = sum(e.time_range.elapsed_us() for e in pre)
+        mine = sum(e.time_range.elapsed_us() for e in pre if "flash_attention" in e.name)
+        print(f"[hybrid] hubert forward profile: {len(pre)} device kernels, {busy / 1e3:.2f} ms "
+              f"busy; flash_attention {mine / 1e3:.2f} ms = {mine / busy:.1%}; top: "
+              f"{_top_kernels(pre, 1)}")
+    _model_flash_check(cfg, run, cfg.n_layers, "[hybrid]")
+    del served, logits
+    torch.cuda.empty_cache()
+
+    layers, prompt = HYBRID_F32[cfg.name]
+    cut, few = _first_layers(cfg, params, layers)
+    del params
+    flash_attention.kernel_launches.update(dict.fromkeys(flash_attention.kernel_launches, 0))
+    _float32_forward_cuda_vs_cpu(cut, few, {"features": feats[:1, :prompt].float().cpu()}, dev,
+                                 "[hybrid]")
+    f32 = dict(flash_attention.kernel_launches)
+    check(f32 == {ops.CUDA_CORE: layers, ops.TENSOR_CORE: 0},
+          f"the float32 check launched {f32}, want {layers} on the CUDA-core kernel")
+    return {"tensor_core": by_kernel[ops.TENSOR_CORE],
+            "head_dim": attn_mod._flash_head_dim(cfg.attention.head_dim), "layers": cfg.n_layers,
+            "causal": False}
+
+
+def phase_hybrid_serving(dev) -> tuple:
+    """The hybrid and frontend families; returns, per model, the flash
+    launches of one bf16 ``generate`` (hubert: one forward) with their
+    head_dim, and the tensor-core kernel's times at the three prefill layers."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.grid_argmin import grid_argmin
+    from repro_torch.launch import serve
+
+    torch.cuda.empty_cache()
+    # 17a. the serving launcher, REDUCED; the encoder-only arch refused
+    for arch in ("zamba2-2.7b", "internvl2-1b"):
+        flash_attention.launches = grid_argmin.launches = 0
+        t0 = time.perf_counter()
+        check(serve.main(["--arch", arch, "--device", "cuda"]) == 0, "serve.main failed")
+        torch.cuda.synchronize()
+        fa, ga = flash_attention.launches, grid_argmin.launches
+        print(f"[hybrid] launch.serve --arch {arch} --device cuda (REDUCED): "
+              f"{time.perf_counter() - t0:.2f} s, flash_attention launches {fa}, grid_argmin "
+              f"launches {ga}")
+        check(fa > 0 and ga > 0, "the serving launcher launched no flash_attention or grid_argmin")
+    try:
+        serve.main(["--arch", "hubert-xlarge", "--device", "cuda"])
+        raise AssertionError("launch.serve served the encoder-only hubert-xlarge")
+    except SystemExit as e:
+        check("encoder-only arch has no decode step" in str(e), f"hubert refused with: {e}")
+        print(f"[hybrid] launch.serve --arch hubert-xlarge refuses: {e}")
+    times = _padded_flash_times(HYBRID_FLASH_SHAPES, 7, dev, "[hybrid]")
+    out = {"zamba2-2.7b": _zamba2_cell(dev), "internvl2-1b": _internvl2_cell(dev),
+           "hubert-xlarge": _hubert_cell(dev)}
+    return out, times
+
+
 def _timed(label: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -2628,6 +3065,8 @@ def main() -> int:
     flash[0]["launches_gemma"] = _timed("15 local:global serving", phase_gemma_serving, dev)
     flash[0]["launches_moe"], flash[0]["moe_shapes"] = _timed("16 MoE serving",
                                                               phase_moe_serving, dev)
+    flash[0]["launches_hybrid"], flash[0]["hybrid_shapes"] = _timed(
+        "17 hybrid and frontends serving", phase_hybrid_serving, dev)
     records = [argmin, *flash, scan]
     print(f"[time] all phases: {time.perf_counter() - t0:.2f} s")
     print("kernels: " + ", ".join(r["name"] for r in records))

@@ -1,9 +1,8 @@
 """Architecture registry of the port: ``--arch <id>`` resolution.
 
-Only the architectures whose every layer the port can run are registered;
-the JAX package's other four (``repro.configs.ARCH_NAMES``: Mamba-2 /
-hybrid, the two frontends and llama3-405b, ROADMAP A12) raise a
-``KeyError`` that says they are not ported yet.
+Nine of the JAX package's ten architectures are registered; llama3-405b
+(dense, ROADMAP A12c) raises a ``KeyError`` that says it is not ported
+yet.
 """
 
 from __future__ import annotations
@@ -11,7 +10,8 @@ from __future__ import annotations
 from typing import Dict, List
 
 from repro_torch.configs import (deepseek_v2_236b, falcon_mamba_7b, gemma2_2b, gemma3_27b,
-                                 llama3_2_1b, qwen3_moe_235b_a22b)
+                                 hubert_xlarge, internvl2_1b, llama3_2_1b,
+                                 qwen3_moe_235b_a22b, zamba2_2_7b)
 from repro_torch.configs.base import (SHAPES, AttentionConfig, ModelConfig,
                                       MoEConfig, OptimizerConfig, ShapeConfig,
                                       SSMConfig, TrainConfig, count_params,
@@ -24,12 +24,15 @@ _MODULES = {
     "gemma3-27b": gemma3_27b,
     "qwen3-moe-235b-a22b": qwen3_moe_235b_a22b,
     "deepseek-v2-236b": deepseek_v2_236b,
+    "zamba2-2.7b": zamba2_2_7b,
+    "internvl2-1b": internvl2_1b,
+    "hubert-xlarge": hubert_xlarge,
 }
 
 ARCH_NAMES: List[str] = list(_MODULES)
 
 #: Architectures of the JAX package that the port cannot run yet.
-NOT_PORTED = ("llama3-405b", "internvl2-1b", "zamba2-2.7b", "hubert-xlarge")
+NOT_PORTED = ("llama3-405b",)
 
 
 def get_config(name: str, reduced: bool = False) -> ModelConfig:

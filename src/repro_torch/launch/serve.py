@@ -6,14 +6,17 @@ Usage (from the repository root):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b --no-reduced
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b --no-reduced
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-235b-a22b --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b --no-reduced
 
 Generates tokens with a real model (``--arch``, one of
 ``configs.ARCH_NAMES``; ``--reduced``, the default, or the full-width
 ``--no-reduced``) whose weights come from a seeded generator (the MoE
 models at full depth, 235 B and 236 B parameters, do not fit one card:
 run them REDUCED), then runs the §V controller over a bursty trace and
-reports the power gain vs an uncontrolled fleet and the QoS stats.  The flags are those of
-``repro.launch.serve`` plus ``--device``.
+reports the power gain vs an uncontrolled fleet and the QoS stats.  An
+encoder-only arch (hubert-xlarge) has no decode step and is refused before
+any weights are drawn.  The flags are those of ``repro.launch.serve`` plus
+``--device``.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ from typing import Optional, Sequence
 
 import torch
 
-from repro_torch.configs import get_config
+from repro_torch.configs import SHAPES, get_config, shape_applicable
 from repro_torch.core import workload as wl
 from repro_torch.device import resolve_device
 from repro_torch.models import common, transformer
@@ -47,6 +50,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
 
     dev = resolve_device(args.device)
     cfg = get_config(args.arch, reduced=args.reduced)
+    ok, why = shape_applicable(cfg, SHAPES["decode_32k"])
+    if not ok:
+        raise SystemExit(f"launch.serve: --arch {args.arch}: {why}")
     layout = transformer.model_layout(cfg)
     params = common.init_params(torch.Generator(device=dev).manual_seed(0), layout)
     engine = ServeEngine(cfg=cfg, params=params,

@@ -1,5 +1,6 @@
-"""Model zoo of the port: the dense and MoE families (GQA or MLA attention)
-and Mamba-1 (``repro.models`` in PyTorch).
+"""Model zoo of the port: the dense and MoE families (GQA or MLA attention),
+Mamba-1, the Mamba-2 hybrid with its shared attention block, and the VLM
+and audio frontends (``repro.models`` in PyTorch).
 
 Public API:
   transformer.model_layout(cfg)      → ParamDef tree (shapes + logical axes)

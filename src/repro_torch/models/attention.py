@@ -4,16 +4,18 @@ decode); port of ``repro.models.attention``.
 
 Two compute paths for each kind:
 
-* prefill — ``kernels.flash_attention``.  GQA passes the un-repeated k,
-  v: GQA is folded into the kernel (query head ``h`` reads KV head
-  ``h // G``), the causal / window band skips whole KV tiles, and the
-  online softmax keeps p in fp32 as the Pallas kernel does.  MLA
-  decompresses per-head k, v and pads q, k (``qk_nope + qk_rope``) and v
-  (``v_head_dim``) with zero columns to one head_dim the op routes
-  (``_flash_head_dim``: 192 and 128 → 256), with the scale of the
-  unpadded ``qk`` width; zero columns add exactly 0 to every score, and
-  the output is cut back to ``v_head_dim``.  On CPU tensors the op runs
-  its plain version.  (The JAX package's XLA twin ``full_attention``
+* prefill — ``kernels.flash_attention``, through ``_padded_flash``.  GQA
+  passes the un-repeated k, v: GQA is folded into the kernel (query head
+  ``h`` reads KV head ``h // G``), the causal / window band skips whole
+  KV tiles, and the online softmax keeps p in fp32 as the Pallas kernel
+  does.  MLA decompresses per-head k, v.  A head_dim that the
+  tensor-core kernel has no tile for is padded with zero columns to the
+  least one it has (``_flash_head_dim``: GQA's 80 → 128; MLA's q, k of
+  ``qk_nope + qk_rope`` = 192 and v of 128 → 256), with the scale of the
+  unpadded width; zero columns add exactly 0 to every score, and the
+  output is cut back to v's width.  The rule is the same on every device;
+  at a head_dim the kernel has, q, k and v reach the op as they are.  On
+  CPU tensors the op runs its plain version.  (The JAX package's XLA twin ``full_attention``
   rounds p to the activation dtype before p·v, so in bf16 the two agree
   to bf16 rounding, not bit for bit.)
 * decode — plain PyTorch as in the JAX package: ``decode_attention``,
@@ -201,6 +203,41 @@ def _prefill_gqa_cache(k: torch.Tensor, v: torch.Tensor, *, window: Optional[int
     return {"k": ck, "v": cv, "pos": cpos.repeat(b, 1)}
 
 
+def _flash_head_dim(d: int) -> int:
+    """The head_dim a prefill pads q, k and v to: the least of the
+    tensor-core kernel's ``TC_HEAD_DIMS`` that holds ``d`` (``d`` itself
+    past the largest; the op then raises on a CUDA tensor)."""
+    return next((t for t in ops.TC_HEAD_DIMS if t >= d), d)
+
+
+def _side_by_side(parts, width: int) -> torch.Tensor:
+    """The column blocks ``parts`` ([..., d_i], broadcast to the first's
+    shape) side by side, then zero columns up to ``width``.  One block
+    already ``width`` wide comes back as it is: no copy, so a strided view
+    (k, v as halves of one fused projection) reaches the op unchanged."""
+    if len(parts) == 1 and parts[0].shape[-1] == width:
+        return parts[0]
+    out = parts[0].new_zeros(parts[0].shape[:-1] + (width,))
+    col = 0
+    for t in parts:
+        out[..., col:col + t.shape[-1]] = t
+        col += t.shape[-1]
+    return out
+
+
+def _padded_flash(q_parts, k_parts, v: torch.Tensor, **kw) -> torch.Tensor:
+    """The flash op on q and k (given as lists of column blocks) and v,
+    each padded with zero columns to ``_flash_head_dim`` of the widest;
+    the output cut back to v's width.  The caller passes the scale of the
+    unpadded q·k width."""
+    dqk = sum(t.shape[-1] for t in q_parts)
+    dv = v.shape[-1]
+    hd = _flash_head_dim(max(dqk, dv))
+    o = flash_attention(_side_by_side(q_parts, hd), _side_by_side(k_parts, hd),
+                        _side_by_side([v], hd), **kw)
+    return o if dv == hd else o[..., :dv]
+
+
 def gqa_apply(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig, *,
               positions: torch.Tensor, is_local: bool,
               cache: Optional[Dict[str, torch.Tensor]] = None,
@@ -239,8 +276,8 @@ def gqa_apply(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig
     new_cache = None
     if cache is None:
         eff_window = window if (window is not None and window < s) else None
-        o = flash_attention(q, k, v, causal=cfg.causal, scale=scale,
-                            softcap=a.attn_softcap, window=eff_window)
+        o = _padded_flash([q], [k], v, causal=cfg.causal, scale=scale,
+                          softcap=a.attn_softcap, window=eff_window)
         if return_state:
             new_cache = _prefill_gqa_cache(k, v, window=window,
                                            capacity=cache_capacity or s)
@@ -283,13 +320,6 @@ def gqa_cache_layout(cfg: ModelConfig, batch: int, seq_len: int,
 # ---------------------------------------------------------------------------
 
 
-def _flash_head_dim(d: int) -> int:
-    """The head_dim an MLA prefill pads q, k and v to: the least of the
-    tensor-core kernel's ``TC_HEAD_DIMS`` that holds ``d`` (``d`` itself
-    past the largest; the op then raises on a CUDA tensor)."""
-    return next((t for t in ops.TC_HEAD_DIMS if t >= d), d)
-
-
 def mla_apply(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig, *,
               positions: torch.Tensor, is_local: bool = False,
               cache: Optional[Dict[str, torch.Tensor]] = None,
@@ -327,12 +357,8 @@ def mla_apply(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig
     if cache is None:
         k_nope = (c_kv @ params["wk_b"].to(dt).reshape(r, -1)).unflatten(-1, (a.n_heads, nope))
         v = (c_kv @ params["wv_b"].to(dt).reshape(r, -1)).unflatten(-1, (a.n_heads, a.v_head_dim))
-        hd = _flash_head_dim(max(qk_dim, a.v_head_dim))
-        qf, kf, vf = (x.new_zeros((b, s, a.n_heads, hd)) for _ in range(3))
-        qf[..., :nope], qf[..., nope:qk_dim] = q_nope, q_rope
-        kf[..., :nope], kf[..., nope:qk_dim] = k_nope, k_rope
-        vf[..., :a.v_head_dim] = v
-        o = flash_attention(qf, kf, vf, causal=cfg.causal, scale=scale)[..., :a.v_head_dim]
+        o = _padded_flash([q_nope, q_rope], [k_nope, k_rope], v, causal=cfg.causal,
+                          scale=scale)
         if return_state:
             cap_len = cache_capacity or s
             new_cache = {"c_kv": c_kv.new_zeros((b, cap_len, r)),

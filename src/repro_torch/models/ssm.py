@@ -1,15 +1,21 @@
-"""Selective state-space blocks, the Mamba-1 half (port of ``repro.models.ssm``).
+"""Selective state-space blocks, Mamba-1 and Mamba-2 (port of
+``repro.models.ssm``).
 
-The prefill recurrence ``h_t = exp(δ_t·A) ⊙ h_{t-1} + (δ_t·x_t) ⊗ B_t``
+Mamba-1: the prefill recurrence ``h_t = exp(δ_t·A) ⊙ h_{t-1} + (δ_t·x_t) ⊗ B_t``
 runs through the ``selective_scan`` op, where the JAX package runs the XLA
 ``chunked_scan``: the same function, evaluated sequentially in the op and
-associatively within chunks in XLA, so the two round differently.  Decode
-is one step of the recurrence in plain torch.  The cache is the state
-``h`` (fp32) plus a (d_conv-1)-deep conv tail in the activation dtype;
-decode writes both in place, into the caller's cache.
+associatively within chunks in XLA, so the two round differently.
 
-The Mamba-2 layouts are kept (pure shape code); ``mamba_apply`` raises
-``NotImplementedError`` for Mamba-2, which is not ported yet (ROADMAP A12).
+Mamba-2 (SSD, one scalar decay per head): the prefill is the JAX package's
+matmul form, ``_ssd_matmul_scan``, in plain torch (no Pallas kernel covers
+it): a loop over chunks carrying the state ``h [B, nh, p, n]``, each chunk
+an attention-like product with the decay-weighted Gram matrix.  B, C and δ
+are projected from the block's normed input, not from the conv output; the
+output passes ``rms_norm(y · silu(z), gate_norm)``.
+
+Decode is one step of the recurrence in plain torch for both.  The cache
+is the state ``h`` (fp32) plus a (d_conv-1)-deep conv tail in the
+activation dtype; decode writes both in place, into the caller's cache.
 """
 
 from __future__ import annotations
@@ -22,7 +28,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ssm_scan import selective_scan
-from repro_torch.models.common import ParamDef, fan_in_def
+from repro_torch.models.common import ParamDef, fan_in_def, rms_norm
 
 
 def dt_rank(cfg: ModelConfig) -> int:
@@ -128,9 +134,6 @@ def mamba_apply(params: Dict, x: torch.Tensor, cfg: ModelConfig, *,
     and conv tail are copied into ``cache``, which is returned.
     """
     s = cfg.ssm
-    if s.kind != "mamba1":
-        raise NotImplementedError(f"{cfg.name}: {s.kind} is not ported yet "
-                                  "(ROADMAP A12); the port runs Mamba-1")
     S = x.shape[1]
     dt = x.dtype
 
@@ -148,8 +151,12 @@ def mamba_apply(params: Dict, x: torch.Tensor, cfg: ModelConfig, *,
         new_conv = x_in[:, -(s.d_conv - 1):].clone() if return_state else None
     xc = _silu(xc)
 
-    y, h_final = _mamba1_core(params, xc, cfg, cache, decode)
-    y = y * _silu(z)
+    if s.kind == "mamba1":
+        y, h_final = _mamba1_core(params, xc, cfg, cache, decode)
+        y = y * _silu(z)
+    else:
+        y, h_final = _mamba2_core(params, xc, x, cfg, cache, decode)
+        y = rms_norm(y * _silu(z), params["gate_norm"], cfg.norm_eps)
     out = y @ params["out_proj"].to(dt)
 
     if decode:
@@ -189,3 +196,88 @@ def _mamba1_core(params, xc, cfg, cache, decode):
     y, h_final = selective_scan(delta, Bm, Cm, xf, params["A_log"].float())
     y = y + params["D"].float() * xf
     return y.to(dt_), h_final
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 (SSD)
+# ---------------------------------------------------------------------------
+
+
+def _mamba2_core(params, xc, x_raw, cfg, cache, decode):
+    """B, C and δ from ``x_raw`` (the block's normed input); one decay
+    ``A = −exp(A_log)`` a head.  The skip adds ``xh`` itself: the
+    reference reads no ``D`` leaf for Mamba-2 (ROADMAP C), nor does this."""
+    s = cfg.ssm
+    b, S, di = xc.shape
+    n, p = s.d_state, s.head_dim
+    nh = di // p
+    dt_ = xc.dtype
+
+    bc = (x_raw @ params["w_bc"].to(dt_)).float()
+    Bm, Cm = bc[..., :n], bc[..., n:]                              # [B,S,n]
+    delta = F.softplus((x_raw @ params["w_dt"].to(dt_)).float()
+                       + params["dt_bias"].float())                 # [B,S,nh]
+    A = -torch.exp(params["A_log"].float())                         # [nh]
+    xh = xc.float().reshape(b, S, nh, p)
+
+    if decode:
+        h0 = cache["h"].float()                                     # [B,nh,p,n]
+        log_a = (delta[:, 0] * A[None])[:, :, None, None]
+        u = (delta[:, 0, :, None] * xh[:, 0])[..., None] * Bm[:, 0, None, None, :]
+        h = torch.exp(log_a) * h0 + u
+        y = torch.einsum("bhpn,bn->bhp", h, Cm[:, 0])
+        y = y + xh[:, 0] * 1.0
+        return y.reshape(b, 1, di).to(dt_), h
+
+    y, h_final = _ssd_matmul_scan(delta, Bm, Cm, xh, A, s.chunk)
+    y = y + xh
+    return y.reshape(b, S, di).to(dt_), h_final
+
+
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bf16 and back to fp32: a product of two such values
+    is exact in fp32, so an fp32 product of them is the reference's bf16
+    einsum with ``preferred_element_type=float32`` up to summation order."""
+    return t.to(torch.bfloat16).float()
+
+
+def _ssd_matmul_scan(delta: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
+                     xh: torch.Tensor, A: torch.Tensor, chunk: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba-2's SSD block decomposition (arXiv:2405.21060 §6), the JAX
+    package's ``_ssd_matmul_scan``: a loop over chunks carrying the state.
+
+    Within a chunk of c steps and per head, ``y_intra = M·(δx)`` with
+    ``M[t, τ] = (C_t·B_τ)·exp(A_t − A_τ)`` for τ ≤ t (A the inclusive
+    prefix of the log-decay), ``y_inter = (C·h)·exp(A_t)``, and the state
+    ``h' = exp(A_end)·h + Σ_τ exp(A_end − A_τ)·δx_τ ⊗ B_τ``.  The Gram
+    matrix, M and δ·x are rounded to bf16 with fp32 sums, as the reference
+    rounds them, also in a float32 model; the rest is fp32.  M is built
+    ``[B, nh, t, τ]`` so that ``M·(δx)`` is one batched product.
+
+    delta: [B,S,nh]; Bm, Cm: [B,S,n]; xh: [B,S,nh,p]; A: [nh].
+    Returns (y [B,S,nh,p], h_final [B,nh,p,n]), fp32.
+    """
+    b, S, nh = delta.shape
+    p, n = xh.shape[-1], Bm.shape[-1]
+    c = min(chunk, S)
+    assert S % c == 0, (S, chunk)   # the JAX scan's contract
+    h = torch.zeros((b, nh, p, n), dtype=torch.float32, device=delta.device)
+    tri = torch.tril(torch.ones((c, c), dtype=torch.float32, device=delta.device))
+    ys = []
+    for c0 in range(0, S, c):
+        d_c, B_c, C_c, x_c = (t[:, c0:c0 + c] for t in (delta, Bm, Cm, xh))
+        cum = torch.cumsum(d_c * A, dim=1)                         # [B,c,nh], ≤ 0
+        gram = _bf16(C_c) @ _bf16(B_c).transpose(1, 2)             # [B,t,τ]
+        cum_h = cum.transpose(1, 2)                                # [B,nh,c]
+        decay = cum_h[:, :, :, None] - cum_h[:, :, None, :]        # [B,nh,t,τ]
+        M = _bf16(gram[:, None] * torch.exp(torch.clamp(decay, max=0.0)) * tri)
+        dx = d_c[..., None] * x_c                                  # [B,c,nh,p]
+        y_intra = (M @ _bf16(dx).transpose(1, 2)).transpose(1, 2)  # [B,c,nh,p]
+        y_inter = torch.einsum("btn,bhpn->bthp", C_c, h) * torch.exp(cum)[..., None]
+        a_end = cum[:, -1]                                         # [B,nh]
+        w = torch.exp(a_end[:, None] - cum)                        # [B,c,nh]
+        h = torch.exp(a_end)[..., None, None] * h \
+            + torch.einsum("bshp,bsn->bhpn", w[..., None] * dx, B_c)
+        ys.append(y_intra + y_inter)
+    return torch.cat(ys, dim=1), h

@@ -1,18 +1,24 @@
-"""Top-level model, the dense, MoE and Mamba-1 families (port of
+"""Top-level model of every family: dense, MoE, Mamba-1, the Mamba-2
+hybrid, and the VLM and audio frontends (port of
 ``repro.models.transformer``).
 
-Layers are grouped into *periods* (the local:global pattern length, 1
-otherwise); each period slot's parameters are stacked ``[n_per, ...]``,
-and the remainder layers keep their own, so the parameter tree has the
-JAX package's ``prefix`` / ``slots`` / ``rem`` structure leaf for leaf.
-The JAX ``lax.scan`` over periods is a Python loop over the stacked axis
-here; a layer's locality (``_is_local``) follows its global index, so the
-remainder layers of a local:global config (gemma3-27b: 62 = 10 × 6 + 2)
-keep the pattern.  An MoE config's leading ``first_dense_layers`` are the
-unrolled ``prefix`` (FFN width ``d_ff_dense`` where it is set), every
-later layer an MoE layer.  Mamba-2, the hybrid shared block and the
-VLM/audio frontends are not ported yet (ROADMAP A12): their configs raise
-``NotImplementedError``.
+Layers are grouped into *periods* (the local:global pattern length, the
+hybrid's shared-attention interval, 1 otherwise); each period slot's
+parameters are stacked ``[n_per, ...]``, and the remainder layers keep
+their own, so the parameter tree has the JAX package's ``prefix`` /
+``slots`` / ``rem`` structure leaf for leaf.  The JAX ``lax.scan`` over
+periods is a Python loop over the stacked axis here; a layer's locality
+(``_is_local``) follows its global index, so the remainder layers of a
+local:global config (gemma3-27b: 62 = 10 × 6 + 2) keep the pattern.  An
+MoE config's leading ``first_dense_layers`` are the unrolled ``prefix``
+(FFN width ``d_ff_dense`` where it is set), every later layer an MoE
+layer.  A hybrid config (zamba2-2.7b) has one ``shared`` dense block,
+applied after the slot layers of every period with that period's own
+full-length KV cache (``cache["shared"]``, stacked ``n_per`` deep); its
+remainder layers, as the reference's, get none.  The frontends replace
+the token embedding: the audio family projects ``features``, the VLM
+family maps ``patches`` through a two-layer projector onto the first
+positions.
 """
 
 from __future__ import annotations
@@ -33,17 +39,6 @@ from repro_torch.models.common import ParamDef, fan_in_def, stacked
 # ---------------------------------------------------------------------------
 # Structure
 # ---------------------------------------------------------------------------
-
-
-def _check_ported(cfg: ModelConfig) -> None:
-    dense = cfg.family == "dense" and cfg.ssm is None and cfg.moe is None
-    moe = cfg.family == "moe" and cfg.ssm is None and cfg.moe is not None
-    mamba1 = (cfg.family == "ssm" and cfg.moe is None and cfg.ssm is not None
-              and cfg.ssm.kind == "mamba1")
-    if not (dense or moe or mamba1) or cfg.frontend is not None or cfg.shared_attn_every:
-        raise NotImplementedError(f"{cfg.name}: the {cfg.family} family is not ported "
-                                  "yet (Mamba-2 / hybrid, frontends: ROADMAP A12); the "
-                                  "port runs dense and MoE (GQA or MLA) and Mamba-1 models")
 
 
 def period_of(cfg: ModelConfig) -> int:
@@ -116,8 +111,11 @@ def _layer_layout(cfg: ModelConfig, global_idx: int) -> Dict[str, Any]:
     return _dense_layer_layout(cfg, d_ff)
 
 
+def _has_shared(cfg: ModelConfig) -> bool:
+    return cfg.family == "hybrid" and bool(cfg.shared_attn_every)
+
+
 def model_layout(cfg: ModelConfig) -> Dict[str, Any]:
-    _check_ported(cfg)
     d = cfg.d_model
     prefix, n_per, rem = scanned_layers(cfg)
     p = period_of(cfg)
@@ -126,19 +124,34 @@ def model_layout(cfg: ModelConfig) -> Dict[str, Any]:
                           scale=0.02),
         "final_norm": ParamDef((d,), (None,), "ones"),
     }
-    if not cfg.tie_embeddings:
+    # the audio family's head is untied whatever tie_embeddings says
+    if not cfg.tie_embeddings or cfg.family == "audio":
         out["lm_head"] = fan_in_def((d, cfg.padded_vocab), ("embed", "vocab"))
+    if cfg.family == "audio":
+        out["frontend"] = {
+            "proj": fan_in_def((cfg.frontend_dim, d), ("frontend", "embed")),
+            "bias": ParamDef((d,), (None,), "zeros"),
+        }
+    if cfg.family == "vlm":
+        out["frontend"] = {
+            "w1": fan_in_def((cfg.frontend_dim, d), ("frontend", "embed")),
+            "b1": ParamDef((d,), (None,), "zeros"),
+            "w2": fan_in_def((d, d), ("embed", None)),
+            "b2": ParamDef((d,), (None,), "zeros"),
+        }
     out["prefix"] = [_layer_layout(cfg, i) for i in range(prefix)]
     out["slots"] = [stacked(_layer_layout(cfg, prefix + s), n_per)
                     for s in range(p)] if n_per else []
     out["rem"] = [_layer_layout(cfg, prefix + n_per * p + i)
                   for i in range(rem)]
+    if _has_shared(cfg):
+        out["shared"] = _dense_layer_layout(cfg, cfg.d_ff)
     return out
 
 
 def cache_layout(cfg: ModelConfig, batch: int, seq_len: int) -> Dict[str, Any]:
-    """Decode-cache layout mirroring the layer structure."""
-    _check_ported(cfg)
+    """Decode-cache layout mirroring the layer structure; a hybrid model's
+    shared block has one full-length cache per period."""
     prefix, n_per, rem = scanned_layers(cfg)
     p = period_of(cfg)
 
@@ -148,12 +161,16 @@ def cache_layout(cfg: ModelConfig, batch: int, seq_len: int) -> Dict[str, Any]:
         return attn_mod.attention_cache_layout(cfg, batch, seq_len,
                                                _is_local(cfg, global_idx))
 
-    return {
+    out: Dict[str, Any] = {
         "prefix": [layer_cache(i) for i in range(prefix)],
         "slots": [stacked(layer_cache(prefix + s), n_per)
                   for s in range(p)] if n_per else [],
         "rem": [layer_cache(prefix + n_per * p + i) for i in range(rem)],
     }
+    if _has_shared(cfg):
+        out["shared"] = stacked(
+            attn_mod.attention_cache_layout(cfg, batch, seq_len, False), n_per)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -193,8 +210,21 @@ def _zero_aux(cfg: ModelConfig, device) -> Dict[str, torch.Tensor]:
 
 
 def _embed_inputs(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Token embeddings, or the frontend's: the audio family projects
+    ``features`` [B, S, frontend_dim] (no token embedding); the VLM family,
+    when ``patches`` [B, P, frontend_dim] is in the batch, puts
+    ``gelu_tanh(patches·w1 + b1)·w2 + b2`` in the first P positions."""
     dt = getattr(torch, cfg.dtype)
+    if cfg.family == "audio":
+        f = params["frontend"]
+        return batch["features"].to(dt) @ f["proj"].to(dt) + f["bias"].to(dt)
     x = params["embed"][batch["tokens"].long()].to(dt)
+    if cfg.family == "vlm" and "patches" in batch:
+        f = params["frontend"]
+        ph = common.activation("gelu")(batch["patches"].to(dt) @ f["w1"].to(dt)
+                                       + f["b1"].to(dt))
+        ph = ph @ f["w2"].to(dt) + f["b2"].to(dt)
+        x = torch.cat([ph, x[:, ph.shape[1]:]], dim=1)
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dt, device=x.device)
     return x
@@ -215,10 +245,10 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
     prefill length).  ``last_only`` computes logits for the final position
     only (serving prefill — skips the O(S·V) head over the prompt).
     ``aux_losses`` sums each MoE layer's ``moe_load_balance``,
-    ``moe_router_z`` and ``moe_dropped`` (float32 scalars); the dense and
-    Mamba-1 families have none: ``{}``.
+    ``moe_router_z`` and ``moe_dropped`` (float32 scalars); the other
+    families have none: ``{}``.  The batch holds ``tokens`` [B, S], and
+    ``features`` (audio, in place of tokens) or ``patches`` (VLM, optional).
     """
-    _check_ported(cfg)
     x = _embed_inputs(params, cfg, batch)
     s = x.shape[1]
     decoding = cache is not None
@@ -251,8 +281,12 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
                           cache["prefix"][i] if decoding else None)
         new_cache["prefix"].append(nc)
 
+    def stack(per):
+        return {k: torch.stack([c[k] for c in per]) for k in per[0]}
+
     if n_per:
-        slot_caches = [[] for _ in range(p)]
+        shared = params.get("shared")
+        slot_caches, shared_caches = [[] for _ in range(p)], []
         for i in range(n_per):                 # the scan over periods
             for si in range(p):
                 lp = common.tree_map(lambda t: t[i], params["slots"][si])
@@ -260,11 +294,22 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
                       if decoding else None)   # views: decode writes through
                 x, nc = run_layer(lp, x, prefix + si, lc)
                 slot_caches[si].append(nc)
+            if shared is not None:
+                lc = (common.tree_map(lambda t: t[i], cache["shared"])
+                      if decoding else None)
+                x, nc, _ = _apply_dense_or_moe(
+                    shared, x, cfg, kind="dense", is_local=False, positions=positions,
+                    cache=lc, cache_pos=cache_pos, return_state=return_state,
+                    cache_capacity=cache_capacity)
+                shared_caches.append(nc)
         if decoding:
             new_cache["slots"] = cache["slots"]
+            if shared is not None:
+                new_cache["shared"] = cache["shared"]
         elif return_state:
-            new_cache["slots"] = [{k: torch.stack([c[k] for c in per])
-                                   for k in per[0]} for per in slot_caches]
+            new_cache["slots"] = [stack(per) for per in slot_caches]
+            if shared is not None:
+                new_cache["shared"] = stack(shared_caches)
 
     for i in range(rem):
         gidx = prefix + n_per * p + i

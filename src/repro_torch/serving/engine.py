@@ -19,12 +19,12 @@ from repro_torch.device import resolve_device
 from repro_torch.models import transformer
 
 #: Parameter leaves the model reads in fp32 — the norm weights of
-#: ``rms_norm`` (MLA's ``kv_norm`` among them), the MoE ``router`` (routing
-#: is computed in fp32 from the fp32 master, as the JAX package does) and
-#: Mamba's ``A_log``, ``dt_bias`` and skip ``D`` — kept out of the engine's
-#: activation-dtype copy of the weights.
+#: ``rms_norm`` (MLA's ``kv_norm`` and Mamba-2's ``gate_norm`` among them),
+#: the MoE ``router`` (routing is computed in fp32 from the fp32 master, as
+#: the JAX package does) and Mamba's ``A_log``, ``dt_bias`` and skip ``D`` —
+#: kept out of the engine's activation-dtype copy of the weights.
 FP32_LEAVES = ("ln1", "ln2", "ln", "final_norm", "q_norm", "k_norm", "kv_norm",
-               "router", "A_log", "dt_bias", "D")
+               "gate_norm", "router", "A_log", "dt_bias", "D")
 
 
 def make_prefill(cfg: ModelConfig, capacity: int):
@@ -79,8 +79,9 @@ class ServeEngine:
     the activation dtype ``cfg.dtype``, where the JAX package casts the
     float32 weights at every einsum; the numbers are the same, since a
     cast of the whole tensor gives the same values as a cast at each use.
-    The leaves the model reads in float32 (norm weights, the MoE router,
-    Mamba's ``A_log``, ``dt_bias`` and ``D``) stay float32.
+    The leaves the model reads in float32 (norm weights, Mamba-2's
+    ``gate_norm`` among them, the MoE router, Mamba's ``A_log``,
+    ``dt_bias`` and ``D``) stay float32.
     """
 
     cfg: ModelConfig

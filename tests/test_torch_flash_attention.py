@@ -176,3 +176,58 @@ def test_a_window_needs_aligned_sequences():
     ref = jax_attention_ref(jq, jk[:, :16], jv[:, :16], causal=False, window=8)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=2e-5, atol=2e-5)
     assert flash_attention(q, k[:, :16], v[:, :16], causal=False).shape == q.shape
+
+
+PREFILL_CASES = [
+    # B, S, KV, G, D, causal: zamba2's shared block (32/32 heads of 80) and hubert's
+    # non-causal encoder (16/16 of 80), both padded to 128, at narrow heads and a ragged
+    # S; internvl2's 14/2 heads of 64 (G = 7, no padding)
+    (1, 77, 4, 1, 80, True),
+    (2, 40, 2, 1, 80, False),
+    (1, 50, 2, 7, 64, True),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", PREFILL_CASES)
+def test_padded_prefill_matches_jax(case, dtype):
+    """The models' prefill call (``attention._padded_flash``): q, k, v with
+    zero columns up to the least tensor-core head_dim, the scale of the
+    unpadded D, the output cut back, against the JAX package's
+    ``full_attention`` on the unpadded tensors (k, v GQA-repeated)."""
+    from repro_torch.models import attention as tattn
+
+    B, S, KV, G, D, causal = case
+    (q, k, v), (jq, jk, jv) = _both(_inputs(B, S, KV, G, D, seed=5), dtype)
+    scale = 1.0 / np.sqrt(D)
+    calls, real = [], tattn.flash_attention
+
+    def spy(*args, **kw):
+        calls.append(tuple(t.shape[-1] for t in args))
+        return real(*args, **kw)
+
+    tattn.flash_attention = spy
+    try:
+        out = tattn._padded_flash([q], [k], v, causal=causal, scale=scale)
+    finally:
+        tattn.flash_attention = real
+    assert calls == [(tattn._flash_head_dim(D),) * 3] and out.shape == q.shape
+    assert tattn._flash_head_dim(D) == (128 if D == 80 else D)
+    ref = full_attention(jq, jnp.repeat(jk, G, axis=2), jnp.repeat(jv, G, axis=2),
+                         causal=causal, scale=scale, q_chunk=S, kv_chunk=S)
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(ref, np.float32),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+
+
+def test_padding_is_the_identity_at_kernel_head_dims():
+    """At a head_dim the kernel has, the prefill hands the op q, k and v as
+    they are: k and v as the strided halves of one fused projection, no
+    copy (``ops.tma_map_args`` takes such views)."""
+    from repro_torch.models import attention as tattn
+
+    for d in fa_ops.TC_HEAD_DIMS:
+        kv = torch.zeros(1, 8, 2, 2, d)
+        k, v = kv[:, :, 0], kv[:, :, 1]
+        assert tattn._flash_head_dim(d) == d
+        assert tattn._side_by_side([k], d) is k and tattn._side_by_side([v], d) is v
+    assert tattn._side_by_side([torch.ones(1, 2, 80)], 128)[..., 80:].abs().sum() == 0

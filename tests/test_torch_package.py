@@ -72,7 +72,8 @@ def test_port_package_covers_the_slice():
                  "core/predictors/hierarchy.py", "core/predictors/seasonal.py",
                  "core/predictors/periodic.py", "core/composition.py", "core/aot.py",
                  "launch/compose.py", "serving/batching.py",
-                 "configs/gemma2_2b.py", "configs/gemma3_27b.py", "serving/kvcache.py"):
+                 "configs/gemma2_2b.py", "configs/gemma3_27b.py", "serving/kvcache.py",
+                 "configs/zamba2_2_7b.py", "configs/internvl2_1b.py", "configs/hubert_xlarge.py"):
         assert want in names, want
     for name, src in _build.SOURCES.items():
         assert (_build.KERNELS_DIR / src).exists(), name

@@ -137,9 +137,14 @@ def test_model_and_cache_layout_match_jax(reduced):
 
 
 def test_mamba2_is_not_ported():
-    t = _port_cfg(jax_config("zamba2-2.7b", reduced=True))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tssm.mamba_apply({}, torch.zeros(1, 4, t.d_model), t)
+    """Mamba-2 once raised here; now its block runs, from the same layout
+    as Mamba-1's, and hands back its ``[B, nh, p, n]`` state
+    (``tests/test_torch_mamba2.py`` holds it against JAX)."""
+    t = dataclasses.replace(_port_cfg(jax_config("zamba2-2.7b", reduced=True)), dtype="float32")
+    params = tcommon.init_params(torch.Generator().manual_seed(0), tssm.mamba_layout(t))
+    y, cache = tssm.mamba_apply(params, torch.randn(1, 16, t.d_model), t, return_state=True)
+    assert y.shape == (1, 16, t.d_model) and torch.isfinite(y).all()
+    assert cache["h"].shape == (1, t.ssm.n_heads(t.d_model), t.ssm.head_dim, t.ssm.d_state)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
