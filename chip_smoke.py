@@ -98,7 +98,7 @@ printing its seconds:
    gains within 0.006, rates within 2/S, fronts and flags equal (the
    ``*/stream_reuse`` rows count JAX retraces and are skipped);
 11. long stream — one scenario × five accelerators × three techniques at
-   16384 steps in 4096-step chunks: peak device memory within 1 MiB of the
+   8192 steps in 4096-step chunks: peak device memory within 1 MiB of the
    same campaign at 4096 steps, every cell within 1e-5 of a CPU run;
 12. predictors — ``benchmarks/run.py``'s predictor sweep on ``cuda``: every
    registered family's campaign over the fifteen scenarios (tabla,
@@ -178,8 +178,37 @@ printing its seconds:
    version; float32 on ``cuda`` and on the CPU: zamba2's first period (6
    Mamba-2 layers and the shared block) at a 512-token prompt and 3 decode
    steps, internvl2's first 2 layers with patches, hubert's first 2 on
-   features.
+   features;
+18. training path — ``python -m repro_torch.launch.train`` REDUCED on ``cuda``
+   for every arch, 2 steps each, falcon-mamba-7b refused before its weights
+   are drawn (the scan kernel has no backward) and a grad-requiring scan
+   call on the card raising; full-width llama3.2-1b (1.236 B float32
+   masters, AdamW moments, bf16 activations, remat) for 8 steps of
+   ``make_train_step`` through ``SyntheticPipeline`` at B = 4, S = 2048:
+   ms a step, tokens a second, the 6·N·T bound, peak device memory and
+   32 tensor-core flash launches a step (16 forward, 16 under remat); the
+   attention backward's share of a forward + backward (CUDA events); a
+   finite gradient on every parameter leaf; every flash call of a
+   training forward against the plain version, output and row stats (m,
+   l), and the ``FlashAttention`` backward's dq, dk, dv on layer 0's own
+   q, k, v against plain autograd through ``attention_ref``; the first 2
+   layers in float32 on ``cuda`` and on the CPU (B = 1, S = 256, through
+   the CUDA-core kernel's stats): grads, 2 steps' metrics and params; a
+   ``run_with_restarts`` run with two injected failures, bit-equal to an
+   unbroken run;
+19. llama3-405b serving — ``launch.serve --arch llama3-405b`` REDUCED on
+   ``cuda``; the tensor-core kernel at its prefill layer (B = 2, S = 4096,
+   128/8 heads of 128, G = 16) beside its plain version, SDPA and the
+   bound; ``ServeEngine`` on full-width llama3-405b cut to 8 of its 126
+   layers (bf16 weights from a seed, 29.7 B parameters, 59.4 GB) at B = 2,
+   a 4096-token prompt and 32 new tokens: the times of phase 6, 8
+   tensor-core launches a ``generate``, peak device memory (at most 75
+   GiB), every flash call of a prefill against the plain version; its
+   first layer in float32 on ``cuda`` and on the CPU on a seeded
+   256-token hidden state.
 
+Phase 5 also times each flash kernel with its row-stats store (the
+training forward's) beside the store-less launch that serving makes.
 It ends with a ``{"kernels": [...]}`` line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}`` as the last line.  Without a
 CUDA device, or outside a checkout of this repository, it exits non-zero
@@ -349,12 +378,22 @@ ANALYTIC = ((0.0, 0.4), (0.8, 0.4), (0.2, 2.0))
 FIGURES = ("fig4", "fig5", "fig6", "fig10", "fig12")
 BENCH_STEPS = 1024          # the steps of BENCH_fleet.json's rows
 BENCH_CHUNK = 512           # benchmarks/run.py's chunk at 1024 steps
-LONG_STEPS, LONG_CHUNK, LONG_SCENARIO = (4096, 16384), 4096, "node_failure"
+LONG_STEPS, LONG_CHUNK, LONG_SCENARIO = (4096, 8192), 4096, "node_failure"
+WARM_RUNS = 3               # warm and staged 2048-step Table II calls timed in phase 4
 PEAK_SLACK_BYTES = 1 << 20
 PROFILE_STEPS = 64
 PRED_STEPS, PRED_CHUNK = 2048, 512     # benchmarks/run.py's predictor sweep
 COMPOSE_SCENARIOS = ("burse", "diurnal")
 SERVE_LOOP_STEPS = 4096                # hybrid/closed_loop_serving's arrival steps
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 8    # full-width llama3.2-1b training
+TRAIN_F32 = (2, 256, 1)                # float32 card vs CPU: layers, S, B
+TRAIN_LR = 1e-3
+TRAIN_OUTLIERS = 1e-3                  # share of a leaf's elements past 1e-5 (Adam's noise)
+TRAIN_M_RTOL, TRAIN_L_RTOL = 1e-5, 1e-4   # B2's row stats vs the plain version's
+LLAMA405_LAYERS = 8
+LLAMA405_BATCH, LLAMA405_PROMPT, LLAMA405_NEW = 2, 4096, 32
+LLAMA405_FLASH_SHAPES = {"llama3_405b": (2, 4096, 8, 16, 128, 128, True)}
+LLAMA405_F32_TOKENS = 256
 
 
 def check(cond: bool, msg: str) -> None:
@@ -733,7 +772,7 @@ def phase_main_path(dev) -> int:
     cfg = ctl.ControllerConfig()
     trace = traces[2048]
     walls, stages = [], []
-    for _ in range(5):
+    for _ in range(WARM_RUNS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         ctl.compare_all_batched(platforms, trace, techniques, device=dev)
@@ -988,6 +1027,11 @@ def phase_flash_kernels(dev) -> list:
             qt, kt, vt, is_causal=True, enable_gqa=True), n)
         sdpa_err = (sdpa.transpose(1, 2).float() - out.float()).abs().max().item()
         bound_ms, bound_by = _flash_bound(q, k, v, out)
+        stats_ms = device_time_ms(lambda: ops.flash_attention_fwd(q, k, v), n)
+        ms_again = device_time_ms(lambda: flash_attention(q, k, v), n)
+        print(f"[flash] {kernel} at the serving shape with the row-stats store (training's "
+              f"forward): {stats_ms:.4f} ms vs {ms:.4f} / {ms_again:.4f} ms without (before / "
+              f"after), {stats_ms / min(ms, ms_again) - 1:+.1%}")
         tflops = _causal_flops(q) / (ms * 1e-3) / 1e12
         print(f"[flash] {kernel} at the serving shape q {tuple(q.shape)} k/v "
               f"{tuple(k.shape)} {str(dtype)[6:]} causal, medians: kernel {ms:.4f} ms "
@@ -999,6 +1043,7 @@ def phase_flash_kernels(dev) -> list:
               f"TFLOP/s)")
         records.append(_record(kernel, kernel, "src/repro/kernels/flash_attention/kernel.py:38",
                                max_err[kernel], ms, plain_ms, bound_ms, bound_by, lib_ms))
+        records[-1]["stats_ms"] = stats_ms
     records[0]["gemma_shapes"] = _gemma_flash_times(GEMMA_FLASH_SHAPES, torch.bfloat16,
                                                     gen, dev)
     records[1]["gemma_shapes"] = _gemma_flash_times(GEMMA_FLASH_F32_SHAPES, torch.float32,
@@ -1765,7 +1810,7 @@ def phase_campaign(dev) -> None:
 
 
 def phase_long_stream(dev) -> None:
-    """One scenario's campaign at 4096 and 16384 steps in 4096-step chunks:
+    """One scenario's campaign at 4096 and 8192 steps in 4096-step chunks:
     the peak device memory must not grow with the trace, and the longer
     run's cells match a CPU run."""
     from repro_torch.core import controller as ctl
@@ -2343,9 +2388,12 @@ def phase_gemma_serving(dev) -> dict:
     return out
 
 
-def _plain_attention(q, k, v, heads: int = 16, **kw) -> torch.Tensor:
+def _plain_attention(q, k, v, heads: int = 16, q_chunk=None, kv_chunk=None,
+                     **kw) -> torch.Tensor:
     """The plain version (``attention_ref``) of a GQA call, a batch row and
-    ``heads`` query heads at a time to bound its fp32 scores' memory; float32."""
+    ``heads`` query heads at a time to bound its fp32 scores' memory; float32.
+    ``q_chunk`` and ``kv_chunk``, the backward's blocks that the models pass
+    the op, do not change the forward and are dropped."""
     from repro_torch.kernels.flash_attention import attention_ref
 
     g = q.shape[2] // k.shape[2]
@@ -3032,6 +3080,467 @@ def phase_hybrid_serving(dev) -> tuple:
     return out, times
 
 
+# ---------------------------------------------------------------------------
+# 18. training path
+# ---------------------------------------------------------------------------
+
+
+def _hold_train_state(got, want, bound, what: str) -> tuple:
+    """float32 trees on the CPU: every leaf within 1e-5·(1 + |x|) at all but
+    0.1 % of its elements (2 in a leaf of fewer than 2000) and within
+    ``bound`` everywhere, or 2 % of the leaf's largest magnitude where
+    ``bound`` is None (Adam divides a near-zero gradient's rounding noise
+    by its own RMS: such an element moves by up to lr a step).  Returns the
+    largest difference and the count of elements past 1e-5."""
+    from repro_torch.models import common
+
+    want = dict(common.tree_leaves(want))
+    worst, n_off = 0.0, 0
+    for path, a in common.tree_leaves(got):
+        diff = (a.float() - want[path].float()).abs()
+        off = int((diff > 1e-5 * (1 + want[path].float().abs())).sum())
+        check(off <= max(2, TRAIN_OUTLIERS * diff.numel()),
+              f"{what} {path}: {off} of {diff.numel()} elements past 1e-5")
+        lim = bound if bound is not None else 0.02 * want[path].float().abs().max().item()
+        check(diff.max().item() <= lim, f"{what} {path}: max|Δ| {diff.max().item()} > {lim}")
+        worst, n_off = max(worst, diff.max().item()), n_off + off
+    return worst, n_off
+
+
+def _train_reduced_cli(dev) -> None:
+    """18a. ``launch.train`` REDUCED on the card for every arch but
+    falcon-mamba-7b, 2 steps each; falcon-mamba-7b refused before weights
+    are drawn, and a grad-requiring scan call on the card refused."""
+    from repro_torch.configs import ARCH_NAMES
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssm_scan import selective_scan
+    from repro_torch.launch import train
+
+    for arch in ARCH_NAMES:
+        args = ["--arch", arch, "--device", "cuda", "--steps", "2", "--batch", "2", "--seq",
+                "64", "--log-every", "1"]
+        flash_attention.launches = selective_scan.launches = 0
+        t0 = time.perf_counter()
+        if arch == MAMBA_ARCH:
+            refused = None
+            with contextlib.redirect_stdout(io.StringIO()):
+                try:
+                    train.main(args)
+                except SystemExit as e:
+                    refused = str(e)
+            check(refused is not None and "no backward" in refused
+                  and selective_scan.launches == 0,
+                  f"launch.train --arch {arch} on cuda was not refused before the scan: "
+                  f"{refused}")
+            print(f"[train] launch.train --arch {arch} --device cuda refused: {refused}")
+            continue
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            check(train.main(args) == 0, f"launch.train --arch {arch} failed")
+        torch.cuda.synchronize()
+        lines = buf.getvalue().strip().splitlines()
+        check(len(lines) == 3 and lines[-1].startswith("loss "), f"{arch}: {lines}")
+        check(flash_attention.launches > 0, f"{arch}: the training run launched no flash kernel")
+        print(f"[train] launch.train --arch {arch} --device cuda (REDUCED, 2 steps, B=2, "
+              f"S=64): {time.perf_counter() - t0:.2f} s, flash launches "
+              f"{flash_attention.launches}; {lines[-1]}")
+    x = torch.randn(1, 8, 16, device=dev, requires_grad=True)
+    try:
+        selective_scan(x, torch.randn(1, 8, 4, device=dev), torch.randn(1, 8, 4, device=dev),
+                       x, torch.randn(16, 4, device=dev))
+        raise AssertionError("a grad-requiring selective_scan call on cuda was not refused")
+    except RuntimeError as e:
+        check("no backward" in str(e), f"unexpected error: {e}")
+        print(f"[train] a grad-requiring selective_scan call on cuda raises: {str(e)[:90]}...")
+
+
+def _train_flash_checks(cfg, params, batch, dev) -> None:
+    """18c. One training forward at full width: every B2 call against the
+    plain version, output and row stats, with the Function's output equal
+    to the stats launch's; then the Function's dq, dk, dv on layer 0's own
+    q, k, v against plain autograd through ``attention_ref``."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref, ops
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import common
+    from repro_torch.train.step import make_loss_fn
+
+    real, errs, first = attn_mod.flash_attention, [], []
+
+    def held(q, k, v, **kw):
+        out = real(q, k, v, **kw)
+        check(out.grad_fn is not None, "a training flash call has no grad_fn")
+        fwd = {n: kw[n] for n in ("causal", "window", "softcap", "scale")}
+        with torch.no_grad():
+            o, m, l = ops.flash_attention_fwd(q, k, v, **fwd)
+            ro, rm, rl = flash_attention_ref(q, k, v, return_stats=True, **fwd)
+        check(torch.equal(o, out.detach()), "the Function's output is not its kernel's")
+        # m: 1e-5·|m| plus the float32 dot product's rounding bound, 2·D·2^-24·scale·|q|·|k|
+        # (the kernel and the plain version sum q·k in other orders; near m = 0 that term
+        # is all there is)
+        g = q.shape[2] // k.shape[2]
+        qn = q.float().norm(dim=-1).transpose(1, 2)                             # [B,H,Sq]
+        kn = k.float().norm(dim=-1).amax(1).repeat_interleave(g, 1)[..., None]  # [B,H,1]
+        m_tol = 1e-5 * rm.abs() + 2 * q.shape[-1] * 2.0 ** -24 * fwd["scale"] * qn * kn
+        errs.append(((o.float() - ro.float()).abs().max().item()
+                     / max(1.0, ro.float().abs().max().item()),
+                     ((m - rm).abs() / m_tol).max().item(),
+                     ((l - rl).abs() / rl).max().item(),
+                     (m - rm).abs().max().item()))
+        del ro, rm, rl, qn, kn, m_tol
+        if not first:
+            first.append(([t.detach().clone() for t in (q, k, v)], kw))
+        return out
+
+    live = common.tree_map(lambda t: t.detach().requires_grad_(), params)
+    attn_mod.flash_attention = held
+    try:
+        with torch.enable_grad():
+            loss, _ = make_loss_fn(cfg, TrainConfig())(live, batch)
+    finally:
+        attn_mod.flash_attention = real
+    del loss, live
+    torch.cuda.empty_cache()
+    worst = [max(e[i] for e in errs) for i in range(4)]
+    check(len(errs) == cfg.n_layers, f"{len(errs)} flash calls in a forward")
+    check(worst[0] <= FLASH_TOL[torch.bfloat16] and worst[1] <= 1.0
+          and worst[2] <= TRAIN_L_RTOL, f"flash stats check: {errs}")
+    print(f"[train] every flash call of one training forward ({len(errs)}, bf16) vs the plain "
+          f"version: out max|Δ| {worst[0]:.3g} of max(1, max |o|) (tol "
+          f"{FLASH_TOL[torch.bfloat16]}), m max|Δ| {worst[3]:.3g}, at most {worst[1]:.3g} of "
+          f"its tolerance ({TRAIN_M_RTOL}·|m| + the fp32 dot product's rounding bound), l max "
+          f"relative {worst[2]:.3g} (tol {TRAIN_L_RTOL})")
+
+    (q, k, v), kw = first[0]
+    dout = torch.randn(q.shape, generator=torch.Generator(device=dev).manual_seed(5),
+                       device=dev).to(q.dtype)
+    grads = []
+    for fn in (flash_attention, flash_attention_ref):
+        ins = [t.clone().requires_grad_() for t in (q, k, v)]
+        opts = kw if fn is flash_attention else {n: kw[n] for n in
+                                                 ("causal", "window", "softcap", "scale")}
+        fn(*ins, **opts).backward(dout)
+        grads.append([t.grad for t in ins])
+        del ins
+        torch.cuda.empty_cache()
+    report = []
+    for name, a, r in zip(("dq", "dk", "dv"), *grads):
+        scale = max(1.0, r.float().abs().max().item())
+        err = (a.float() - r.float()).abs().max().item()
+        check(a.dtype == r.dtype and err <= FLASH_TOL[torch.bfloat16] * scale,
+              f"{name}: max|Δ| {err} > {FLASH_TOL[torch.bfloat16]} x {scale}")
+        report.append(f"{name} max|Δ| {err:.3g} (max |g| {scale:.3g})")
+    print(f"[train] the Function's backward on layer 0's q {tuple(q.shape)} k {tuple(k.shape)} "
+          f"vs plain autograd through attention_ref: " + ", ".join(report)
+          + f" (tol {FLASH_TOL[torch.bfloat16]} of max(1, max |g|))")
+
+
+def _train_float32_cuda_vs_cpu(cfg, params, dev) -> None:
+    """18d. llama3.2-1b's first 2 layers at full width in float32, card vs
+    CPU (through the CUDA-core kernel's stats store): the grads of one
+    batch, then 2 steps: metrics, grads and params."""
+    from repro_torch.configs.base import OptimizerConfig, TrainConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
+    from repro_torch.kernels.flash_attention import flash_attention, ops
+    from repro_torch.models import common
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import make_grad_fn, make_train_step
+
+    n_layers, s, b = TRAIN_F32
+    t0 = time.perf_counter()
+    cut, few = _first_layers(cfg, params, n_layers)
+    cut = dataclasses.replace(cut, dtype="float32")
+    tcfg = TrainConfig(optimizer=OptimizerConfig(learning_rate=TRAIN_LR, warmup_steps=1,
+                                                 total_steps=10))
+    pipe = SyntheticPipeline(DataConfig(global_batch=b, seq_len=s, vocab_size=cut.vocab_size,
+                                        seed=3), cut)
+    batches = [next(pipe) for _ in range(2)]
+    pipe.close()
+    runs = []
+    flash_attention.kernel_launches.update(dict.fromkeys(flash_attention.kernel_launches, 0))
+    for d in (dev, torch.device("cpu")):
+        p = common.tree_map(lambda t: t.to(d), few)
+        bs = [{k: torch.from_numpy(v).to(d) for k, v in x.items()} for x in batches]
+        _, _, grads = make_grad_fn(cut, tcfg)(p, bs[0])
+        st, step, metrics = adamw_init(p), make_train_step(cut, tcfg), []
+        for x in bs:
+            p, st, m = step(p, st, x)
+            metrics.append({k: v.item() for k, v in m.items()})
+        to_cpu = lambda t: t.cpu()  # noqa: E731
+        runs.append((common.tree_map(to_cpu, grads), metrics, common.tree_map(to_cpu, p),
+                     common.tree_map(to_cpu, st.m)))
+    del few
+    kl = dict(flash_attention.kernel_launches)
+    check(kl[ops.CUDA_CORE] > 0 and kl[ops.TENSOR_CORE] == 0, f"float32 launches {kl}")
+    (g_c, m_c, p_c, mo_c), (g_h, m_h, p_h, mo_h) = runs
+    worst_m = 0.0
+    for a, w in zip(m_c, m_h):
+        for k, v in w.items():
+            rel = abs(a[k] - v) / max(abs(v), 1e-30)
+            check(rel <= 1e-5 or (k == "accuracy" and a[k] == v),
+                  f"float32 metric {k}: cuda {a[k]} cpu {v}")
+            worst_m = max(worst_m, rel)
+    g_want = dict(common.tree_leaves(g_h))
+    worst_g = 0.0
+    for path, g in common.tree_leaves(g_c):
+        check(g is not None and g_want[path] is not None, f"{path}: no gradient")
+        tol = 1e-4 * g_want[path].abs().max().item()
+        err = (g - g_want[path]).abs().max().item()
+        check(err <= tol, f"float32 grad {path}: max|Δ| {err} > {tol}")
+        worst_g = max(worst_g, err / max(tol / 1e-4, 1e-30))
+    p_worst, p_off = _hold_train_state(p_c, p_h, 2 * TRAIN_LR * 2, "float32 params")
+    m_worst, m_off = _hold_train_state(mo_c, mo_h, None, "float32 m")
+    print(f"[train] float32 {cut.name} first {n_layers} layers at full width (B={b}, S={s}), "
+          f"cuda vs cpu: metrics max relative {worst_m:.3g} (tol 1e-5), grads max|Δ| "
+          f"{worst_g:.3g} of each leaf's max |g| (tol 1e-4), params after 2 steps (lr "
+          f"{TRAIN_LR:g}) max|Δ| {p_worst:.3g} with {p_off} elements past 1e-5, m max|Δ| "
+          f"{m_worst:.3g} ({m_off} past 1e-5); losses {[m['loss'] for m in m_c]}; flash "
+          f"launches {kl}; {time.perf_counter() - t0:.2f} s")
+
+
+def _train_restarts(dev) -> None:
+    """18e. ``run_with_restarts`` with a ``FaultInjector`` and a temporary
+    checkpoint directory ends with the same params as an unbroken run."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import OptimizerConfig, TrainConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
+    from repro_torch.models import common, transformer
+    from repro_torch.optim import adamw_init
+    from repro_torch.runtime.checkpoint import CheckpointManager
+    from repro_torch.runtime.fault import FaultInjector, run_with_restarts
+    from repro_torch.train import make_train_step
+
+    cfg = get_config("llama3.2-1b", reduced=True)
+    step_fn = make_train_step(cfg, TrainConfig(optimizer=OptimizerConfig(
+        learning_rate=1e-3, total_steps=12, warmup_steps=2)))
+    pipe = SyntheticPipeline(DataConfig(global_batch=4, seq_len=64, vocab_size=cfg.vocab_size),
+                             cfg)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in next(pipe).items()}
+               for _ in range(12)]
+    pipe.close()
+
+    def one(state, step):
+        p, o = state
+        p, o, _ = step_fn(p, o, batches[step])
+        return p, o
+
+    out = {}
+    for name, injector in (("unbroken", None), ("restarted", FaultInjector({5: 1, 10: 3}))):
+        params = common.init_params(torch.Generator(device=dev).manual_seed(0),
+                                    transformer.model_layout(cfg))
+        with tempfile.TemporaryDirectory() as d:
+            out[name] = run_with_restarts(one, (params, adamw_init(params)), n_steps=12,
+                                          ckpt=CheckpointManager(d), ckpt_every=4,
+                                          injector=injector)
+    a, b = out["restarted"], out["unbroken"]
+    check(a["restarts"] == 2 and b["restarts"] == 0 and a["steps"] == b["steps"] == 12,
+          f"restarts {a['restarts']}, {b['restarts']}")
+    pairs = list(zip(common.tree_leaves(a["state"][0]), common.tree_leaves(b["state"][0])))
+    diff = max((x - y).abs().max().item() for (_, x), (_, y) in pairs)
+    check(all(torch.equal(x, y) for (_, x), (_, y) in pairs),
+          f"the restarted run's params differ from the unbroken run's: max|Δ| {diff}")
+    print(f"[train] run_with_restarts (REDUCED llama3.2-1b on cuda, 12 steps, checkpoints every "
+          f"4, failures at steps 5 and 10): {a['restarts']} restarts, params bit-equal to an "
+          f"unbroken run")
+
+
+def phase_training(dev) -> int:
+    """The training path; returns B2's launches per step of the full-width
+    remat run (the main path of this phase)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import OptimizerConfig, TrainConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
+    from repro_torch.kernels.flash_attention import flash_attention, ops
+    from repro_torch.models import common, transformer
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import make_grad_fn, make_train_step
+
+    torch.cuda.empty_cache()
+    _train_reduced_cli(dev)
+
+    # 18b. full-width llama3.2-1b, float32 masters, bf16 activations, remat
+    cfg = get_config("llama3.2-1b")
+    check(cfg.remat and cfg.dtype == "bfloat16", "llama3.2-1b: want remat and bf16")
+    b, s, n_steps = TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS
+    tcfg = TrainConfig(optimizer=OptimizerConfig(learning_rate=3e-4, warmup_steps=2,
+                                                 total_steps=n_steps))
+    torch.cuda.reset_peak_memory_stats()
+    params = common.init_params(torch.Generator(device=dev).manual_seed(0),
+                                transformer.model_layout(cfg))
+    n_params = sum(t.numel() for _, t in common.tree_leaves(params))
+    opt = adamw_init(params, cfg.moment_dtype)
+    step_fn = make_train_step(cfg, tcfg)
+    pipe = SyntheticPipeline(DataConfig(global_batch=b, seq_len=s, vocab_size=cfg.vocab_size),
+                             cfg)
+    flash_attention.launches = 0
+    flash_attention.kernel_launches.update(dict.fromkeys(flash_attention.kernel_launches, 0))
+    times, losses = [], []
+    for _, batch in zip(range(n_steps), pipe):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        params, opt, metrics = step_fn(params, opt, batch)
+        losses.append(metrics["loss"].item())
+        times.append(time.perf_counter() - t0)
+    pipe.close()
+    launches, by_kernel = flash_attention.launches, dict(flash_attention.kernel_launches)
+    per_step = launches // n_steps
+    check(launches == n_steps * 2 * cfg.n_layers and by_kernel[ops.CUDA_CORE] == 0,
+          f"{n_steps} remat steps launched {launches} {by_kernel}, want "
+          f"{2 * cfg.n_layers} a step on the tensor-core kernel")
+    check(all(np.isfinite(losses)), f"losses {losses}")
+    step_s = float(np.median(times[1:]))
+    bound_s = 6 * n_params * b * s / BF16_OPS_PER_S
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[train] {cfg.name} full width ({n_params} float32 parameters, "
+          f"{4 * n_params / 1e9:.2f} GB; AdamW moments {cfg.moment_dtype}), bf16 activations, "
+          f"remat, B={b} S={s}: {n_steps} steps of make_train_step through SyntheticPipeline, "
+          f"{step_s * 1e3:.1f} ms a step (median of steps 2-{n_steps}; the first "
+          f"{times[0] * 1e3:.1f} ms), {b * s / step_s:.0f} tokens/s, 6·N·T bound "
+          f"{bound_s * 1e3:.1f} ms at {BF16_OPS_PER_S / 1e12:g} TFLOP/s ({bound_s / step_s:.1%} "
+          f"of it); peak device memory {peak / 2**30:.2f} GiB; flash launches {per_step} a "
+          f"step ({cfg.n_layers} forward + {cfg.n_layers} under remat) {by_kernel}; losses "
+          + " ".join(f"{x:.4f}" for x in losses))
+
+    # the attention backward's share of a step: CUDA events around each call
+    real, spans = ops.flash_attention_bwd, []
+
+    def timed_bwd(*args, **kw):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(*args, **kw)
+        end.record()
+        spans.append((start, end))
+        return out
+
+    pipe = SyntheticPipeline(DataConfig(b, s, cfg.vocab_size, seed=1), cfg)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in next(pipe).items()}
+    pipe.close()
+    ops.flash_attention_bwd = timed_bwd
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, grads = make_grad_fn(cfg, tcfg)(params, batch)
+        torch.cuda.synchronize()
+        grad_s = time.perf_counter() - t0
+    finally:
+        ops.flash_attention_bwd = real
+    bwd_ms = sum(a.elapsed_time(z) for a, z in spans)
+    print(f"[train] one forward + backward {grad_s * 1e3:.1f} ms; the attention backward "
+          f"(backward.flash_attention_bwd, plain PyTorch, {len(spans)} calls) {bwd_ms:.1f} ms = "
+          f"{bwd_ms / (grad_s * 1e3):.1%} of it, {bwd_ms / (step_s * 1e3):.1%} of a step")
+    leaves = list(common.tree_leaves(grads))
+    bad = [p for p, g in leaves if g is None or not torch.isfinite(g).all()]
+    check(not bad, f"parameters without a finite gradient on the card: {bad}")
+    print(f"[train] every one of {len(leaves)} parameter leaves has a finite gradient on the "
+          f"card (largest |g| {max(g.abs().max().item() for _, g in leaves):.3g})")
+    del grads, leaves
+    _train_flash_checks(cfg, params, batch, dev)
+    del opt
+    torch.cuda.empty_cache()
+    _train_float32_cuda_vs_cpu(cfg, params, dev)
+    del params
+    torch.cuda.empty_cache()
+    _train_restarts(dev)
+    return per_step
+
+
+# ---------------------------------------------------------------------------
+# 19. llama3-405b serving
+# ---------------------------------------------------------------------------
+
+
+def _llama405b_float32_layer(cfg, layer, dev) -> None:
+    """19d. The first layer alone in float32, card vs CPU, on a seeded
+    hidden state of 256 tokens (the 8.4 GB embedding stays off the CPU)."""
+    from repro_torch.models import common, transformer
+
+    t0 = time.perf_counter()
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    x = torch.randn(1, LLAMA405_F32_TOKENS, cfg.d_model,
+                    generator=torch.Generator().manual_seed(4))
+    out = []
+    with torch.inference_mode():
+        for d in (dev, torch.device("cpu")):
+            lp = common.tree_map(lambda t: t.to(device=d, dtype=torch.float32), layer)
+            pos = torch.arange(LLAMA405_F32_TOKENS, device=d)[None, :]
+            y, _, _ = transformer._apply_dense_or_moe(
+                lp, x.to(d), cfg32, kind="dense", is_local=False, positions=pos, cache=None,
+                cache_pos=None, return_state=False, cache_capacity=None)
+            out.append(y.cpu())
+            del lp
+    scale = out[1].abs().max().item()
+    diff = (out[0] - out[1]).abs().max().item()
+    check(diff <= 1e-4 * scale, f"llama3-405b layer 0 float32 cuda vs cpu: max|Δ| {diff}")
+    print(f"[405b] layer 0 in float32 on a seeded hidden state [1, {LLAMA405_F32_TOKENS}, "
+          f"{cfg.d_model}], cuda vs cpu: max|Δ| {diff:.3g} (tol 1e-4 of the output's max "
+          f"|y| {scale:.3g}); {time.perf_counter() - t0:.2f} s")
+
+
+def phase_llama405b_serving(dev) -> tuple:
+    """llama3-405b's serving path; returns its tensor-core launches per
+    ``generate`` and B2's times at its prefill layer."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import count_params
+    from repro_torch.kernels.flash_attention import flash_attention, ops
+    from repro_torch.kernels.grid_argmin import grid_argmin
+    from repro_torch.launch import serve
+    from repro_torch.models import common, transformer
+    from repro_torch.serving.engine import ServeEngine
+
+    torch.cuda.empty_cache()
+    flash_attention.launches = grid_argmin.launches = 0
+    t0 = time.perf_counter()
+    check(serve.main(["--arch", "llama3-405b", "--device", "cuda"]) == 0, "serve.main failed")
+    torch.cuda.synchronize()
+    fa, ga = flash_attention.launches, grid_argmin.launches
+    print(f"[405b] launch.serve --arch llama3-405b --device cuda (REDUCED): "
+          f"{time.perf_counter() - t0:.2f} s, flash_attention launches {fa}, grid_argmin "
+          f"launches {ga}")
+    check(fa > 0 and ga > 0, "the serving launcher launched no flash_attention or grid_argmin")
+    times = _padded_flash_times(LLAMA405_FLASH_SHAPES, 8, dev, "[405b]")
+
+    full = get_config("llama3-405b")
+    cfg = dataclasses.replace(full, n_layers=LLAMA405_LAYERS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = common.init_params(torch.Generator(device=dev).manual_seed(0),
+                                transformer.model_layout(cfg), dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for _, t in common.tree_leaves(params))
+    a = cfg.attention
+    print(f"[405b] {cfg.name} full width cut to {cfg.n_layers} of {full.n_layers} layers "
+          f"(d_model {cfg.d_model}, {a.n_heads}/{a.n_kv_heads} heads of {a.head_dim}, d_ff "
+          f"{cfg.d_ff}, untied vocab {cfg.vocab_size}): count_params {count_params(cfg)} "
+          f"({(count_params(cfg) - count_params(dataclasses.replace(cfg, n_layers=0))) // cfg.n_layers} "
+          f"a layer; {n_params} drawn, with the norms), {2 * n_params / 1e9:.2f} GB of bf16 "
+          f"weights drawn in "
+          f"{time.perf_counter() - t0:.2f} s")
+    launches, by_kernel, cache = phase_generate(
+        cfg, params, dev, flash_attention, "[405b]", b=LLAMA405_BATCH, s=LLAMA405_PROMPT,
+        n_new=LLAMA405_NEW, capacity=LLAMA405_PROMPT + LLAMA405_NEW)
+    del cache
+    want = {ops.TENSOR_CORE: cfg.n_layers, ops.CUDA_CORE: 0}
+    check(by_kernel == want, f"one bf16 generate launched {by_kernel}, want {want}")
+    peak = torch.cuda.max_memory_allocated()
+    check(peak <= 75 * 2**30, f"peak device memory {peak / 2**30:.2f} GiB > 75 GiB")
+    print(f"[405b] flash launches per generate: {by_kernel} at D = {a.head_dim}, G = "
+          f"{a.n_heads // a.n_kv_heads}; peak device memory {peak / 2**30:.2f} GiB (bf16 "
+          f"weights, activations, the decode cache)")
+    engine = ServeEngine(cfg=cfg, params=params, capacity=LLAMA405_PROMPT + LLAMA405_NEW,
+                         batch_size=LLAMA405_BATCH, device=dev)
+    prompts = torch.randint(0, cfg.vocab_size, (LLAMA405_BATCH, LLAMA405_PROMPT), device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(1))
+    _model_flash_check(cfg, lambda: engine._prefill(engine._params, {"tokens": prompts}),
+                       cfg.n_layers, "[405b]")
+    layer0 = common.tree_map(lambda t: t[0].cpu(), params["slots"][0])
+    del engine, params
+    torch.cuda.empty_cache()
+    _llama405b_float32_layer(cfg, layer0, dev)
+    return by_kernel[ops.TENSOR_CORE], times
+
+
 def _timed(label: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -3067,6 +3576,9 @@ def main() -> int:
                                                               phase_moe_serving, dev)
     flash[0]["launches_hybrid"], flash[0]["hybrid_shapes"] = _timed(
         "17 hybrid and frontends serving", phase_hybrid_serving, dev)
+    flash[0]["launches_train"] = _timed("18 training path", phase_training, dev)
+    flash[0]["launches_llama405b"], flash[0]["llama405b_shapes"] = _timed(
+        "19 llama3-405b serving", phase_llama405b_serving, dev)
     records = [argmin, *flash, scan]
     print(f"[time] all phases: {time.perf_counter() - t0:.2f} s")
     print("kernels: " + ", ".join(r["name"] for r in records))

@@ -1,8 +1,7 @@
 """Architecture registry of the port: ``--arch <id>`` resolution.
 
-Nine of the JAX package's ten architectures are registered; llama3-405b
-(dense, ROADMAP A12c) raises a ``KeyError`` that says it is not ported
-yet.
+All ten of the JAX package's architectures are registered; any other name
+raises a ``KeyError``.
 """
 
 from __future__ import annotations
@@ -10,7 +9,7 @@ from __future__ import annotations
 from typing import Dict, List
 
 from repro_torch.configs import (deepseek_v2_236b, falcon_mamba_7b, gemma2_2b, gemma3_27b,
-                                 hubert_xlarge, internvl2_1b, llama3_2_1b,
+                                 hubert_xlarge, internvl2_1b, llama3_2_1b, llama3_405b,
                                  qwen3_moe_235b_a22b, zamba2_2_7b)
 from repro_torch.configs.base import (SHAPES, AttentionConfig, ModelConfig,
                                       MoEConfig, OptimizerConfig, ShapeConfig,
@@ -27,18 +26,13 @@ _MODULES = {
     "zamba2-2.7b": zamba2_2_7b,
     "internvl2-1b": internvl2_1b,
     "hubert-xlarge": hubert_xlarge,
+    "llama3-405b": llama3_405b,
 }
 
 ARCH_NAMES: List[str] = list(_MODULES)
 
-#: Architectures of the JAX package that the port cannot run yet.
-NOT_PORTED = ("llama3-405b",)
-
 
 def get_config(name: str, reduced: bool = False) -> ModelConfig:
-    if name in NOT_PORTED:
-        raise KeyError(f"arch {name!r} is not ported yet; the port runs "
-                       f"{ARCH_NAMES}")
     if name not in _MODULES:
         raise KeyError(f"unknown arch {name!r}; known: {ARCH_NAMES}")
     mod = _MODULES[name]
@@ -51,5 +45,5 @@ def all_configs(reduced: bool = False) -> Dict[str, ModelConfig]:
 
 __all__ = ["AttentionConfig", "ModelConfig", "MoEConfig", "OptimizerConfig",
            "ShapeConfig", "SHAPES", "SSMConfig", "TrainConfig", "ARCH_NAMES",
-           "NOT_PORTED", "get_config", "all_configs", "count_params",
+           "get_config", "all_configs", "count_params",
            "shape_applicable"]

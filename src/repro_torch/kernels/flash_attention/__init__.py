@@ -21,15 +21,23 @@ one by dtype and head_dim, a fixed rule:
       work), because TF32 would miss the fp32 tolerance; within 2e-5;
   ops.py — ``flash_attention``: the kernels for CUDA tensors, the plain
       version for CPU tensors, input checks, the TMA map arguments
-      (``tma_map_args``) and launch counts, in total and per kernel;
-  ref.py — ``attention_ref`` / ``flash_attention_ref``: the plain version.
+      (``tma_map_args``) and launch counts, in total and per kernel; under
+      autograd, ``FlashAttention``, whose forward also stores each row's
+      softmax stats (m, l) and whose backward is ``backward.py``;
+  ref.py — ``attention_ref`` / ``flash_attention_ref``: the plain version,
+      with the same stats on request;
+  backward.py — ``flash_attention_bwd``: the JAX package's ``_fa_bwd`` in
+      plain PyTorch (the JAX package has no backward kernel either).
 
 Both are GQA-folded (query head h reads KV head h / G), align the causal
 mask at 0, take a sliding window and a softcap, mask ragged ends and read
 their inputs through their strides.
 """
 
-from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.backward import flash_attention_bwd
+from repro_torch.kernels.flash_attention.ops import (FlashAttention, flash_attention,
+                                                     flash_attention_fwd)
 from repro_torch.kernels.flash_attention.ref import attention_ref, flash_attention_ref
 
-__all__ = ["flash_attention", "attention_ref", "flash_attention_ref"]
+__all__ = ["flash_attention", "flash_attention_fwd", "FlashAttention", "flash_attention_bwd",
+           "attention_ref", "flash_attention_ref"]

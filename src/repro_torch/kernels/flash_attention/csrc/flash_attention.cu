@@ -14,6 +14,8 @@
 //   per KV tile             m' = max(m, rowmax s);  p = exp(s − m');  corr = exp(m − m')
 //                           l = l·corr + Σp;  acc = acc·corr + p·v   (p stays fp32)
 //   out                     acc / max(l, 1e-30).
+//   stats (optional)        m and l of each row, float32 [B, H, Sq], in the natural-log
+//                           domain of the scaled scores: what the attention backward needs.
 //
 // The causal mask is aligned at position 0 of both sequences, as in the Pallas kernel;
 // the op refuses causal calls with Sq != Sk, where the plain version aligns it on the
@@ -81,8 +83,9 @@ __host__ __device__ constexpr size_t smem_floats(int d) {
 template <typename T, int NJ>
 __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ o, Strides qs, Strides ks, Strides vs, int Sq, int Sk, int H, int G,
-    int D, float scale, int causal, int window, int has_cap, float cap) {
+    T* __restrict__ o, float* __restrict__ m_out, float* __restrict__ l_out, Strides qs,
+    Strides ks, Strides vs, int Sq, int Sk, int H, int G, int D, float scale, int causal,
+    int window, int has_cap, float cap) {
   extern __shared__ float smem[];
   const int ld = D + 1;
   float* sQ = smem;              // [kBQ][ld]
@@ -221,13 +224,19 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
       const int d = tx + 16 * jj;
       if (d < D) store(ob + static_cast<long long>(qpos) * H * D + d, acc[r][jj] / denom);
     }
+    // the row's stats: the same in the 16 lanes of its half-warp, stored by the first
+    if (m_out != nullptr && tx == 0) {
+      const long long i = (static_cast<long long>(b) * H + h) * Sq + qpos;
+      m_out[i] = m[r];
+      l_out[i] = l[r];
+    }
   }
 }
 
 template <typename T, int NJ>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk,
-           int H, int KV, int D, Strides qs, Strides ks, Strides vs, float scale,
-           int causal, int window, int has_cap, float cap, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* m_out, float* l_out,
+           int B, int Sq, int Sk, int H, int KV, int D, Strides qs, Strides ks, Strides vs,
+           float scale, int causal, int window, int has_cap, float cap, cudaStream_t stream) {
   const size_t smem = smem_floats(D) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel<T, NJ>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -236,26 +245,27 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, 
   const dim3 grid(H, B, (Sq + kBQ - 1) / kBQ);
   flash_attention_kernel<T, NJ><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), qs, ks, vs, Sq, Sk, H, H / KV, D, scale, causal, window,
-      has_cap, cap);
+      static_cast<T*>(o), m_out, l_out, qs, ks, vs, Sq, Sk, H, H / KV, D, scale, causal,
+      window, has_cap, cap);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch_d(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk,
-             int H, int KV, int D, Strides qs, Strides ks, Strides vs, float scale,
-             int causal, int window, int has_cap, float cap, cudaStream_t stream) {
+int launch_d(const void* q, const void* k, const void* v, void* o, float* m_out,
+             float* l_out, int B, int Sq, int Sk, int H, int KV, int D, Strides qs,
+             Strides ks, Strides vs, float scale, int causal, int window, int has_cap,
+             float cap, cudaStream_t stream) {
   if (D <= 32)
-    return launch<T, 2>(q, k, v, o, B, Sq, Sk, H, KV, D, qs, ks, vs, scale, causal, window,
-                        has_cap, cap, stream);
+    return launch<T, 2>(q, k, v, o, m_out, l_out, B, Sq, Sk, H, KV, D, qs, ks, vs, scale,
+                        causal, window, has_cap, cap, stream);
   if (D <= 64)
-    return launch<T, 4>(q, k, v, o, B, Sq, Sk, H, KV, D, qs, ks, vs, scale, causal, window,
-                        has_cap, cap, stream);
+    return launch<T, 4>(q, k, v, o, m_out, l_out, B, Sq, Sk, H, KV, D, qs, ks, vs, scale,
+                        causal, window, has_cap, cap, stream);
   if (D <= 128)
-    return launch<T, 8>(q, k, v, o, B, Sq, Sk, H, KV, D, qs, ks, vs, scale, causal, window,
-                        has_cap, cap, stream);
-  return launch<T, 16>(q, k, v, o, B, Sq, Sk, H, KV, D, qs, ks, vs, scale, causal, window,
-                       has_cap, cap, stream);
+    return launch<T, 8>(q, k, v, o, m_out, l_out, B, Sq, Sk, H, KV, D, qs, ks, vs, scale,
+                        causal, window, has_cap, cap, stream);
+  return launch<T, 16>(q, k, v, o, m_out, l_out, B, Sq, Sk, H, KV, D, qs, ks, vs, scale,
+                       causal, window, has_cap, cap, stream);
 }
 
 }  // namespace
@@ -263,15 +273,17 @@ int launch_d(const void* q, const void* k, const void* v, void* o, int B, int Sq
 // Launches on `stream` without synchronizing; returns a CUDA error code as an int
 // (cudaGetLastError() after the launch).  q: [B, Sq, H, D]; k, v: [B, Sk, KV, D], each
 // given by its batch, sequence and head strides in elements (head_dim contiguous);
-// o: a contiguous [B, Sq, H, D]; all float32.  window <= 0 means none; has_cap = 0
-// means no softcap.  The caller checks D <= 256 and H % KV == 0.
+// o: a contiguous [B, Sq, H, D]; all float32.  m_out, l_out: contiguous float32 [B, H, Sq]
+// for the row stats, or both null for none.  window <= 0 means none; has_cap = 0 means no
+// softcap.  The caller checks D <= 256 and H % KV == 0.
 extern "C" int flash_attention_launch(
-    const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk,
-    int H, int KV, int D, long long q_sb, long long q_ss, long long q_sh, long long k_sb,
-    long long k_ss, long long k_sh, long long v_sb, long long v_ss, long long v_sh,
+    const void* q, const void* k, const void* v, void* o, void* m_out, void* l_out, int B,
+    int Sq, int Sk, int H, int KV, int D, long long q_sb, long long q_ss, long long q_sh,
+    long long k_sb, long long k_ss, long long k_sh, long long v_sb, long long v_ss, long long v_sh,
     float scale, int causal, int window, int has_cap, float cap, void* stream) {
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return launch_d<float>(q, k, v, o, B, Sq, Sk, H, KV, D, qs, ks, vs, scale, causal,
-                         window, has_cap, cap, st);
+  return launch_d<float>(q, k, v, o, static_cast<float*>(m_out), static_cast<float*>(l_out),
+                         B, Sq, Sk, H, KV, D, qs, ks, vs, scale, causal, window, has_cap,
+                         cap, st);
 }

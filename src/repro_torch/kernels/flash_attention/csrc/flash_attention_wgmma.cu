@@ -13,6 +13,10 @@
 //   per KV tile             m' = max(m, rowmax s);  p = exp(s − m');  corr = exp(m − m')
 //                           l = l·corr + Σp (fp32 p);  acc = acc·corr + bf16(p)·v
 //   out                     acc / max(l, 1e-30), rounded once to bf16.
+//   stats (optional)        m and l of each row, float32 [B, H, Sq], in the natural-log
+//                           domain of the scaled scores, as the attention backward reads
+//                           them: m is kept in base 2 (below) and multiplied by ln 2 on
+//                           the store.
 //
 // The causal mask is aligned at position 0, as in the Pallas kernel.  p is rounded to
 // bf16 before p·v, as the TPU kernel does (`p.astype(v.dtype)`).
@@ -90,6 +94,7 @@ namespace {
 
 constexpr float kNegInf = -2.0e38f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // Shared-memory geometry of one head_dim.  A tile is stored as column boxes of
 // kRowBytes-byte rows, each swizzled by TMA in atoms of 8 rows.  KV tiles hold 128 keys,
@@ -506,8 +511,9 @@ __device__ __forceinline__ void pack_p(uint32_t (&p)[BK / 16][4], const float (&
 template <int D, bool kCap>
 __global__ void __launch_bounds__(Tile<D>::kThreads, 1) flash_attention_wgmma_kernel(
     const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-    const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o, int Sq, int Sk,
-    int H, int G, float scale, int causal, int window, float cap) {
+    const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
+    float* __restrict__ m_out, float* __restrict__ l_out, int Sq, int Sk, int H, int G,
+    float scale, int causal, int window, float cap) {
   using T = Tile<D>;
   constexpr int BK = T::kBK;
   constexpr int kStages = T::kStages;
@@ -703,6 +709,13 @@ __global__ void __launch_bounds__(Tile<D>::kThreads, 1) flash_attention_wgmma_ke
     for (int g = 0; g < D / 8; ++g)
       *reinterpret_cast<__nv_bfloat162*>(row + 8 * g) =
           __floats2bfloat162_rn(acc[4 * g + 2 * r] / denom, acc[4 * g + 2 * r + 1] / denom);
+    // the row's stats: the same in the four threads of its quad, stored by the first; a
+    // row that saw no key keeps the −2e38 it started with
+    if (m_out != nullptr && w.c_th == 0) {
+      const long long i = (static_cast<long long>(b) * H + h) * Sq + qpos;
+      m_out[i] = m[r] <= kNegInf ? kNegInf : m[r] * kLn2;
+      l_out[i] = l[r];
+    }
   }
 }
 
@@ -753,18 +766,18 @@ int encode(CUtensorMap* map, const void* ptr, const unsigned long long* a) {
 }
 
 template <int D>
-int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv, void* o, int B,
-           int Sq, int Sk, int H, int KV, float scale, int causal, int window, int has_cap,
-           float cap, cudaStream_t stream) {
+int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv, void* o,
+           float* m_out, float* l_out, int B, int Sq, int Sk, int H, int KV, float scale,
+           int causal, int window, int has_cap, float cap, cudaStream_t stream) {
   auto kernel = has_cap ? flash_attention_wgmma_kernel<D, true>
                         : flash_attention_wgmma_kernel<D, false>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Tile<D>::kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(H, B, (Sq + Tile<D>::kBQ - 1) / Tile<D>::kBQ);
-  kernel<<<grid, Tile<D>::kThreads, Tile<D>::kSmem, stream>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(o),
-                                                     Sq, Sk, H, H / KV, scale, causal, window,
-                                                     cap);
+  kernel<<<grid, Tile<D>::kThreads, Tile<D>::kSmem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), m_out, l_out, Sq, Sk, H, H / KV, scale,
+      causal, window, cap);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -773,11 +786,13 @@ int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv, 
 // Launches on `stream` without synchronizing; returns 0, a CUDA error code, or one of
 // the codes above.  q: [B, Sq, H, D]; k, v: [B, Sk, KV, D], bfloat16, each described by
 // its tensor-map arguments (ops.tma_map_args: q with 64-row boxes, k and v with
-// ops.kv_box_rows(D)-row boxes); o: a contiguous [B, Sq, H, D].  window <= 0 means none;
+// ops.kv_box_rows(D)-row boxes); o: a contiguous [B, Sq, H, D]; m_out, l_out: contiguous
+// float32 [B, H, Sq] for the row stats, or both null for none.  window <= 0 means none;
 // has_cap = 0 means no softcap.  The caller checks D in {16, 32, 64, 128, 256},
 // H % KV == 0 and the alignment TMA needs.
 extern "C" int flash_attention_wgmma_launch(const void* q, const void* k, const void* v,
-                                            void* o, const unsigned long long* q_map,
+                                            void* o, void* m_out, void* l_out,
+                                            const unsigned long long* q_map,
                                             const unsigned long long* k_map,
                                             const unsigned long long* v_map, int B, int Sq,
                                             int Sk, int H, int KV, int D, float scale,
@@ -789,19 +804,24 @@ extern "C" int flash_attention_wgmma_launch(const void* q, const void* k, const 
   if (rc == 0) rc = encode(&tv, v, v_map);
   if (rc != 0) return rc;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* const mo = static_cast<float*>(m_out);
+  float* const lo = static_cast<float*>(l_out);
   switch (D) {
     case 16:
-      return launch<16>(tq, tk, tv, o, B, Sq, Sk, H, KV, scale, causal, window, has_cap, cap, st);
+      return launch<16>(tq, tk, tv, o, mo, lo, B, Sq, Sk, H, KV, scale, causal, window,
+                        has_cap, cap, st);
     case 32:
-      return launch<32>(tq, tk, tv, o, B, Sq, Sk, H, KV, scale, causal, window, has_cap, cap, st);
+      return launch<32>(tq, tk, tv, o, mo, lo, B, Sq, Sk, H, KV, scale, causal, window,
+                        has_cap, cap, st);
     case 64:
-      return launch<64>(tq, tk, tv, o, B, Sq, Sk, H, KV, scale, causal, window, has_cap, cap, st);
+      return launch<64>(tq, tk, tv, o, mo, lo, B, Sq, Sk, H, KV, scale, causal, window,
+                        has_cap, cap, st);
     case 128:
-      return launch<128>(tq, tk, tv, o, B, Sq, Sk, H, KV, scale, causal, window, has_cap, cap,
-                         st);
+      return launch<128>(tq, tk, tv, o, mo, lo, B, Sq, Sk, H, KV, scale, causal, window,
+                         has_cap, cap, st);
     case 256:
-      return launch<256>(tq, tk, tv, o, B, Sq, Sk, H, KV, scale, causal, window, has_cap, cap,
-                         st);
+      return launch<256>(tq, tk, tv, o, mo, lo, B, Sq, Sk, H, KV, scale, causal, window,
+                         has_cap, cap, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

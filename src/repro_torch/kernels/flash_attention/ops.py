@@ -21,6 +21,14 @@ head_dim.  There is no fallback between the kernels or to the plain
 version.
 ``flash_attention.launches`` counts all kernel launches and
 ``flash_attention.kernel_launches`` the launches of each kernel.
+
+Training: when grad is enabled and q, k or v requires grad, the op runs
+as :class:`FlashAttention`, a ``torch.autograd.Function`` on every device.
+Its forward is the same kernel (or plain version) asked also for the row
+stats m and l, and saves (q, k, v, out, m, l); its backward is
+``backward.flash_attention_bwd``, the JAX package's ``_fa_bwd`` in plain
+PyTorch over ``q_chunk`` × ``kv_chunk`` blocks.  ``flash_attention_fwd``
+is the forward with the stats, for callers that check them.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention.backward import flash_attention_bwd
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 #: Largest head_dim the kernels take (the CUDA-core kernel's 16 output
@@ -46,11 +55,11 @@ TENSOR_CORE, CUDA_CORE = "flash_attention_wgmma", "flash_attention"
 Q_BOX_ROWS = 64
 
 _DTYPES = (torch.float32, torch.bfloat16)
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 9
+_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 9
              + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                 ctypes.c_float, ctypes.c_void_p])
 _MapArg = ctypes.c_ulonglong * 12
-_WGMMA_ARGTYPES = ([ctypes.c_void_p] * 4 + [_MapArg] * 3 + [ctypes.c_int] * 6
+_WGMMA_ARGTYPES = ([ctypes.c_void_p] * 6 + [_MapArg] * 3 + [ctypes.c_int] * 6
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                       ctypes.c_float, ctypes.c_void_p])
 #: Error codes the tensor-core launch adds to CUDA's.
@@ -163,7 +172,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     softcap: Optional[float] = None,
-                    scale: Optional[float] = None) -> torch.Tensor:
+                    scale: Optional[float] = None,
+                    q_chunk: int = 1024, kv_chunk: int = 1024) -> torch.Tensor:
     """q: [B,Sq,H,D]; k,v: [B,Sk,KV,D] (GQA: H = KV·G, query head ``h`` reads
     KV head ``h // G``).  Returns [B,Sq,H,D] in q's dtype.
 
@@ -174,15 +184,62 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``scale`` defaults to ``1/sqrt(D)``.  On a CUDA tensor the head_dim
     axis must be contiguous and the kernels read the other axes through
     their strides; a bfloat16 view must also be one TMA can take
-    (``tma_map_args``).
+    (``tma_map_args``).  When grad is enabled and an input requires grad,
+    the call is differentiable (:class:`FlashAttention`), and its backward
+    works in blocks of ``q_chunk`` query rows by ``kv_chunk`` keys (the
+    model config's).
     """
-    dev = _check(q, k, v, causal, window, softcap)
-    b, sq, h, d = q.shape
-    scale = scale if scale is not None else 1.0 / (d ** 0.5)
-    if dev.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal, window=window,
-                                   softcap=softcap, scale=scale)
+    _check(q, k, v, causal, window, softcap)
+    scale = scale if scale is not None else 1.0 / (q.shape[-1] ** 0.5)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttention.apply(q, k, v, causal, window, softcap, scale, q_chunk,
+                                    kv_chunk)
+    return _forward(q, k, v, causal, window, softcap, scale, stats=False)[0]
 
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: Optional[int] = None,
+                        softcap: Optional[float] = None, scale: Optional[float] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The op's forward with the row stats: ``(out, m, l)``, m and l
+    float32 [B,H,Sq] in the natural-log domain of the scaled scores (the
+    kernels store them; the plain version computes them).  Not
+    differentiable."""
+    _check(q, k, v, causal, window, softcap)
+    scale = scale if scale is not None else 1.0 / (q.shape[-1] ** 0.5)
+    return _forward(q, k, v, causal, window, softcap, scale, stats=True)
+
+
+class FlashAttention(torch.autograd.Function):
+    """The op under autograd: forward by the kernel (CUDA) or the plain
+    version (CPU) with the row stats, backward by ``flash_attention_bwd``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, scale, q_chunk, kv_chunk):
+        out, m, l = _forward(q, k, v, causal, window, softcap, scale, stats=True)
+        ctx.save_for_backward(q, k, v, out, m, l)
+        ctx.opts = dict(causal=causal, window=window, softcap=softcap, scale=scale,
+                        q_chunk=q_chunk, kv_chunk=kv_chunk)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, m, l = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, m, l, dout, **ctx.opts)
+        return dq, dk, dv, None, None, None, None, None, None
+
+
+def _forward(q, k, v, causal, window, softcap, scale, stats: bool):
+    """``(out, m, l)`` (m, l None without ``stats``) of checked inputs: the
+    kernel for CUDA tensors, the plain version for CPU tensors."""
+    b, sq, h, d = q.shape
+    if q.device.type == "cpu":
+        with torch.no_grad():
+            res = flash_attention_ref(q, k, v, causal=causal, window=window, softcap=softcap,
+                                      scale=scale, return_stats=stats)
+        return res if stats else (res, None, None)
+
+    dev = q.device
     kernel = route(q.dtype, d)
     options = (float(scale), int(causal), -1 if window is None else int(window),
              int(softcap is not None), float(softcap or 0.0))
@@ -195,9 +252,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         fn = _build.load(CUDA_CORE).flash_attention_launch
         fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=dev)
+    m = l = None
+    if stats:
+        m = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
+        l = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                None if m is None else m.data_ptr(), None if l is None else l.data_ptr())
         if kernel == TENSOR_CORE:
             rc = fn(*ptrs, *maps, b, sq, k.shape[1], h, k.shape[2], d, *options, stream)
         else:
@@ -212,7 +274,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {rc}")
     flash_attention.launches += 1
     flash_attention.kernel_launches[kernel] += 1
-    return out
+    return out, m, l
 
 
 flash_attention.launches = 0

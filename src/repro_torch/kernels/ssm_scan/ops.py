@@ -6,6 +6,8 @@ the current stream, without synchronizing; CPU tensors run the plain
 PyTorch version in ``ref.py``, which is how a caller asks for the CPU.
 There is no fallback between the two: a CUDA input that the kernel
 cannot take raises.  ``selective_scan.launches`` counts kernel launches.
+The kernel has no backward yet: a CUDA call with grad enabled and an input
+that requires grad raises (the plain version on the CPU trains).
 
 The kernel splits each channel's N <= 16 states across two lanes of a
 warp, takes each decay as one ``ex2.approx`` of delta·A·log2(e), and
@@ -88,6 +90,11 @@ def selective_scan(delta: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
     dev = _check(delta, B, C, x, A_log)
     if dev.type == "cpu":
         return selective_scan_ref(delta, B, C, x, A_log)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (delta, B, C, x, A_log)):
+        raise RuntimeError(
+            "selective_scan: the CUDA kernel has no backward (ROADMAP: the selective "
+            "scan's backward); a grad-requiring call on the card would train without the "
+            "scan's gradient, so it is refused.  Train Mamba-1 models on the CPU for now.")
 
     b, s, d = delta.shape
     n = B.shape[-1]

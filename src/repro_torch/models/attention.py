@@ -26,8 +26,13 @@ Two compute paths for each kind:
 
 ``windowed_attention`` is the JAX package's banded form of a causal
 sliding-window attention, plain PyTorch here; no GQA path of either
-package calls it (the flash op skips the same band tile by tile).  The
-attention backward is not ported yet (ROADMAP A12).
+package calls it (the flash op skips the same band tile by tile).
+
+Training differentiates the prefill path: the flash op runs as a
+``torch.autograd.Function`` when an input requires grad, with the JAX
+package's ``_fa_bwd`` as its backward over the config's ``q_chunk`` ×
+``kv_chunk`` blocks; ``_padded_flash``'s zero columns and its cut stay
+ordinary differentiable tensor ops around it.
 """
 
 from __future__ import annotations
@@ -277,7 +282,8 @@ def gqa_apply(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig
     if cache is None:
         eff_window = window if (window is not None and window < s) else None
         o = _padded_flash([q], [k], v, causal=cfg.causal, scale=scale,
-                          softcap=a.attn_softcap, window=eff_window)
+                          softcap=a.attn_softcap, window=eff_window,
+                          q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
         if return_state:
             new_cache = _prefill_gqa_cache(k, v, window=window,
                                            capacity=cache_capacity or s)
@@ -358,7 +364,7 @@ def mla_apply(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig
         k_nope = (c_kv @ params["wk_b"].to(dt).reshape(r, -1)).unflatten(-1, (a.n_heads, nope))
         v = (c_kv @ params["wv_b"].to(dt).reshape(r, -1)).unflatten(-1, (a.n_heads, a.v_head_dim))
         o = _padded_flash([q_nope, q_rope], [k_nope, k_rope], v, causal=cfg.causal,
-                          scale=scale)
+                          scale=scale, q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
         if return_state:
             cap_len = cache_capacity or s
             new_cache = {"c_kv": c_kv.new_zeros((b, cap_len, r)),

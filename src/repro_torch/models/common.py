@@ -1,4 +1,4 @@
-"""Shared model machinery: parameter layouts, norms, RoPE.
+"""Shared model machinery: parameter layouts, norms, RoPE, the loss.
 
 Port of ``repro.models.common``.  A model is described by a *layout* — a
 tree (dicts and lists) of :class:`ParamDef` leaves — from which the
@@ -11,7 +11,7 @@ arrays, so a JAX parameter pytree carries over leaf for leaf
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Iterator, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -158,3 +158,30 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     y1 = x1 * cos - x2 * sin
     y2 = x2 * cos + x1 * sin
     return torch.cat([y1, y2], dim=-1).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, z_loss: float = 0.0,
+                  mask: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Token cross-entropy in fp32 with optional z-loss and padding mask.
+
+    logits: [..., vocab]; labels: [...] int.  Returns (scalar, metrics)
+    with the metric keys ``ce``, ``z_loss`` and ``accuracy``.
+    """
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = lse - gold
+    zl = torch.square(lse)
+    mask = torch.ones_like(nll) if mask is None else mask.float()
+    denom = torch.clamp(torch.sum(mask), min=1.0)
+    loss = torch.sum(nll * mask) / denom
+    z = torch.sum(zl * mask) / denom
+    total = loss + z_loss * z
+    hit = (torch.argmax(logits, -1) == labels.long()).float()
+    return total, {"ce": loss, "z_loss": z, "accuracy": torch.sum(hit * mask) / denom}

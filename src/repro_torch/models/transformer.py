@@ -19,6 +19,12 @@ remainder layers, as the reference's, get none.  The frontends replace
 the token embedding: the audio family projects ``features``, the VLM
 family maps ``patches`` through a two-layer projector onto the first
 positions.
+
+Training (grad enabled, neither decoding nor building a cache) with
+``cfg.remat`` wraps each period layer and the shared block in
+``torch.utils.checkpoint`` where the reference applies ``jax.checkpoint``:
+their activations are recomputed in the backward, so the attention
+forward runs twice a layer a step.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
@@ -259,22 +266,33 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
     prefix, n_per, rem = scanned_layers(cfg)
     p = period_of(cfg)
     collect = decoding or return_state
+    remat = cfg.remat and torch.is_grad_enabled() and not collect
     new_cache: Dict[str, Any] = {"prefix": [], "rem": []}
     aux_acc = _zero_aux(cfg, x.device)
 
-    def run_layer(lp, x, gidx, layer_cache):
+    def apply_layer(lp, x, gidx, layer_cache):
         kind = _layer_kind(cfg, gidx)
         if kind == "mamba":
-            x, nc, aux = _apply_mamba(lp, x, cfg, cache=layer_cache,
-                                      return_state=return_state)
+            return _apply_mamba(lp, x, cfg, cache=layer_cache, return_state=return_state)
+        return _apply_dense_or_moe(
+            lp, x, cfg, kind=kind, is_local=_is_local(cfg, gidx), positions=positions,
+            cache=layer_cache, cache_pos=cache_pos, return_state=return_state,
+            cache_capacity=cache_capacity)
+
+    def run_layer(lp, x, gidx, layer_cache, rematted=False):
+        if rematted:
+            x, nc, aux = checkpoint(apply_layer, lp, x, gidx, None, use_reentrant=False)
         else:
-            x, nc, aux = _apply_dense_or_moe(
-                lp, x, cfg, kind=kind, is_local=_is_local(cfg, gidx), positions=positions,
-                cache=layer_cache, cache_pos=cache_pos, return_state=return_state,
-                cache_capacity=cache_capacity)
+            x, nc, aux = apply_layer(lp, x, gidx, layer_cache)
         for k, v in aux.items():
             aux_acc[k] = aux_acc[k] + v
         return x, nc
+
+    def apply_shared(lp, x, layer_cache):
+        return _apply_dense_or_moe(
+            lp, x, cfg, kind="dense", is_local=False, positions=positions,
+            cache=layer_cache, cache_pos=cache_pos, return_state=return_state,
+            cache_capacity=cache_capacity)
 
     for i in range(prefix):
         x, nc = run_layer(params["prefix"][i], x, i,
@@ -292,15 +310,15 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
                 lp = common.tree_map(lambda t: t[i], params["slots"][si])
                 lc = (common.tree_map(lambda t: t[i], cache["slots"][si])
                       if decoding else None)   # views: decode writes through
-                x, nc = run_layer(lp, x, prefix + si, lc)
+                x, nc = run_layer(lp, x, prefix + si, lc, rematted=remat)
                 slot_caches[si].append(nc)
             if shared is not None:
                 lc = (common.tree_map(lambda t: t[i], cache["shared"])
                       if decoding else None)
-                x, nc, _ = _apply_dense_or_moe(
-                    shared, x, cfg, kind="dense", is_local=False, positions=positions,
-                    cache=lc, cache_pos=cache_pos, return_state=return_state,
-                    cache_capacity=cache_capacity)
+                if remat:
+                    x, nc, _ = checkpoint(apply_shared, shared, x, None, use_reentrant=False)
+                else:
+                    x, nc, _ = apply_shared(shared, x, lc)
                 shared_caches.append(nc)
         if decoding:
             new_cache["slots"] = cache["slots"]

@@ -1,2 +1,3 @@
-"""Runtime helpers of the port: correlated failure models and elastic
-mesh arithmetic (numpy and integers only)."""
+"""Runtime of the port: checkpoint/restart, failure injection and
+correlated failure models, straggler mitigation and elastic mesh
+arithmetic."""

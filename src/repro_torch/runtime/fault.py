@@ -1,23 +1,95 @@
-"""Correlated fleet-failure models for the §V availability plane.
+"""Failure injection, correlated failure models and restart orchestration
+(port of ``repro.runtime.fault``).
 
-Port of the numpy half of ``repro.runtime.fault``, bit-identical to it:
-:class:`FailureModel` — rack-level blast radius, Weibull or exponential
-time to failure, lognormal repairs — samples per-node up/down matrices and
-emits per-step usable-node schedules.  Failures never change workload
-traces; they ride beside them into the control loop
+On a real fleet, node failure surfaces as a collective timeout or a
+coordinator health-check miss; the recovery contract is the same either
+way: abandon the step, reload the newest committed checkpoint, and go on.
+This module provides (a) :class:`FaultInjector`, a deterministic failure
+schedule for tests and examples, (b) ``run_with_restarts``, the
+supervision loop that implements that contract around any step function,
+and (c) :class:`FailureModel`, bit-identical to the reference's —
+rack-level blast radius, Weibull or exponential time to failure,
+lognormal repairs — which samples per-node up/down matrices and emits
+per-step usable-node schedules.  Failures never change workload traces;
+they ride beside them into the control loop
 (:mod:`repro_torch.core.scenarios` registers the ``rack_failure`` /
-``cascade`` / ``flaky_fleet`` shapes on top of it).  The restart half
-(``FaultInjector``, ``run_with_restarts``) belongs to training and is not
-ported.
+``cascade`` / ``flaky_fleet`` shapes on top of it).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, List, NamedTuple, Optional
+from typing import Any, Callable, Dict, List, NamedTuple, Optional
 
 import numpy as np
+
+from repro_torch.runtime.checkpoint import CheckpointManager
+
+
+class NodeFailure(RuntimeError):
+    def __init__(self, node: int, step: int):
+        super().__init__(f"node {node} failed at step {step}")
+        self.node = node
+        self.step = step
+
+
+@dataclasses.dataclass
+class FaultInjector:
+    """Deterministic failure schedule: fail at given steps (once each).
+
+    ``_fired`` is keyed by ``(step, node)`` — the same *node* scheduled
+    to fail at two different steps fires at both, and a restart that
+    replays an already-fired step does not re-raise it.
+    """
+
+    fail_at: Dict[int, int]  # step -> node id
+    _fired: set = dataclasses.field(default_factory=set)
+
+    def check(self, step: int):
+        node = self.fail_at.get(step)
+        if node is not None and (step, node) not in self._fired:
+            self._fired.add((step, node))
+            raise NodeFailure(node, step)
+
+
+def run_with_restarts(step_fn: Callable[[Any, int], Any], state: Any,
+                      n_steps: int, ckpt: CheckpointManager,
+                      ckpt_every: int = 10,
+                      injector: Optional[FaultInjector] = None,
+                      on_failure: Optional[Callable[[NodeFailure, Any], Any]] = None
+                      ) -> Dict[str, Any]:
+    """Supervised training loop with checkpoint/restart.
+
+    ``step_fn(state, step) -> state``.  On ``NodeFailure`` the loop reloads
+    the last committed checkpoint (after letting ``on_failure`` adapt the
+    state it restores onto) and resumes from its step, or from step 0 and
+    the state it holds when there is none.
+    """
+    step = 0
+    restarts = 0
+    restored = ckpt.restore_latest(state)
+    if restored is not None:
+        state, step = restored
+    while step < n_steps:
+        try:
+            if injector is not None:
+                injector.check(step)
+            state = step_fn(state, step)
+            step += 1
+            if step % ckpt_every == 0:
+                ckpt.save(state, step=step, blocking=True)
+        except NodeFailure as e:
+            restarts += 1
+            if on_failure is not None:
+                state = on_failure(e, state)
+            restored = ckpt.restore_latest(state)
+            if restored is None:
+                step = 0
+            else:
+                state, step = restored
+    ckpt.wait()
+    return {"state": state, "steps": step, "restarts": restarts}
 
 
 class FailureEvent(NamedTuple):

@@ -25,8 +25,8 @@ from repro.models import attention as jattn
 from repro.models import common as jcommon
 from repro.models import ffn as jffn
 from repro.models import transformer as jtf
-from repro_torch import convert
-from repro_torch.configs import ARCH_NAMES, NOT_PORTED, get_config
+from repro_torch import configs, convert
+from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.configs import base as tbase
 from repro_torch.models import attention as tattn
 from repro_torch.models import common as tcommon
@@ -61,11 +61,13 @@ def _close(out, ref, dtype, msg=""):
 
 
 def test_configs_match_and_unported_archs_raise():
+    """All ten architectures are ported: the registry matches the JAX
+    package's (``NOT_PORTED`` is gone), and an unknown name raises."""
     assert ARCH_NAMES == ["llama3.2-1b", "falcon-mamba-7b", "gemma2-2b", "gemma3-27b",
                           "qwen3-moe-235b-a22b", "deepseek-v2-236b", "zamba2-2.7b",
-                          "internvl2-1b", "hubert-xlarge"]
-    assert NOT_PORTED == ("llama3-405b",)
-    assert sorted(ARCH_NAMES + list(NOT_PORTED)) == sorted(JAX_ARCHS)
+                          "internvl2-1b", "hubert-xlarge", "llama3-405b"]
+    assert not hasattr(configs, "NOT_PORTED")
+    assert sorted(ARCH_NAMES) == sorted(JAX_ARCHS)
     for name in ARCH_NAMES:
         for reduced in (False, True):
             j, t = jax_config(name, reduced), get_config(name, reduced)
@@ -73,9 +75,7 @@ def test_configs_match_and_unported_archs_raise():
             assert t.padded_vocab == j.padded_vocab
             assert tbase.count_params(t) == jbase.count_params(j)
     assert get_config("llama3.2-1b").total_params() == pytest.approx(1.236e9, rel=1e-3)
-    for name in NOT_PORTED:
-        with pytest.raises(KeyError, match="not ported yet"):
-            get_config(name)
+    assert get_config("llama3-405b").total_params() == pytest.approx(405.8e9, rel=1e-2)
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("gpt-2")
 
@@ -230,15 +230,15 @@ def test_forward_prefill_return_state_and_decode(dtype):
 
 
 def test_unported_families_raise():
-    """The hybrid and frontend families once raised here; now every model
-    family builds its layout and runs a forward, and only llama3-405b
-    (dense, a config away) is refused, by the registry."""
-    for name in ("zamba2-2.7b", "internvl2-1b", "hubert-xlarge"):
+    """The hybrid and frontend families once raised here, and llama3-405b
+    after them; now every model family, llama3-405b included, builds its
+    layout and runs a forward, and only an unknown name is refused."""
+    for name in ("zamba2-2.7b", "internvl2-1b", "hubert-xlarge", "llama3-405b"):
         cfg = dataclasses.replace(get_config(name, reduced=True), dtype="float32")
         params = tcommon.init_params(torch.Generator().manual_seed(0), ttf.model_layout(cfg))
         batch = ({"features": torch.randn(1, 16, cfg.frontend_dim)} if cfg.family == "audio"
                  else {"tokens": torch.zeros(1, 16, dtype=torch.int32)})
         logits, _, _ = ttf.forward(params, cfg, batch)
         assert logits.shape == (1, 16, cfg.padded_vocab) and torch.isfinite(logits).all()
-    with pytest.raises(KeyError, match="not ported yet"):
-        get_config("llama3-405b")
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("llama3-406b")

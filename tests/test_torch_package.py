@@ -73,7 +73,12 @@ def test_port_package_covers_the_slice():
                  "core/predictors/periodic.py", "core/composition.py", "core/aot.py",
                  "launch/compose.py", "serving/batching.py",
                  "configs/gemma2_2b.py", "configs/gemma3_27b.py", "serving/kvcache.py",
-                 "configs/zamba2_2_7b.py", "configs/internvl2_1b.py", "configs/hubert_xlarge.py"):
+                 "configs/zamba2_2_7b.py", "configs/internvl2_1b.py", "configs/hubert_xlarge.py",
+                 "configs/llama3_405b.py", "kernels/flash_attention/backward.py",
+                 "optim/__init__.py", "optim/adamw.py", "optim/schedule.py",
+                 "optim/compress.py", "train/__init__.py", "train/step.py",
+                 "data/__init__.py", "data/pipeline.py", "runtime/checkpoint.py",
+                 "runtime/straggler.py", "launch/train.py"):
         assert want in names, want
     for name, src in _build.SOURCES.items():
         assert (_build.KERNELS_DIR / src).exists(), name
@@ -180,6 +185,50 @@ def test_campaign_entry_points_raise_without_a_card(monkeypatch):
             call()
     out = tctl.simulate_fleet_stream(tables, trace, cfg, device="cpu")
     assert out.mean_power_w.shape == (1, 1) and np.isfinite(out.mean_power_w).all()
+
+
+TRAINING_MODULES = ("repro_torch.optim", "repro_torch.train", "repro_torch.data",
+                    "repro_torch.runtime.checkpoint", "repro_torch.runtime.straggler",
+                    "repro_torch.runtime.fault", "repro_torch.launch.train",
+                    "repro_torch.kernels.flash_attention.backward", "repro_torch.convert")
+
+
+@pytest.mark.parametrize("module", TRAINING_MODULES)
+def test_training_modules_import_with_jax_blocked(module):
+    """A fresh interpreter in which ``import jax`` and ``import repro``
+    fail imports each module of the training slice."""
+    code = ("import sys\n"
+            "for name in ('jax', 'jaxlib', 'repro'):\n"
+            "    sys.modules[name] = None\n"
+            f"import {module}\n"
+            "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
+            "               for m in sys.modules if sys.modules[m] is not None)\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    run = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert run.returncode == 0, run.stderr
+
+
+def test_training_entry_points_raise_without_a_card(monkeypatch, tmp_path):
+    from repro_torch.launch import train as ttrain
+
+    _no_cuda(monkeypatch)
+    cfg = get_config("llama3.2-1b", reduced=True)
+    layout = ttf.model_layout(cfg)
+    zeros = {p: np.zeros(d.shape, np.float32) for p, d in tcommon.tree_leaves(layout)}
+
+    class State:
+        step, m, v = np.int32(0), zeros, zeros
+
+    calls = {
+        "train.main": lambda: ttrain.main(["--steps", "1"]),
+        "opt_state_from_numpy": lambda: convert.opt_state_from_numpy(State, cfg, None),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    state = convert.opt_state_from_numpy(State, cfg, "cpu")
+    assert state.step.dtype == torch.int32 and state.m["embed"].device.type == "cpu"
 
 
 @pytest.mark.parametrize("name", sorted(_build.SOURCES))
