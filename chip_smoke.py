@@ -24,6 +24,9 @@ printing its seconds:
    kernel at the Table II shape and on both fine grids beside its plain
    version, its bound and the launch floor;
    ``compare_all_batched(..., v_step=0.005)`` on ``cuda`` against the CPU;
+   the closure half of ``core/voltage.py`` (``optimize_batch`` over the
+   five accelerators × four grids × 25 levels) on ``cuda`` against the CPU
+   and the params path, and the three ``voltage_opt/*`` rows (µs a call);
 4. main path — ``compare_all_batched`` on ``cuda`` for Table II (five
    accelerators × six techniques, 8 nodes, 25 bins) at 2048 and 1024 steps:
    the kernel launch count of each run, the per-accelerator gains, the
@@ -72,7 +75,14 @@ printing its seconds:
    rows off a 16-byte boundary, delta and x starting off one, bf16 at
    N = 16, the serving shape), y and h both; at the serving shape (B = 4,
    S = 2048, d_inner 8192, d_state 16, fp32) the kernel's and the plain
-   version's times and the bound;
+   version's times and the bound; the backward kernel's ptxas report (no
+   spill bytes) and SASS (MUFU.EX2), its gradients against the plain
+   backward on the same boundary store (each within 1e-4 of its max |g|,
+   two launches bit-equal; a ragged S, D and N = 4, N = 1 and 12, S = 1,
+   D = 8200, the serving shape), the store against a plain re-scan and the
+   store-less launch's y and h; at the serving shape the backward's, the
+   plain backward's and the bound's times, and the forward with and
+   without the store, in turns;
 8. Mamba serving path — ``launch.serve --arch falcon-mamba-7b --no-reduced``
    on ``cuda``; ``ServeEngine`` on full-width falcon-mamba-7b (64 Mamba-1
    layers, 7.27 B float32 parameters from a seed, bf16 activations) at the
@@ -87,9 +97,9 @@ printing its seconds:
    the printed decimals, every ``Summary`` field within 1e-5 of the same
    rows on the CPU, miss counts equal; the wall time and the grid_argmin
    launches;
-10. campaign — ``python -m repro_torch.launch.campaign`` at its defaults
-   (five accelerators × ``proposed,power_gating,hybrid`` × the fifteen
-   scenarios, 4096 steps, chunk 1024) on ``cuda`` and on the CPU: every cell
+10. campaign — ``python -m repro_torch.launch.campaign`` at its defaults but
+   2048 steps (five accelerators × ``proposed,power_gating,hybrid`` × the
+   fifteen scenarios, chunk 1024) on ``cuda`` and on the CPU: every cell
    within 1e-5 relative, miss rates and Pareto fronts equal; the wall time,
    µs per step, and from a ``torch.profiler`` window of the streaming loop
    the kernels per step and the device's busy share; then the
@@ -98,8 +108,8 @@ printing its seconds:
    gains within 0.006, rates within 2/S, fronts and flags equal (the
    ``*/stream_reuse`` rows count JAX retraces and are skipped);
 11. long stream — one scenario × five accelerators × three techniques at
-   8192 steps in 4096-step chunks: peak device memory within 1 MiB of the
-   same campaign at 4096 steps, every cell within 1e-5 of a CPU run;
+   4096 steps in 2048-step chunks: peak device memory within 1 MiB of the
+   same campaign at 2048 steps, every cell within 1e-5 of a CPU run;
 12. predictors — ``benchmarks/run.py``'s predictor sweep on ``cuda``: every
    registered family's campaign over the fifteen scenarios (tabla,
    ``proposed``, 2048 steps in 512-step chunks; seasonal_naive one campaign
@@ -108,15 +118,16 @@ printing its seconds:
    ``BENCH_fleet.json`` (gains within 0.006, rates within 2/S); the
    holt_winters campaign within 1e-5 of the CPU, every family's
    ``evaluate_trace`` bins equal to the CPU's; µs, device kernels and busy
-   share per step of each family's streaming loop (64-step profile); a
+   share per step of each family's streaming loop (32-step profile); a
    seasonal trace whose dips drive the raw forecast to −1 through both
    fleet loops on ``cuda``, equal to the CPU;
 13. composition — ``benchmarks/run.py``'s composition search on ``cuda``
    (tabla + stripes, 48 candidates, burse and diurnal, 1024 steps): the 3
    ``composition/*`` rows, one grid_argmin launch, the search within 1e-5
    of the CPU with Pareto sets equal; ``python -m
-   repro_torch.launch.compose`` at its defaults with ``--cache-dir`` in an
-   empty directory (it builds grid_argmin), then again with ``--warm``
+   repro_torch.launch.compose`` at its defaults but 512 steps with
+   ``--cache-dir`` in an empty directory (it builds grid_argmin), then
+   again with ``--warm``
    over the same directory (it must build nothing);
 14. serving loop — the 5 ``hybrid/<accelerator>`` rows on ``cuda`` and
    ``hybrid/closed_loop_serving`` (``run_request_load``, λ = 1 for 4096
@@ -180,9 +191,9 @@ printing its seconds:
    steps, internvl2's first 2 layers with patches, hubert's first 2 on
    features;
 18. training path — ``python -m repro_torch.launch.train`` REDUCED on ``cuda``
-   for every arch, 2 steps each, falcon-mamba-7b refused before its weights
-   are drawn (the scan kernel has no backward) and a grad-requiring scan
-   call on the card raising; full-width llama3.2-1b (1.236 B float32
+   for every arch, 2 steps each (falcon-mamba-7b through the scan's
+   forward and backward kernels), a grad-requiring bf16 scan call on the
+   card raising; full-width llama3.2-1b (1.236 B float32
    masters, AdamW moments, bf16 activations, remat) for 8 steps of
    ``make_train_step`` through ``SyntheticPipeline`` at B = 4, S = 2048:
    ms a step, tokens a second, the 6·N·T bound, peak device memory and
@@ -195,7 +206,15 @@ printing its seconds:
    layers in float32 on ``cuda`` and on the CPU (B = 1, S = 256, through
    the CUDA-core kernel's stats): grads, 2 steps' metrics and params; a
    ``run_with_restarts`` run with two injected failures, bit-equal to an
-   unbroken run;
+   unbroken run; B2 under autograd at llama's serving shape (forward with
+   stats + plain backward, the backward alone and its bound) beside SDPA's
+   forward + backward; full-width falcon-mamba-7b cut to 8 of 64 layers
+   (1.375 B float32 masters, bf16 activations, remat) for 8 steps at
+   B = 4, S = 2048: ms a step, tokens a second, the roofline module's
+   6·N·T bound, peak memory, 16 scan forwards and 8 backwards a step, the
+   scan backward's share of a forward + backward (CUDA events), a finite
+   gradient on every leaf; its first 2 layers in float32 on ``cuda`` and
+   on the CPU (B = 1, S = 256): grads, 2 steps' metrics and params;
 19. llama3-405b serving — ``launch.serve --arch llama3-405b`` REDUCED on
    ``cuda``; the tensor-core kernel at its prefill layer (B = 2, S = 4096,
    128/8 heads of 128, G = 16) beside its plain version, SDPA and the
@@ -209,6 +228,7 @@ printing its seconds:
 
 Phase 5 also times each flash kernel with its row-stats store (the
 training forward's) beside the store-less launch that serving makes.
+Peak rates come from ``repro_torch.analysis.roofline.HW_H100``.
 It ends with a ``{"kernels": [...]}`` line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}`` as the last line.  Without a
 CUDA device, or outside a checkout of this repository, it exits non-zero
@@ -234,11 +254,13 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-# The H100 SXM's published peaks: HBM3 bandwidth, non-tensor-core fp32 and
-# dense bf16 tensor-core.
-HBM_BYTES_PER_S = 3.35e12
+from repro_torch.analysis.roofline import HW_H100  # noqa: E402
+
+# The H100 SXM's published peaks: HBM3 bandwidth and dense bf16 on the tensor
+# cores (the roofline module's HW_H100), non-tensor-core fp32.
+HBM_BYTES_PER_S = HW_H100.hbm_bw
 FP32_OPS_PER_S = 67e12
-BF16_OPS_PER_S = 989e12
+BF16_OPS_PER_S = HW_H100.peak_flops
 POWER_RTOL = 1e-5
 # Table II's sweep on finer voltage grids: 61 x 91 and 301 x 451 points.
 ARGMIN_FINE = {"fine_5mV": 0.005, "fine_1mV": 0.001}
@@ -335,6 +357,13 @@ SCAN_CASES = [
 SCAN_OFFSET_CASES = [((2, 70, 256, 16, torch.float32), 1, 3),
                      ((1, 40, 200, 12, torch.bfloat16), 3, 0)]
 SCAN_SERVING = (4, 2048, 8192, 16, torch.float32)   # falcon-mamba-7b prefill scan
+# The scan's backward kernel against the plain backward: fp32, each gradient within
+# SCAN_BWD_TOL of its largest magnitude (the kernels' exp2 and sum orders).  (b, S, D, N):
+# a ragged S, D and N = 4, N = 1 and 12 with D off the 64-channel blocks, S = 1, D = 8200,
+# and the serving shape.
+SCAN_BWD_TOL = 1e-4
+SCAN_BWD_CASES = [(2, 77, 70, 16), (1, 40, 33, 4), (2, 45, 201, 12), (2, 50, 128, 1),
+                  (3, 1, 300, 16), (1, 33, 8200, 16), (4, 2048, 8192, 16)]
 MAMBA_ARCH = "falcon-mamba-7b"
 MAMBA_F32_LAYERS = 2    # layers of the float32 card-vs-CPU check
 # Phase 15: gemma2-2b at full depth and gemma3-27b cut to 8 layers (one period of 6
@@ -378,10 +407,16 @@ ANALYTIC = ((0.0, 0.4), (0.8, 0.4), (0.2, 2.0))
 FIGURES = ("fig4", "fig5", "fig6", "fig10", "fig12")
 BENCH_STEPS = 1024          # the steps of BENCH_fleet.json's rows
 BENCH_CHUNK = 512           # benchmarks/run.py's chunk at 1024 steps
-LONG_STEPS, LONG_CHUNK, LONG_SCENARIO = (4096, 8192), 4096, "node_failure"
-WARM_RUNS = 3               # warm and staged 2048-step Table II calls timed in phase 4
+# Depths cut to keep the whole script well inside its time limit as phases were added
+# (the checks are unchanged): phase 11's stream (once 16384 steps, then 8192), phase 4's
+# warm runs (once 5, then 3), the profile windows (once 64 steps), and phase 10's and
+# 13's CLI runs (once at their 4096- and 2048-step defaults).
+LONG_STEPS, LONG_CHUNK, LONG_SCENARIO = (2048, 4096), 2048, "node_failure"
+WARM_RUNS = 1               # warm and staged 2048-step Table II calls timed in phase 4
 PEAK_SLACK_BYTES = 1 << 20
-PROFILE_STEPS = 64
+PROFILE_STEPS = 32
+CAMPAIGN_CLI_STEPS = 2048   # launch.campaign in phase 10 (its default: 4096)
+COMPOSE_CLI_STEPS = 512     # launch.compose in phase 13 (its default: 2048)
 PRED_STEPS, PRED_CHUNK = 2048, 512     # benchmarks/run.py's predictor sweep
 COMPOSE_SCENARIOS = ("burse", "diurnal")
 SERVE_LOOP_STEPS = 4096                # hybrid/closed_loop_serving's arrival steps
@@ -390,6 +425,9 @@ TRAIN_F32 = (2, 256, 1)                # float32 card vs CPU: layers, S, B
 TRAIN_LR = 1e-3
 TRAIN_OUTLIERS = 1e-3                  # share of a leaf's elements past 1e-5 (Adam's noise)
 TRAIN_M_RTOL, TRAIN_L_RTOL = 1e-5, 1e-4   # B2's row stats vs the plain version's
+# Full-width falcon-mamba-7b training, cut from 64 to 8 layers (1.375 B float32 masters,
+# 22 GB of state with AdamW moments), bf16 activations, remat, the llama run's B, S and steps
+MAMBA_TRAIN_LAYERS = 8
 LLAMA405_LAYERS = 8
 LLAMA405_BATCH, LLAMA405_PROMPT, LLAMA405_NEW = 2, 4096, 32
 LLAMA405_FLASH_SHAPES = {"llama3_405b": (2, 4096, 8, 16, 128, 128, True)}
@@ -640,9 +678,70 @@ def phase_kernels(dev) -> dict:
     print(f"[kernels] launch floor (one-element add_) {floor_ms * 1e3:.2f} us; "
           f"{grid_argmin.launches - launches_before} timing launches")
     _fine_grid_end_to_end(dev)
+    _voltage_closure(dev)
     ms, plain_ms, bound_ms, bound_by = times["table2"]
     return _record("grid_argmin", "grid_argmin", "src/repro/kernels/grid_argmin/kernel.py:40",
                    max_err, ms, plain_ms, bound_ms, bound_by, None)
+
+
+def _voltage_closure(dev) -> None:
+    """3b. The closure half of ``core/voltage.py`` on ``cuda``: every Table I
+    accelerator × the default, core-only, BRAM-only and frequency-only
+    grids × the 25 bin levels, grid points and ``feasible`` equal to the
+    CPU's and power within 1e-5; the closure and params paths' points
+    equal on the card; then the three ``voltage_opt/*`` rows of
+    ``BENCH_fleet.json`` as ``benchmarks/run.py`` builds them (tabla, the
+    13 x 19 grid), µs a call on ``cuda``."""
+    from repro_torch.core import controller as ctl
+    from repro_torch.core import voltage as volt
+    from repro_torch.core.accelerators import ACCELERATORS
+
+    levels = volt.bin_frequency_levels(25, 0.05)
+    kinds = {"default": "proposed", "core_only": "core_only", "bram_only": "bram_only",
+             "frequency_only": "freq_only"}
+    worst, n = 0.0, 0
+    for name, acc in ACCELERATORS.items():
+        plat = ctl.fpga_platform(acc)
+        for kind, tech in kinds.items():
+            grids = (volt.VoltageGrids.default() if kind == "default"
+                     else getattr(volt.VoltageGrids, kind)())
+            got = volt.optimize_batch(plat.delay_fn, plat.power_fn, levels.to(dev),
+                                      grids.to(dev))
+            want = volt.optimize_batch(plat.delay_fn, plat.power_fn, levels, grids)
+            for field in ("v_core", "v_bram", "feasible"):
+                check(torch.equal(getattr(got, field).cpu(), getattr(want, field)),
+                      f"voltage closure {name} {kind}: {field} on cuda differs from the CPU")
+            rel = ((got.power.cpu() - want.power).abs() / want.power.abs()).max().item()
+            check(rel <= POWER_RTOL, f"voltage closure {name} {kind}: power rel {rel}")
+            full = volt.VoltageGrids.default().to(dev)
+            params = volt.optimize_batch_params(
+                plat.params.to(dev), levels.to(dev), full.core, full.bram,
+                volt.technique_grid_mask(tech, full))
+            check(torch.equal(params.v_core, got.v_core) and torch.equal(params.v_bram,
+                                                                          got.v_bram),
+                  f"voltage closure {name} {kind}: closure and params paths differ on cuda")
+            worst, n = max(worst, rel), n + 1
+    print(f"[kernels] voltage closure path on cuda, {n} (accelerator, grid) sweeps x 25 "
+          f"levels: points and feasible equal to the CPU's and to the params path's, power "
+          f"within {POWER_RTOL} (worst rel {worst:.3g})")
+
+    plat = ctl.fpga_platform(ACCELERATORS["tabla"])
+    grids = volt.VoltageGrids.default().to(dev)
+    half = torch.tensor(0.5, device=dev)
+    lv = levels.to(dev)
+    table = volt.build_operating_table(plat.delay_fn, plat.power_fn, lv, grids)  # warm
+    point_us = 1e6 * _median_s(lambda: volt.optimize_point(plat.delay_fn, plat.power_fn, half,
+                                                           grids), 100)
+    table_us = 1e6 * _median_s(lambda: volt.build_operating_table(plat.delay_fn, plat.power_fn,
+                                                                  lv, grids), 20)
+    req = torch.tensor(0.37, device=dev)
+    lookup_us = 1e6 * _median_s(lambda: table.lookup(req), 100)
+    check(float(table.lookup(req).f_rel) >= 0.37, "the table lookup does not ceil")
+    for row, us, what in (("voltage_opt/grid_point", point_us, "13x19_grid, f_rel 0.5"),
+                          ("voltage_opt/table_build_25bins", table_us, "synthesis_time"),
+                          ("voltage_opt/runtime_lookup", lookup_us, "runtime_path, f 0.37")):
+        print(f"[kernels] {row} on cuda: {us:.1f} us a call (median, host clock to a "
+              f"synchronize, as benchmarks/run.py times it; {what})")
 
 
 def _fine_grid_end_to_end(dev) -> None:
@@ -1357,16 +1456,22 @@ def _scan_bound(ins, outs) -> tuple[float, str, str]:
     b, s, d = delta.shape
     elems = b * s * d * B.shape[-1]
     n_bytes = sum(t.numel() * t.element_size() for t in list(ins) + list(outs))
+    return _scan_bound_of(n_bytes, elems, 6 * elems + b * s * d)
+
+
+def _scan_bound_of(n_bytes: int, n_exp: int, fp32_ops: int) -> tuple[float, str, str]:
+    """max(bytes over HBM bandwidth, max(fp32 ops over the non-tensor-core
+    peak, exponentials over the SFUs at the card's maximum SM clock)), in ms,
+    with what bounds it and the terms."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
                           "--format=csv,noheader,nounits"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.split()[0]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    sfu_per_s = SFU_PER_SM_CLOCK * sms * float(smi) * 1e6
     t_bytes = n_bytes / HBM_BYTES_PER_S
-    t_fp32 = (6 * elems + b * s * d) / FP32_OPS_PER_S
-    t_exp = elems / sfu_per_s
+    t_fp32 = fp32_ops / FP32_OPS_PER_S
+    t_exp = n_exp / (SFU_PER_SM_CLOCK * sms * float(smi) * 1e6)
     t_ops = max(t_fp32, t_exp)
-    detail = (f"{n_bytes / 1e6:.1f} MB in {t_bytes * 1e3:.4f} ms, {elems / 1e9:.3f} G exp in "
+    detail = (f"{n_bytes / 1e6:.1f} MB in {t_bytes * 1e3:.4f} ms, {n_exp / 1e9:.3f} G exp in "
               f"{t_exp * 1e3:.4f} ms ({sms} SMs at {smi} MHz), fp32 ops in "
               f"{t_fp32 * 1e3:.4f} ms")
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), detail
@@ -1414,7 +1519,114 @@ def _scan_case_check(name: str, ins) -> float:
     return max(err_y, err_h)
 
 
-def phase_scan_kernels(dev) -> dict:
+def _scan_bwd_build_check() -> None:
+    """The built backward kernel: no spills, MUFU.EX2 in its SASS."""
+    from repro_torch.kernels import _build
+
+    lib = _build.library_path("ssm_scan_bwd")
+    for line in (lib.parent / "build.log").read_text().splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"[scan-bwd] ptxas: {line.strip()[:140]}")
+            spills = [int(n) for n in re.findall(r"(\d+) bytes spill", line)]
+            check(not any(spills), f"the scan backward kernel spills: {line.strip()}")
+    print(f"[scan-bwd] SASS: {_sass_check(_sass(lib), lib.name, ('MUFU.EX2',))}")
+
+
+def _scan_bwd_inputs(case, gen, dev):
+    """Inputs, the forward's boundary store and cotangents dy, dh of a case."""
+    from repro_torch.kernels.ssm_scan import ops
+
+    b, s, d, n = case
+    ins = _scan_inputs(b, s, d, n, torch.float32, gen, dev)
+    y, h, bnd = ops._forward(*ins, store=True)
+    dy = torch.randn(b, s, d, generator=gen, device=dev)
+    dh = torch.randn(b, d, n, generator=gen, device=dev)
+    return ins, bnd, dy, dh, (y, h)
+
+
+def _scan_bwd_bound(ins, bnd, dy, dh, grads) -> tuple[float, str, str]:
+    """Least time for the scan's backward: its inputs (δ, B, C, x, A_log, the
+    boundary states, dy, dh) read and its gradients written once over HBM
+    bandwidth, vs its operations per state element: one exponential a_t,
+    which the walk back can keep from the recompute of the chunk's states,
+    and 22 fp32 operations — the recompute's δ·A, du·B and FMA a·h + u (4),
+    g = dy·C + a·g (3), a·h_{t−1} and A·(a·h_{t−1}) (2), x·B + that (2), and
+    the FMAs into dδ, dx, dB, dC (8) and into dA_log (g·a·h_{t−1}, then ·δ;
+    3)."""
+    b, s, d = ins[0].shape
+    elems = b * s * d * ins[1].shape[-1]
+    n_bytes = sum(t.numel() * t.element_size() for t in (*ins, bnd, dy, dh, *grads))
+    return _scan_bound_of(n_bytes, elems, 22 * elems)
+
+
+def _scan_backward_kernel(dev) -> dict:
+    """7b. The backward kernel against ``backward.selective_scan_bwd_ref`` on
+    the same inputs and boundary store, two launches bit-equal; the store
+    against a plain re-scan and the store-less launch; times at the serving
+    shape: the backward, its plain version, its bound, and the forward
+    with and without the store."""
+    from repro_torch.kernels.ssm_scan import ops, selective_scan, selective_scan_bwd_ref
+    from repro_torch.kernels.ssm_scan.backward import scan_boundaries
+
+    _scan_bwd_build_check()
+    gen = torch.Generator(device=dev).manual_seed(3)
+    max_err = 0.0
+    for case in SCAN_BWD_CASES:
+        ins, bnd, dy, dh, (y, h) = _scan_bwd_inputs(case, gen, dev)
+        y0, h0 = selective_scan(*ins)
+        check(torch.equal(y, y0) and torch.equal(h, h0),
+              f"{case}: the storing forward's y, h differ from the serving launch's")
+        if case[1] < 2048:
+            ref_bnd = scan_boundaries(ins[0], ins[1], ins[3], ins[4])
+            tol = SCAN_TOL[torch.float32]
+            check(torch.allclose(bnd, ref_bnd, rtol=tol, atol=tol),
+                  f"{case}: boundary store differs from a plain re-scan beyond {tol}")
+            check(torch.equal(bnd[:, -1], h), f"{case}: the last boundary is not h_final")
+        g1 = ops.selective_scan_bwd(*ins, bnd, dy, dh)
+        g2 = ops.selective_scan_bwd(*ins, bnd, dy, dh)
+        ref = selective_scan_bwd_ref(*ins, dy, dh, boundary=bnd)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, c) for a, c in zip(g1, g2)),
+              f"{case}: two backward launches differ")
+        errs = []
+        for name, a, r in zip(("dδ", "dB", "dC", "dx", "dA_log"), g1, ref):
+            scale = max(r.abs().max().item(), 1e-30)   # dA_log is 0 at S = 1 (h_0 = 0)
+            err = (a - r).abs().max().item()
+            check(a.shape == r.shape and err <= SCAN_BWD_TOL * scale,
+                  f"{case} {name}: max|Δ| {err} > {SCAN_BWD_TOL} x {scale}")
+            errs.append(err / scale)
+            max_err = max(max_err, err)
+        print(f"[scan-bwd] {case}: each gradient vs the plain backward, max|Δ| / max|g|: "
+              + ", ".join(f"{v:.3g}" for v in errs) + f" (tol {SCAN_BWD_TOL}); two launches "
+              f"bit-equal")
+        del ins, bnd, dy, dh, g1, g2, ref, y, h, y0, h0
+        torch.cuda.empty_cache()
+
+    ins, bnd, dy, dh, _ = _scan_bwd_inputs(SCAN_BWD_CASES[-1], gen, dev)
+    grads = ops.selective_scan_bwd(*ins, bnd, dy, dh)
+    launches_before = selective_scan.bwd_launches
+    ms = device_time_ms(lambda: ops.selective_scan_bwd(*ins, bnd, dy, dh), 10)
+    plain_ms = device_time_ms(lambda: selective_scan_bwd_ref(*ins, dy, dh, boundary=bnd), 1)
+    bound_ms, bound_by, detail = _scan_bwd_bound(ins, bnd, dy, dh, grads)
+    fwd = {}
+    for label in ("plain", "store", "store", "plain"):
+        store = label == "store"
+        fwd.setdefault(label, []).append(
+            device_time_ms(lambda: ops._forward(*ins, store=store), 20))
+    print(f"[scan-bwd] serving shape {SCAN_BWD_CASES[-1]} fp32, medians: backward kernel "
+          f"{ms:.4f} ms ({ms / bound_ms:.2f}x the bound), plain backward {plain_ms:.4f} ms, "
+          f"bound {bound_ms:.4f} ms ({bound_by}: {detail}); "
+          f"{selective_scan.bwd_launches - launches_before} timing launches")
+    print(f"[scan-bwd] the forward at the serving shape, in turns (no store, store, store, no "
+          f"store): without the boundary store {fwd['plain'][0]:.4f} / {fwd['plain'][1]:.4f} ms, "
+          f"with it (training) {fwd['store'][0]:.4f} / {fwd['store'][1]:.4f} ms")
+    rec = _record("selective_scan_bwd", "ssm_scan_bwd", "src/repro/kernels/ssm_scan/kernel.py:30",
+                  max_err, ms, plain_ms, bound_ms, bound_by, None)
+    rec["forward_store_ms"], rec["forward_no_store_ms"] = fwd["store"], fwd["plain"]
+    return rec
+
+
+def phase_scan_kernels(dev) -> tuple:
     from repro_torch.kernels.ssm_scan import selective_scan, selective_scan_ref
 
     _scan_build_check()
@@ -1438,8 +1650,11 @@ def phase_scan_kernels(dev) -> dict:
     print(f"[scan] serving shape {SCAN_SERVING[:4]} fp32, medians: kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: {detail}); "
           f"{selective_scan.launches - launches_before} timing launches")
-    return _record("selective_scan", "ssm_scan", "src/repro/kernels/ssm_scan/kernel.py:30",
-                   max_err, ms, plain_ms, bound_ms, bound_by, None)
+    del ins, y, h
+    torch.cuda.empty_cache()
+    fwd = _record("selective_scan", "ssm_scan", "src/repro/kernels/ssm_scan/kernel.py:30",
+                  max_err, ms, plain_ms, bound_ms, bound_by, None)
+    return fwd, _scan_backward_kernel(dev)
 
 
 def phase_mamba_serving(dev) -> int:
@@ -1740,7 +1955,8 @@ def _bench_campaign_rows(dev) -> dict:
 
 
 def phase_campaign(dev) -> None:
-    """The campaign CLI at its defaults on the card and on the CPU, its
+    """The campaign CLI (its defaults, CAMPAIGN_CLI_STEPS steps) on the card
+    and on the CPU, its
     step loop's profile, and BENCH_fleet.json's campaign-path rows."""
     from repro_torch.kernels.grid_argmin import grid_argmin
     from repro_torch.launch import campaign
@@ -1761,20 +1977,22 @@ def phase_campaign(dev) -> None:
     grid_argmin.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    check(cli([], "cuda") == 0, "campaign.main failed on cuda")
+    argv = ["--steps", str(CAMPAIGN_CLI_STEPS)]
+    check(cli(argv, "cuda") == 0, "campaign.main failed on cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = grid_argmin.launches
     check(launches == 1, f"the campaign launched grid_argmin {launches} times, want 1")
     t0 = time.perf_counter()
-    check(cli(["--device", "cpu"], "cpu") == 0, "campaign.main failed on the CPU")
+    check(cli(argv + ["--device", "cpu"], "cpu") == 0, "campaign.main failed on the CPU")
     cpu_s = time.perf_counter() - t0
     first = tables["cuda"].split("\n\n")[1]
     print("\n".join(f"[campaign]   {line}" for line in first.splitlines()))
     steps = res["cuda"]["n_steps"]
     cells = sum(len(s) for t in res["cuda"]["table"].values() for s in t.values())
     worst = _compare_campaigns(res["cuda"], res["cpu"], "campaign")
-    print(f"[campaign] python -m repro_torch.launch.campaign (defaults: {cells} cells x "
+    print(f"[campaign] python -m repro_torch.launch.campaign (defaults, --steps "
+          f"{CAMPAIGN_CLI_STEPS}: {cells} cells x "
           f"{steps} steps, chunk 1024) on cuda: {wall:.2f} s, {wall / steps * 1e6:.1f} us per "
           f"step, grid_argmin launches {launches}; on the CPU {cpu_s:.2f} s; every cell "
           f"within {SUMMARY_RTOL} (worst rel {worst:.3g}), miss rates and Pareto fronts equal")
@@ -1810,9 +2028,9 @@ def phase_campaign(dev) -> None:
 
 
 def phase_long_stream(dev) -> None:
-    """One scenario's campaign at 4096 and 8192 steps in 4096-step chunks:
-    the peak device memory must not grow with the trace, and the longer
-    run's cells match a CPU run."""
+    """One scenario's campaign at LONG_STEPS (2048 and 4096) steps in
+    LONG_CHUNK-step chunks: the peak device memory must not grow with the
+    trace, and the longer run's cells match a CPU run."""
     from repro_torch.core import controller as ctl
     from repro_torch.core import scenarios as scn
     from repro_torch.core.accelerators import ACCELERATORS
@@ -2088,12 +2306,14 @@ def phase_composition(dev) -> None:
           f"every array within {SUMMARY_RTOL} (worst rel {worst:.3g}), Pareto sets equal")
 
     with tempfile.TemporaryDirectory() as cache:
-        cold = _compose_cli(["--cache-dir", cache])
-        warm = _compose_cli(["--cache-dir", cache, "--warm"])
+        args = ["--cache-dir", cache, "--steps", str(COMPOSE_CLI_STEPS)]
+        cold = _compose_cli(args)
+        warm = _compose_cli(args + ["--warm"])
     check(cold[1].startswith("grid_argmin "), f"the first compose process built {cold[1]!r}")
     check(warm[1] == "none", f"the second compose process built {warm[1]!r}, want none")
     print(f"[composition] python -m repro_torch.launch.compose (defaults: 200 candidates x 2 "
-          f"platforms x 2 scenarios x 2048 steps) --cache-dir <empty dir>: {cold[0]:.2f} s, "
+          f"platforms x 2 scenarios; --steps {COMPOSE_CLI_STEPS}) --cache-dir <empty dir>: "
+          f"{cold[0]:.2f} s, "
           f"built {cold[1]}; again with --warm over the same dir: {warm[0]:.2f} s, built "
           f"{warm[1]}; {warm[2][0][2:] if warm[2] else 'no warm line'}")
 
@@ -3108,10 +3328,11 @@ def _hold_train_state(got, want, bound, what: str) -> tuple:
 
 
 def _train_reduced_cli(dev) -> None:
-    """18a. ``launch.train`` REDUCED on the card for every arch but
-    falcon-mamba-7b, 2 steps each; falcon-mamba-7b refused before weights
-    are drawn, and a grad-requiring scan call on the card refused."""
-    from repro_torch.configs import ARCH_NAMES
+    """18a. ``launch.train`` REDUCED on the card for every arch, 2 steps
+    each (falcon-mamba-7b through the scan's forward and backward kernels);
+    a grad-requiring bf16 scan call on the card refused (only float32
+    trains there)."""
+    from repro_torch.configs import ARCH_NAMES, get_config
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ssm_scan import selective_scan
     from repro_torch.launch import train
@@ -3119,39 +3340,34 @@ def _train_reduced_cli(dev) -> None:
     for arch in ARCH_NAMES:
         args = ["--arch", arch, "--device", "cuda", "--steps", "2", "--batch", "2", "--seq",
                 "64", "--log-every", "1"]
-        flash_attention.launches = selective_scan.launches = 0
+        flash_attention.launches = selective_scan.launches = selective_scan.bwd_launches = 0
         t0 = time.perf_counter()
-        if arch == MAMBA_ARCH:
-            refused = None
-            with contextlib.redirect_stdout(io.StringIO()):
-                try:
-                    train.main(args)
-                except SystemExit as e:
-                    refused = str(e)
-            check(refused is not None and "no backward" in refused
-                  and selective_scan.launches == 0,
-                  f"launch.train --arch {arch} on cuda was not refused before the scan: "
-                  f"{refused}")
-            print(f"[train] launch.train --arch {arch} --device cuda refused: {refused}")
-            continue
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
             check(train.main(args) == 0, f"launch.train --arch {arch} failed")
         torch.cuda.synchronize()
         lines = buf.getvalue().strip().splitlines()
         check(len(lines) == 3 and lines[-1].startswith("loss "), f"{arch}: {lines}")
-        check(flash_attention.launches > 0, f"{arch}: the training run launched no flash kernel")
+        cfg = get_config(arch, reduced=True)
+        if cfg.ssm is not None and cfg.ssm.kind == "mamba1":
+            check(selective_scan.launches > 0 and selective_scan.bwd_launches > 0,
+                  f"{arch}: the training run launched no scan forward or backward kernel")
+        else:
+            check(flash_attention.launches > 0,
+                  f"{arch}: the training run launched no flash kernel")
         print(f"[train] launch.train --arch {arch} --device cuda (REDUCED, 2 steps, B=2, "
               f"S=64): {time.perf_counter() - t0:.2f} s, flash launches "
-              f"{flash_attention.launches}; {lines[-1]}")
-    x = torch.randn(1, 8, 16, device=dev, requires_grad=True)
+              f"{flash_attention.launches}, scan launches {selective_scan.launches} forward / "
+              f"{selective_scan.bwd_launches} backward; {lines[-1]}")
+    x = torch.randn(1, 8, 16, device=dev).bfloat16().requires_grad_()
+    b = torch.randn(1, 8, 4, device=dev).bfloat16()
     try:
-        selective_scan(x, torch.randn(1, 8, 4, device=dev), torch.randn(1, 8, 4, device=dev),
-                       x, torch.randn(16, 4, device=dev))
-        raise AssertionError("a grad-requiring selective_scan call on cuda was not refused")
-    except RuntimeError as e:
-        check("no backward" in str(e), f"unexpected error: {e}")
-        print(f"[train] a grad-requiring selective_scan call on cuda raises: {str(e)[:90]}...")
+        selective_scan(x, b, b, x, torch.randn(16, 4, device=dev))
+        raise AssertionError("a grad-requiring bf16 selective_scan call on cuda was not refused")
+    except TypeError as e:
+        check("only float32 trains" in str(e), f"unexpected error: {e}")
+        print(f"[train] a grad-requiring bf16 selective_scan call on cuda raises: "
+              f"{str(e)[:90]}...")
 
 
 def _train_flash_checks(cfg, params, batch, dev) -> None:
@@ -3236,12 +3452,15 @@ def _train_flash_checks(cfg, params, batch, dev) -> None:
 
 
 def _train_float32_cuda_vs_cpu(cfg, params, dev) -> None:
-    """18d. llama3.2-1b's first 2 layers at full width in float32, card vs
-    CPU (through the CUDA-core kernel's stats store): the grads of one
-    batch, then 2 steps: metrics, grads and params."""
+    """18d. The model's first 2 layers at full width in float32, card vs
+    CPU (llama3.2-1b through the CUDA-core kernel's stats store,
+    falcon-mamba-7b through the scan's storing forward and its backward
+    kernel): the grads of one batch, then 2 steps: metrics, grads and
+    params."""
     from repro_torch.configs.base import OptimizerConfig, TrainConfig
     from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
     from repro_torch.kernels.flash_attention import flash_attention, ops
+    from repro_torch.kernels.ssm_scan import selective_scan
     from repro_torch.models import common
     from repro_torch.optim import adamw_init
     from repro_torch.train import make_grad_fn, make_train_step
@@ -3258,6 +3477,7 @@ def _train_float32_cuda_vs_cpu(cfg, params, dev) -> None:
     pipe.close()
     runs = []
     flash_attention.kernel_launches.update(dict.fromkeys(flash_attention.kernel_launches, 0))
+    selective_scan.launches = selective_scan.bwd_launches = 0
     for d in (dev, torch.device("cpu")):
         p = common.tree_map(lambda t: t.to(d), few)
         bs = [{k: torch.from_numpy(v).to(d) for k, v in x.items()} for x in batches]
@@ -3271,7 +3491,12 @@ def _train_float32_cuda_vs_cpu(cfg, params, dev) -> None:
                      common.tree_map(to_cpu, st.m)))
     del few
     kl = dict(flash_attention.kernel_launches)
-    check(kl[ops.CUDA_CORE] > 0 and kl[ops.TENSOR_CORE] == 0, f"float32 launches {kl}")
+    if cfg.family == "ssm":
+        kl = {"selective_scan": selective_scan.launches,
+              "selective_scan_bwd": selective_scan.bwd_launches}
+        check(all(kl.values()), f"float32 scan launches {kl}")
+    else:
+        check(kl[ops.CUDA_CORE] > 0 and kl[ops.TENSOR_CORE] == 0, f"float32 launches {kl}")
     (g_c, m_c, p_c, mo_c), (g_h, m_h, p_h, mo_h) = runs
     worst_m = 0.0
     for a, w in zip(m_c, m_h):
@@ -3294,7 +3519,7 @@ def _train_float32_cuda_vs_cpu(cfg, params, dev) -> None:
           f"cuda vs cpu: metrics max relative {worst_m:.3g} (tol 1e-5), grads max|Δ| "
           f"{worst_g:.3g} of each leaf's max |g| (tol 1e-4), params after 2 steps (lr "
           f"{TRAIN_LR:g}) max|Δ| {p_worst:.3g} with {p_off} elements past 1e-5, m max|Δ| "
-          f"{m_worst:.3g} ({m_off} past 1e-5); losses {[m['loss'] for m in m_c]}; flash "
+          f"{m_worst:.3g} ({m_off} past 1e-5); losses {[m['loss'] for m in m_c]}; kernel "
           f"launches {kl}; {time.perf_counter() - t0:.2f} s")
 
 
@@ -3344,9 +3569,171 @@ def _train_restarts(dev) -> None:
           f"unbroken run")
 
 
-def phase_training(dev) -> int:
+def _b2_training_times(dev) -> dict:
+    """18f. B2 under autograd at llama's serving shape (bf16): the forward
+    with its stats store plus the plain backward, the backward alone, its
+    bound, and ``scaled_dot_product_attention``'s forward + backward."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention, ops
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    q, k, v = _flash_inputs(SERVING_SHAPE, torch.bfloat16, gen, dev)
+    dout = torch.randn(q.shape, generator=gen, device=dev).to(torch.bfloat16)
+    scale = 1.0 / q.shape[-1] ** 0.5
+    with torch.no_grad():
+        out, m, l = ops.flash_attention_fwd(q, k, v, causal=True)
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+    dout_t = dout.transpose(1, 2).contiguous()
+
+    def ours():
+        flash_attention(qg, kg, vg, causal=True).backward(dout)
+
+    def sdpa():
+        F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                       enable_gqa=True).backward(dout_t)
+
+    bwd_ms = device_time_ms(lambda: ops.flash_attention_bwd(
+        q, k, v, out, m, l, dout, causal=True, window=None, softcap=None, scale=scale,
+        q_chunk=1024, kv_chunk=1024), 5)
+    times = {"ours": [], "sdpa": []}
+    for name in ("ours", "sdpa", "sdpa", "ours"):
+        times[name].append(device_time_ms(ours if name == "ours" else sdpa, 5))
+    fwd_ms, fwd_by = _flash_bound(q, k, v, out)
+    flops = 2.5 * _causal_flops(q)
+    n_bytes = sum(t.numel() * t.element_size() for t in (q, k, v, out, dout, m, l, q, k, v))
+    bound_ms = max(flops / BF16_OPS_PER_S, n_bytes / HBM_BYTES_PER_S) * 1e3
+    print(f"[train] B2 under autograd at llama's shape {SERVING_SHAPE[:5]} bf16, causal, "
+          f"medians in turns: forward (stats store) + plain backward {times['ours'][0]:.4f} / "
+          f"{times['ours'][1]:.4f} ms, SDPA forward + backward {times['sdpa'][0]:.4f} / "
+          f"{times['sdpa'][1]:.4f} ms; the backward alone (plain PyTorch) {bwd_ms:.4f} ms "
+          f"against its bound {bound_ms:.4f} ms (operations: 2.5 x the forward's "
+          f"{_causal_flops(q) / 1e9:.1f} GFLOP at {BF16_OPS_PER_S / 1e12:g} TFLOP/s; the "
+          f"forward's bound {fwd_ms:.4f} ms)")
+    return {"train_fwd_bwd_ms": times["ours"], "sdpa_fwd_bwd_ms": times["sdpa"],
+            "train_bwd_ms": bwd_ms, "train_bwd_bound_ms": bound_ms}
+
+
+def _train_step_line(tag, cfg, n_params, b, s, times, losses, peak, extra) -> float:
+    """Print a training run's step time against the roofline module's 6·N·T
+    compute bound on ``HW_H100``; returns the median step in seconds."""
+    from repro_torch.analysis.roofline import model_flops_for, roofline_terms
+    from repro_torch.configs.base import ShapeConfig
+
+    step_s = float(np.median(times[1:]))
+    mf = model_flops_for(cfg, ShapeConfig("train", s, b, "train"), n_params)
+    roof = roofline_terms(mf, 0.0, 0.0, mf, 1, HW_H100)
+    print(f"{tag} {cfg.name} ({cfg.n_layers} layers, {n_params} float32 parameters, "
+          f"{4 * n_params / 1e9:.2f} GB; AdamW moments {cfg.moment_dtype}), bf16 activations, "
+          f"remat, B={b} S={s}: {len(times)} steps of make_train_step through SyntheticPipeline, "
+          f"{step_s * 1e3:.1f} ms a step (median of steps 2-{len(times)}; the first "
+          f"{times[0] * 1e3:.1f} ms), {b * s / step_s:.0f} tokens/s, 6·N·T bound "
+          f"{roof.t_compute * 1e3:.1f} ms at {HW_H100.peak_flops / 1e12:g} TFLOP/s "
+          f"({roof.t_compute / step_s:.1%} of it: model-FLOPs utilization); peak device memory "
+          f"{peak / 2**30:.2f} GiB; {extra}; losses " + " ".join(f"{x:.4f}" for x in losses))
+    return step_s
+
+
+def _train_mamba(dev) -> dict:
+    """18g. Full-width falcon-mamba-7b cut to 8 layers: 8 training steps
+    through the scan's kernels (16 forwards with remat and 8 backwards a
+    step), the scan backward's share of a forward + backward, a finite
+    gradient on every leaf; then its first 2 layers in float32, card vs
+    CPU.  Returns the scan kernels' launches in the 8 steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import OptimizerConfig, TrainConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
+    from repro_torch.kernels.ssm_scan import ops, selective_scan
+    from repro_torch.models import common, transformer
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import make_grad_fn, make_train_step
+
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config(MAMBA_ARCH), n_layers=MAMBA_TRAIN_LAYERS)
+    check(cfg.remat and cfg.dtype == "bfloat16", f"{cfg.name}: want remat and bf16")
+    b, s, n_steps = TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS
+    tcfg = TrainConfig(optimizer=OptimizerConfig(learning_rate=3e-4, warmup_steps=2,
+                                                 total_steps=n_steps))
+    torch.cuda.reset_peak_memory_stats()
+    params = common.init_params(torch.Generator(device=dev).manual_seed(0),
+                                transformer.model_layout(cfg))
+    n_params = sum(t.numel() for _, t in common.tree_leaves(params))
+    opt = adamw_init(params, cfg.moment_dtype)
+    step_fn = make_train_step(cfg, tcfg)
+    pipe = SyntheticPipeline(DataConfig(global_batch=b, seq_len=s, vocab_size=cfg.vocab_size),
+                             cfg)
+    selective_scan.launches = selective_scan.bwd_launches = 0
+    times, losses = [], []
+    for _, batch in zip(range(n_steps), pipe):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        params, opt, metrics = step_fn(params, opt, batch)
+        losses.append(metrics["loss"].item())
+        times.append(time.perf_counter() - t0)
+    pipe.close()
+    launches = {"forward": selective_scan.launches, "backward": selective_scan.bwd_launches}
+    check(launches == {"forward": 2 * cfg.n_layers * n_steps, "backward": cfg.n_layers * n_steps},
+          f"{n_steps} remat steps launched the scan {launches}, want {2 * cfg.n_layers} "
+          f"forwards and {cfg.n_layers} backwards a step")
+    check(all(np.isfinite(losses)), f"losses {losses}")
+    step_s = _train_step_line(
+        "[train]", cfg, n_params, b, s, times, losses, torch.cuda.max_memory_allocated(),
+        f"scan launches a step {launches['forward'] // n_steps} forward ({cfg.n_layers} + "
+        f"{cfg.n_layers} under remat) + {launches['backward'] // n_steps} backward")
+
+    # the scan backward's share of a step: CUDA events around each call
+    real, spans = ops.selective_scan_bwd, []
+
+    def timed_bwd(*args, **kw):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(*args, **kw)
+        end.record()
+        spans.append((start, end))
+        return out
+
+    pipe = SyntheticPipeline(DataConfig(b, s, cfg.vocab_size, seed=1), cfg)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in next(pipe).items()}
+    pipe.close()
+    ops.selective_scan_bwd = timed_bwd
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, grads = make_grad_fn(cfg, tcfg)(params, batch)
+        torch.cuda.synchronize()
+        grad_s = time.perf_counter() - t0
+    finally:
+        ops.selective_scan_bwd = real
+    bwd_ms = sum(a.elapsed_time(z) for a, z in spans)
+    check(len(spans) == cfg.n_layers, f"{len(spans)} scan backward calls in a backward")
+    print(f"[train] {cfg.name}: one forward + backward {grad_s * 1e3:.1f} ms; the scan backward "
+          f"kernel ({len(spans)} calls) {bwd_ms:.1f} ms = {bwd_ms / (grad_s * 1e3):.1%} of it, "
+          f"{bwd_ms / (step_s * 1e3):.1%} of a step")
+    leaves = list(common.tree_leaves(grads))
+    bad = [p for p, g in leaves if g is None or not torch.isfinite(g).all()]
+    check(not bad, f"parameters without a finite gradient on the card: {bad}")
+    names = {p.rsplit("/", 1)[-1] for p, _ in leaves}
+    want = {"A_log", "dt_bias", "D", "conv_w", "conv_b", "x_proj", "dt_proj", "in_proj",
+            "out_proj"}
+    check(want <= names, f"leaves {sorted(names)} lack {sorted(want - names)}")
+    print(f"[train] {cfg.name}: every one of {len(leaves)} parameter leaves has a finite "
+          f"gradient on the card, {sorted(want)} among them (largest |g| "
+          f"{max(g.abs().max().item() for _, g in leaves):.3g})")
+    del grads, leaves, opt
+    torch.cuda.empty_cache()
+    _train_float32_cuda_vs_cpu(cfg, params, dev)
+    del params
+    torch.cuda.empty_cache()
+    return {"launches": launches, "per_step": {k: v // n_steps for k, v in launches.items()},
+            "step_ms": step_s * 1e3, "scan_bwd_ms": bwd_ms}
+
+
+def phase_training(dev) -> dict:
     """The training path; returns B2's launches per step of the full-width
-    remat run (the main path of this phase)."""
+    llama remat run, B2's training times at llama's shape, and the scan
+    kernels' launches in the full-width falcon-mamba run."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import OptimizerConfig, TrainConfig
     from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
@@ -3389,18 +3776,10 @@ def phase_training(dev) -> int:
           f"{n_steps} remat steps launched {launches} {by_kernel}, want "
           f"{2 * cfg.n_layers} a step on the tensor-core kernel")
     check(all(np.isfinite(losses)), f"losses {losses}")
-    step_s = float(np.median(times[1:]))
-    bound_s = 6 * n_params * b * s / BF16_OPS_PER_S
-    peak = torch.cuda.max_memory_allocated()
-    print(f"[train] {cfg.name} full width ({n_params} float32 parameters, "
-          f"{4 * n_params / 1e9:.2f} GB; AdamW moments {cfg.moment_dtype}), bf16 activations, "
-          f"remat, B={b} S={s}: {n_steps} steps of make_train_step through SyntheticPipeline, "
-          f"{step_s * 1e3:.1f} ms a step (median of steps 2-{n_steps}; the first "
-          f"{times[0] * 1e3:.1f} ms), {b * s / step_s:.0f} tokens/s, 6·N·T bound "
-          f"{bound_s * 1e3:.1f} ms at {BF16_OPS_PER_S / 1e12:g} TFLOP/s ({bound_s / step_s:.1%} "
-          f"of it); peak device memory {peak / 2**30:.2f} GiB; flash launches {per_step} a "
-          f"step ({cfg.n_layers} forward + {cfg.n_layers} under remat) {by_kernel}; losses "
-          + " ".join(f"{x:.4f}" for x in losses))
+    step_s = _train_step_line(
+        "[train]", cfg, n_params, b, s, times, losses, torch.cuda.max_memory_allocated(),
+        f"flash launches {per_step} a step ({cfg.n_layers} forward + {cfg.n_layers} under "
+        f"remat) {by_kernel}")
 
     # the attention backward's share of a step: CUDA events around each call
     real, spans = ops.flash_attention_bwd, []
@@ -3442,7 +3821,9 @@ def phase_training(dev) -> int:
     del params
     torch.cuda.empty_cache()
     _train_restarts(dev)
-    return per_step
+    b2 = _b2_training_times(dev)
+    mamba = _train_mamba(dev)
+    return {"flash_per_step": per_step, "b2": b2, "mamba": mamba}
 
 
 # ---------------------------------------------------------------------------
@@ -3563,7 +3944,7 @@ def main() -> int:
     flash_launches = _timed("6 serving path", phase_serving, dev)
     for record in flash:
         record["launches"] = flash_launches[record["name"]]
-    scan = _timed("7 scan kernels", phase_scan_kernels, dev)
+    scan, scan_bwd = _timed("7 scan kernels", phase_scan_kernels, dev)
     scan["launches"] = _timed("8 mamba serving path", phase_mamba_serving, dev)
     _timed("9 figures", phase_figures, dev)
     _timed("10 campaign", phase_campaign, dev)
@@ -3576,10 +3957,15 @@ def main() -> int:
                                                               phase_moe_serving, dev)
     flash[0]["launches_hybrid"], flash[0]["hybrid_shapes"] = _timed(
         "17 hybrid and frontends serving", phase_hybrid_serving, dev)
-    flash[0]["launches_train"] = _timed("18 training path", phase_training, dev)
+    train = _timed("18 training path", phase_training, dev)
+    flash[0]["launches_train"] = train["flash_per_step"]
+    flash[0].update(train["b2"])
+    scan["launches_train"] = train["mamba"]["per_step"]["forward"]
+    scan_bwd["launches"] = train["mamba"]["launches"]["backward"]       # the whole run's
+    scan_bwd["launches_train"] = train["mamba"]["per_step"]["backward"]
     flash[0]["launches_llama405b"], flash[0]["llama405b_shapes"] = _timed(
         "19 llama3-405b serving", phase_llama405b_serving, dev)
-    records = [argmin, *flash, scan]
+    records = [argmin, *flash, scan, scan_bwd]
     print(f"[time] all phases: {time.perf_counter() - t0:.2f} s")
     print("kernels: " + ", ".join(r["name"] for r in records))
     print(json.dumps({"kernels": records}))

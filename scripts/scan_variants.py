@@ -93,7 +93,7 @@ def launcher(lib):
         y = torch.empty_like(x)
         h = torch.empty((b, d, n), dtype=torch.float32, device=x.device)
         rc = fn(delta.data_ptr(), B.data_ptr(), C.data_ptr(), x.data_ptr(), A_log.data_ptr(),
-                y.data_ptr(), h.data_ptr(), int(x.dtype == torch.bfloat16), b, s, d, n,
+                y.data_ptr(), h.data_ptr(), None, int(x.dtype == torch.bfloat16), b, s, d, n,
                 torch.cuda.current_stream().cuda_stream)
         if rc != 0:
             raise RuntimeError(f"launch failed: CUDA error {rc}")

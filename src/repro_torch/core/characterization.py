@@ -145,6 +145,22 @@ FPGA_LIBRARY: Dict[str, ResourceChar] = {
 CORE_PATH_MIX: Dict[str, float] = {"logic": 0.35, "routing": 0.55, "dsp": 0.10}
 
 
+def core_delay_factor(v_core: torch.Tensor,
+                      mix: Mapping[str, float] | None = None) -> torch.Tensor:
+    """Weighted delay factor of the core-rail share of the critical path
+    (the closure path's; ``fpga_platform_params`` folds the same weights)."""
+    mix = dict(CORE_PATH_MIX if mix is None else mix)
+    total = sum(mix.values())
+    acc = 0.0
+    for name, w in mix.items():
+        acc = acc + (w / total) * FPGA_LIBRARY[name].delay_factor(v_core)
+    return acc
+
+
+def bram_delay_factor(v_bram: torch.Tensor) -> torch.Tensor:
+    return FPGA_LIBRARY["memory"].delay_factor(v_bram)
+
+
 # ---------------------------------------------------------------------------
 # Device sizing (VTR-style smallest square fabric, §VI)
 # ---------------------------------------------------------------------------
@@ -241,6 +257,25 @@ class AppPowerModel:
     def nominal_power(self) -> torch.Tensor:
         return self.power(_f32(V_CORE_NOM), _f32(V_BRAM_NOM), _f32(1.0))
 
+    def power_breakdown(self, v_core, v_bram, f_rel) -> Dict[str, torch.Tensor]:
+        """Each resource's power (Eq. 3 bookkeeping); they sum to :meth:`power`."""
+        rails = {"core": v_core, "bram": v_bram}
+        out: Dict[str, torch.Tensor] = {}
+        for name, (used, idle) in self._counts().items():
+            res = FPGA_LIBRARY[name]
+            v = rails.get(res.rail, _f32(res.v_nominal()))
+            dyn = used * self.activity * res.dynamic_power(v, f_rel)
+            stat = used * res.static_power(v) + idle * res.static_power(v, idle=True)
+            out[name] = dyn + stat
+        return out
+
+    def beta(self) -> float:
+        """The paper's β: BRAM-rail power relative to core-rail power at nominal."""
+        bd = self.power_breakdown(_f32(V_CORE_NOM), _f32(V_BRAM_NOM), _f32(1.0))
+        mem = float(bd["memory"] + bd["memory_l"])
+        core = float(bd["logic"] + bd["routing"] + bd["dsp"])
+        return mem / core
+
 
 # ---------------------------------------------------------------------------
 # TPU adaptation library (v5e-class chip model, kept for tpu_platform_params)
@@ -279,6 +314,14 @@ class TpuChipPowerModel:
     def nominal_power(self) -> torch.Tensor:
         one = _f32(1.0)
         return self.power(_f32(V_CORE_NOM), _f32(V_BRAM_NOM), one, one)
+
+
+def tpu_core_delay_factor(v: torch.Tensor) -> torch.Tensor:
+    return TPU_LIBRARY["core"].delay_factor(v)
+
+
+def tpu_hbm_delay_factor(v: torch.Tensor) -> torch.Tensor:
+    return TPU_LIBRARY["hbm"].delay_factor(v)
 
 
 # ---------------------------------------------------------------------------

@@ -60,22 +60,46 @@ DEFAULT_TECHNIQUES = ("proposed", "core_only", "bram_only", "freq_only",
 
 @dataclasses.dataclass(frozen=True)
 class PlatformSpec:
-    """One compute node's array-parameterized delay/power model."""
+    """One compute node's delay/power characterization, in both forms.
+
+    ``params`` is the array-parameterized model the fleet path sweeps (B1
+    on the card).  ``delay_fn(v_core, v_bram)`` — normalized delay, 1.0 at
+    nominal rails — and ``power_fn(v_core, v_bram, f_rel)`` — power in
+    arbitrary units — are the same model as closures, for the §III
+    optimizer (``voltage.optimize_point``, ``build_operating_table``);
+    ``nominal_power_arb`` is ``power_fn`` at nominal, so ``watts_nominal``
+    pins the absolute scale.  ``fpga_platform``, ``analytic_platform``
+    and ``tpu_platform`` set all of them.
+    """
 
     name: str
     params: char.PlatformParams
-    watts_nominal: float = 20.0
+    watts_nominal: float
+    delay_fn: volt_mod.DelayFn
+    power_fn: volt_mod.PowerFn
+    nominal_power_arb: float
+
+    @property
+    def watts_scale(self) -> float:
+        return self.watts_nominal / self.nominal_power_arb
+
+    def power_watts(self, v_core, v_bram, f_rel) -> torch.Tensor:
+        return self.power_fn(v_core, v_bram, f_rel) * self.watts_scale
 
 
 def fpga_platform(acc: Accelerator, activity: float = 0.125,
                   watts_nominal: float = 20.0) -> PlatformSpec:
     """Paper's platform: one accelerator mapped on its smallest device."""
+    pm = acc.power_model(activity)
     mix = dict(acc.core_mix or {}) or None
     return PlatformSpec(
         name=f"fpga:{acc.name}",
         params=char.fpga_platform_params(acc.util, acc.device(), acc.alpha,
                                          mix, activity, watts_nominal),
-        watts_nominal=watts_nominal)
+        watts_nominal=watts_nominal,
+        delay_fn=volt_mod.fpga_delay_fn(acc.alpha, mix),
+        power_fn=pm.power,
+        nominal_power_arb=float(pm.nominal_power()))
 
 
 def analytic_platform(alpha: float = 0.2, beta: float = 0.4,
@@ -86,22 +110,45 @@ def analytic_platform(alpha: float = 0.2, beta: float = 0.4,
     mix plus ``β``-weighted BRAM power, so nominal power is ``1 + β``
     (``params.nominal_power_arb``) — the Fig. 4/5/6 sweeps.
     """
+    logic, routing, mem = (char.FPGA_LIBRARY[k] for k in ("logic", "routing", "memory"))
+    one, vc0, vb0 = char._f32(1.0), char._f32(char.V_CORE_NOM), char._f32(char.V_BRAM_NOM)
+    core_nom = float(0.4 * logic.total_power(vc0, one) + 0.6 * routing.total_power(vc0, one))
+    mem_nom = float(mem.total_power(vb0, one))
+
+    def power_fn(v_core, v_bram, f_rel):
+        p_core = (0.4 * logic.total_power(v_core, f_rel)
+                  + 0.6 * routing.total_power(v_core, f_rel)) / core_nom
+        return p_core + beta * (mem.total_power(v_bram, f_rel) / mem_nom)
+
     return PlatformSpec(
         name=f"analytic:a{alpha}b{beta}",
         params=char.analytic_platform_params(alpha, beta, watts_nominal),
-        watts_nominal=watts_nominal)
+        watts_nominal=watts_nominal,
+        delay_fn=volt_mod.fpga_delay_fn(alpha),
+        power_fn=power_fn,
+        nominal_power_arb=1.0 + beta)
 
 
 def tpu_platform(t_compute: float, t_memory: float, t_collective: float,
                  name: str = "tpu", composition: str = "max",
                  watts_nominal: float = 200.0) -> PlatformSpec:
     """TPU adaptation: roofline terms (seconds) from the compiled dry-run;
-    core and ICI ride the core rail, HBM the second rail."""
+    core and ICI ride the core rail, HBM the second rail, and one relative
+    frequency applies to both domains."""
+    chip = char.TpuChipPowerModel()
+
+    def power_fn(v_core, v_hbm, f_rel):
+        return chip.power(v_core, v_hbm, f_rel, f_rel)
+
     return PlatformSpec(
         name=f"tpu:{name}",
         params=char.tpu_platform_params(t_compute, t_memory, t_collective,
                                         composition, watts_nominal),
-        watts_nominal=watts_nominal)
+        watts_nominal=watts_nominal,
+        delay_fn=volt_mod.tpu_delay_fn(t_compute, t_memory, t_collective,
+                                       composition=composition),
+        power_fn=power_fn,
+        nominal_power_arb=float(chip.nominal_power()))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -41,6 +41,7 @@ SOURCES: Dict[str, str] = {
     "flash_attention": "flash_attention/csrc/flash_attention.cu",
     "flash_attention_wgmma": "flash_attention/csrc/flash_attention_wgmma.cu",
     "ssm_scan": "ssm_scan/csrc/selective_scan.cu",
+    "ssm_scan_bwd": "ssm_scan/csrc/selective_scan_bwd.cu",
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}

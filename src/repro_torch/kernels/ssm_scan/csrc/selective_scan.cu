@@ -63,6 +63,13 @@
 //    once; the ring is 42 KB a block in fp32.  ptxas's report (build.log) must show 0
 //    spill bytes.
 //
+// 5. Chunk-boundary states for training.  Given a non-null `boundary`, the kernel also
+//    writes h at the end of every kChunk-step chunk, fp32 [b, ⌈S/kChunk⌉, D, N], from
+//    which csrc/selective_scan_bwd.cu recomputes each chunk's states (K = kChunk).  The
+//    store is a template flag instantiated for fp32 only: serving passes null and runs
+//    the store-less instantiation, so its code is unchanged.  At the training shape the
+//    store is 134 MB a layer (1/32 of the [b, S, D, N] states).
+//
 // At the serving shape the card reaches its power limit under this kernel and lowers
 // its SM clock (1.8–1.9 GHz at 700 W), which lowers the SFU's rate with it.
 //
@@ -270,12 +277,13 @@ __device__ __forceinline__ void scan_chunk(const Ring<T>& ring, int st, int len,
 }
 
 // kAligned: δ and x start on 16-byte boundaries and D·sizeof(T) is a multiple of 16, so
-// every row of δ and x does (and so does d0·sizeof(T)).
-template <typename T, bool kAligned>
+// every row of δ and x does (and so does d0·sizeof(T)).  kStore: write h at the end of
+// every chunk into `boundary` ([b, chunks, D, N]).
+template <typename T, bool kAligned, bool kStore>
 __global__ void __launch_bounds__(kThreads, kMinBlocks) selective_scan_kernel(
     const T* __restrict__ delta, const T* __restrict__ Bm, const T* __restrict__ Cm,
     const T* __restrict__ x, const float* __restrict__ A_log, T* __restrict__ y,
-    float* __restrict__ h_out, int S, int D, int N) {
+    float* __restrict__ h_out, float* __restrict__ boundary, int S, int D, int N) {
   __shared__ Ring<T> ring;
 
   const int c = threadIdx.x / kLanes, g = threadIdx.x % kLanes;
@@ -335,6 +343,14 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) selective_scan_kernel(
                                   y_group, store_y);
 
     if (more) store_bc(ring, (k + 1) % kStages, rb, rc);
+    if (kStore && store_y) {
+      float* b_d = boundary + ((row * chunks + k) * D + d) * N;
+#pragma unroll
+      for (int i = 0; i < kStatesPerLane; ++i) {
+        const int n = g * kStatesPerLane + i;
+        if (n < N) b_d[n] = h[i];
+      }
+    }
   }
   cp_async_wait<0>();
 
@@ -348,35 +364,41 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) selective_scan_kernel(
   }
 }
 
-template <typename T>
+template <typename T, bool kStore>
 int launch(const void* delta, const void* B, const void* C, const void* x,
-           const float* A_log, void* y, float* h, int batch, int S, int D, int N,
-           cudaStream_t stream) {
+           const float* A_log, void* y, float* h, float* boundary, int batch, int S, int D,
+           int N, cudaStream_t stream) {
   const dim3 grid((D + kChannels - 1) / kChannels, batch);
   const bool aligned = static_cast<long long>(D) * sizeof(T) % 16 == 0 &&
                        reinterpret_cast<uintptr_t>(delta) % 16 == 0 &&
                        reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  auto kernel = aligned ? selective_scan_kernel<T, true> : selective_scan_kernel<T, false>;
+  auto kernel = aligned ? selective_scan_kernel<T, true, kStore>
+                        : selective_scan_kernel<T, false, kStore>;
   kernel<<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(delta), static_cast<const T*>(B), static_cast<const T*>(C),
-      static_cast<const T*>(x), A_log, static_cast<T*>(y), h, S, D, N);
+      static_cast<const T*>(x), A_log, static_cast<T*>(y), h, boundary, S, D, N);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// dtype: 0 = fp32, 1 = bf16 (δ, B, C, x and y); A_log and h are fp32.  Returns the
-// cudaError_t of the launch (0 on success); the wrapper has checked the shapes.
+// dtype: 0 = fp32, 1 = bf16 (δ, B, C, x and y); A_log, h and boundary are fp32.
+// `boundary` is null (serving) or fp32 [batch, ⌈S/kChunk⌉, D, N] (fp32 only).  Returns
+// the cudaError_t of the launch (0 on success); the wrapper has checked the shapes.
 extern "C" int selective_scan_launch(const void* delta, const void* B, const void* C,
                                      const void* x, const void* A_log, void* y, void* h,
-                                     int dtype, int batch, int S, int D, int N,
-                                     void* stream) {
+                                     void* boundary, int dtype, int batch, int S, int D,
+                                     int N, void* stream) {
   if (batch < 1 || batch > 65535 || S < 1 || D < 1 || N < 1 || N > kMaxN)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* a = static_cast<const float*>(A_log);
   float* hf = static_cast<float*>(h);
-  if (dtype == 0) return launch<float>(delta, B, C, x, a, y, hf, batch, S, D, N, st);
-  if (dtype == 1) return launch<__nv_bfloat16>(delta, B, C, x, a, y, hf, batch, S, D, N, st);
+  float* bf = static_cast<float*>(boundary);
+  if (dtype == 0 && bf != nullptr)
+    return launch<float, true>(delta, B, C, x, a, y, hf, bf, batch, S, D, N, st);
+  if (dtype == 0) return launch<float, false>(delta, B, C, x, a, y, hf, bf, batch, S, D, N, st);
+  if (dtype == 1 && bf == nullptr)
+    return launch<__nv_bfloat16, false>(delta, B, C, x, a, y, hf, bf, batch, S, D, N, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

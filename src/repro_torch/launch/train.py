@@ -16,10 +16,9 @@ One device: the reference's host mesh and sharding rules
 (``launch/mesh.py``, ``parallel/sharding.py``) are not ported.  A run
 whose training state (float32 parameters and gradients, both AdamW
 moments) does not fit the device's memory is refused before any weights
-are drawn — ``--full`` llama3-405b (405 B parameters) among them.
-``falcon-mamba-7b`` is refused on the card: the selective-scan kernel has
-no backward yet (ROADMAP, "the selective scan's backward"); it trains on
-the CPU through the plain scan.
+are drawn — ``--full`` llama3-405b (405 B parameters) among them, and
+``--full`` falcon-mamba-7b on one 80 GB card (112 GB of state by
+``count_params``).
 """
 
 from __future__ import annotations
@@ -50,10 +49,6 @@ def train_state_bytes(cfg: ModelConfig) -> int:
 
 def refusal(cfg: ModelConfig, dev: torch.device) -> Optional[str]:
     """Why ``cfg`` cannot train on ``dev``, or None."""
-    if dev.type == "cuda" and cfg.family == "ssm":
-        return (f"--arch {cfg.name} does not train on the card: the selective-scan kernel "
-                "has no backward yet (ROADMAP: the selective scan's backward); train it "
-                "with --device cpu")
     if dev.type == "cuda":
         memory = torch.cuda.get_device_properties(dev).total_memory
     else:

@@ -78,12 +78,13 @@ def test_port_package_covers_the_slice():
                  "optim/__init__.py", "optim/adamw.py", "optim/schedule.py",
                  "optim/compress.py", "train/__init__.py", "train/step.py",
                  "data/__init__.py", "data/pipeline.py", "runtime/checkpoint.py",
-                 "runtime/straggler.py", "launch/train.py"):
+                 "runtime/straggler.py", "launch/train.py", "kernels/ssm_scan/backward.py",
+                 "analysis/__init__.py", "analysis/roofline.py"):
         assert want in names, want
     for name, src in _build.SOURCES.items():
         assert (_build.KERNELS_DIR / src).exists(), name
     assert set(_build.SOURCES) == {"grid_argmin", "flash_attention", "flash_attention_wgmma",
-                                   "ssm_scan"}
+                                   "ssm_scan", "ssm_scan_bwd"}
 
 
 def _no_cuda(monkeypatch):

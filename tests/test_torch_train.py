@@ -22,7 +22,8 @@ with sums in other orders:
 
 Models: llama3.2-1b REDUCED (microbatch 0 and 2, ``compress_grads`` off
 and on), gemma2-2b REDUCED at S = 96 (softcap, window 32, final softcap)
-and qwen3-moe REDUCED (routing, aux losses).  Also: a JAX-written
+qwen3-moe REDUCED (routing, aux losses) and falcon-mamba-7b REDUCED (the
+selective scan's autograd Function and its plain backward).  Also: a JAX-written
 checkpoint of (params, opt_state) after 2 steps restored in the port
 continues to JAX's step 3; and remat runs each period layer's attention
 forward twice a step.
@@ -147,6 +148,13 @@ def test_gemma2_train_steps_match_jax():
 
 def test_qwen3_moe_train_steps_match_jax():
     _run("qwen3-moe-235b-a22b", seq=32, batch=2)
+
+
+def test_falcon_mamba_train_steps_match_jax():
+    """Mamba-1 through ``SelectiveScan``: the plain scan forward and
+    ``selective_scan_bwd_ref`` against JAX's differentiated chunked scan."""
+    assert get_config("falcon-mamba-7b", True).remat
+    _run("falcon-mamba-7b", seq=32, batch=2)
 
 
 def test_jax_checkpoint_continues_in_the_port(tmp_path):

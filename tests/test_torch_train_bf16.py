@@ -8,8 +8,8 @@ two packages, so the loss is held to 2e-2 relative; every gradient leaf
 must be finite, and a leaf that autograd does not reach (``None`` from
 ``make_grad_fn``: hubert's unused token embedding, zamba2's unread ``D``)
 must have a JAX gradient of exactly zero; every parameter moves except
-where JAX's does not.  falcon-mamba-7b trains here through the plain scan
-(on the card its kernel refuses a grad-requiring call).
+where JAX's does not.  falcon-mamba-7b trains here through the scan's
+autograd Function, whose CPU backward is the plain one.
 """
 
 import functools

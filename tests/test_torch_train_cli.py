@@ -4,10 +4,10 @@
   ``repro.launch.train``, whose format strings are read from its source
   (its ``main`` itself stops in a sharding constraint that the installed
   jax refuses on its host mesh, a fault of the reference), resumes from ``--ckpt-dir``, trains
-  falcon-mamba-7b through the plain scan, and refuses a training state
-  larger than the device before drawing weights (``--full``
-  llama3-405b); the refusal of falcon-mamba-7b on the card is held by
-  ``chip_smoke.py`` phase 18;
+  falcon-mamba-7b through the scan's autograd Function (its plain
+  backward on the CPU; ``chip_smoke.py`` phase 18 trains it on the card
+  through the backward kernel), and refuses a training state larger than
+  the device before drawing weights (``--full`` llama3-405b);
 * llama3-405b's config, layout and ``count_params`` equal JAX's, and its
   REDUCED forward, decode and ``generate`` tokens equal JAX's in float32
   (logits within 1e-4, as ``test_torch_models.py`` holds llama3.2-1b);
@@ -18,6 +18,7 @@ import dataclasses
 import re
 import runpy
 import sys
+import types
 
 import jax
 import jax.numpy as jnp
@@ -82,6 +83,16 @@ def test_falcon_mamba_trains_on_cpu_through_the_plain_scan(capsys):
                         "--batch", "2", "--seq", "16", "--log-every", "1"]) == 0
     out = _lines(capsys.readouterr().out)
     assert len(out) == 3 and re.fullmatch(LAST_LINE, out[-1])
+
+
+def test_full_falcon_mamba_is_refused_on_one_80gb_card_by_its_state(monkeypatch):
+    """No family is refused on the card any more; full falcon-mamba-7b's
+    float32 state (count_params × 16 bytes, 112 GB) exceeds one 80 GB card."""
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev: types.SimpleNamespace(total_memory=80 * 10**9))
+    why = ttrain.refusal(get_config("falcon-mamba-7b"), torch.device("cuda"))
+    assert "7,003,176,960 parameters, 112.1 GB" in why and "does not fit" in why
+    assert ttrain.refusal(get_config("falcon-mamba-7b", True), torch.device("cuda")) is None
 
 
 def test_full_llama3_405b_is_refused_before_drawing_weights(monkeypatch):
