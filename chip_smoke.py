@@ -57,6 +57,20 @@ printing its seconds:
    layer is also timed without the softcap, on the kernel and on
    ``scaled_dot_product_attention``, for reference), and the CUDA-core
    kernel at gemma2's local layer in float32 (B = 1, S = 4160);
+5b. flash backward — both backward kernels' ptxas reports (no spill bytes
+   in any instantiation) and shared memory per head_dim, HGMMA, UTMALDG and
+   MUFU.EX2 in the tensor-core backward's SASS; every case of phase 5 in
+   both dtypes (strided k, v, the padded heads of 80, the softcap cases,
+   the serving shape) through ``FlashAttention`` on the card: one launch
+   of the backward kernel ``ops.bwd_route`` names, dq, dk, dv within 2e-2
+   of max(1, max |g|) (bf16) or 1e-4 of max |g| (float32) of the plain
+   backward on the same tensors and forward stats, a second launch bit-
+   equal; at llama's shape the tensor-core backward's time beside its
+   bound, the plain backward (one call), SDPA's backward
+   (``torch.autograd.grad``) and both forward + backward in turns; the
+   kernel alone at qwen3-moe's D = 128, G = 16 layer and gemma2's
+   softcapped D = 256 global layer beside their bounds; the CUDA-core
+   backward at llama's shape in float32;
 6. serving path — ``python -m repro_torch.launch.serve --no-reduced`` on
    ``cuda``; ``ServeEngine`` on full-width llama3.2-1b (random weights from
    a seed, bf16 activations) at B = 4, a 2048-token prompt and 32 new
@@ -98,7 +112,7 @@ printing its seconds:
    rows on the CPU, miss counts equal; the wall time and the grid_argmin
    launches;
 10. campaign — ``python -m repro_torch.launch.campaign`` at its defaults but
-   2048 steps (five accelerators × ``proposed,power_gating,hybrid`` × the
+   1024 steps (five accelerators × ``proposed,power_gating,hybrid`` × the
    fifteen scenarios, chunk 1024) on ``cuda`` and on the CPU: every cell
    within 1e-5 relative, miss rates and Pareto fronts equal; the wall time,
    µs per step, and from a ``torch.profiler`` window of the streaming loop
@@ -108,8 +122,8 @@ printing its seconds:
    gains within 0.006, rates within 2/S, fronts and flags equal (the
    ``*/stream_reuse`` rows count JAX retraces and are skipped);
 11. long stream — one scenario × five accelerators × three techniques at
-   4096 steps in 2048-step chunks: peak device memory within 1 MiB of the
-   same campaign at 2048 steps, every cell within 1e-5 of a CPU run;
+   2048 steps in 1024-step chunks: peak device memory within 1 MiB of the
+   same campaign at 1024 steps, every cell within 1e-5 of a CPU run;
 12. predictors — ``benchmarks/run.py``'s predictor sweep on ``cuda``: every
    registered family's campaign over the fifteen scenarios (tabla,
    ``proposed``, 2048 steps in 512-step chunks; seasonal_naive one campaign
@@ -196,25 +210,28 @@ printing its seconds:
    card raising; full-width llama3.2-1b (1.236 B float32
    masters, AdamW moments, bf16 activations, remat) for 8 steps of
    ``make_train_step`` through ``SyntheticPipeline`` at B = 4, S = 2048:
-   ms a step, tokens a second, the 6·N·T bound, peak device memory and
-   32 tensor-core flash launches a step (16 forward, 16 under remat); the
-   attention backward's share of a forward + backward (CUDA events); a
+   ms a step, tokens a second, the 6·N·T bound, peak device memory,
+   32 tensor-core flash launches a step (16 forward, 16 under remat) and
+   16 tensor-core backward launches; the attention backward's share of a
+   forward + backward (CUDA events around each backward kernel call); a
    finite gradient on every parameter leaf; every flash call of a
    training forward against the plain version, output and row stats (m,
    l), and the ``FlashAttention`` backward's dq, dk, dv on layer 0's own
-   q, k, v against plain autograd through ``attention_ref``; the first 2
-   layers in float32 on ``cuda`` and on the CPU (B = 1, S = 256, through
-   the CUDA-core kernel's stats): grads, 2 steps' metrics and params; a
+   q, k, v (one tensor-core backward launch) against plain autograd
+   through ``attention_ref``; the first 2 layers in float32 on ``cuda``
+   and on the CPU (B = 1, S = 128, through the CUDA-core kernel's stats and
+   the CUDA-core backward): grads, 2 steps' metrics and params; a
    ``run_with_restarts`` run with two injected failures, bit-equal to an
-   unbroken run; B2 under autograd at llama's serving shape (forward with
-   stats + plain backward, the backward alone and its bound) beside SDPA's
-   forward + backward; full-width falcon-mamba-7b cut to 8 of 64 layers
+   unbroken run (through the backward kernels); B2 under autograd at
+   llama's serving shape (forward with stats + backward kernel, the
+   backward alone and its bound) beside SDPA's forward + backward;
+   full-width falcon-mamba-7b cut to 8 of 64 layers
    (1.375 B float32 masters, bf16 activations, remat) for 8 steps at
    B = 4, S = 2048: ms a step, tokens a second, the roofline module's
    6·N·T bound, peak memory, 16 scan forwards and 8 backwards a step, the
    scan backward's share of a forward + backward (CUDA events), a finite
    gradient on every leaf; its first 2 layers in float32 on ``cuda`` and
-   on the CPU (B = 1, S = 256): grads, 2 steps' metrics and params;
+   on the CPU (B = 1, S = 128): grads, 2 steps' metrics and params;
 19. llama3-405b serving — ``launch.serve --arch llama3-405b`` REDUCED on
    ``cuda``; the tensor-core kernel at its prefill layer (B = 2, S = 4096,
    128/8 heads of 128, G = 16) beside its plain version, SDPA and the
@@ -314,6 +331,15 @@ SOFTCAP_EFFECT_MIN = 10 * FLASH_TOL[torch.bfloat16]
 # (B, S, KV, G, D, window, softcap)
 FLASH_STRIDED_CASES = [(1, 600, 4, 2, 256, 100, 50.0), (2, 520, 4, 2, 128, 64, None)]
 SERVING_SHAPE = (4, 2048, 8, 4, 64, True, None, None)   # llama3.2-1b prefill, bf16
+# The attention backward's kernels against the plain backward (``flash_attention_bwd``)
+# on the same card tensors and forward stats: bf16 within 2e-2 of max(1, max |g|) (P and dS
+# round to bf16 at other places than in the plain version), float32 within 1e-4 of max |g|
+# (sums in other orders).
+FLASH_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# Phase 5b's timed shapes beside llama's: qwen3-moe's prefill layer (D = 128, G = 16) and
+# gemma2-2b's softcapped global layer (D = 256): (B, S, KV, G, D, causal, window, softcap)
+FLASH_BWD_SHAPES = {"qwen3_moe": (2, 4096, 4, 16, 128, True, None, None),
+                    "gemma2_global": (2, 8160, 4, 2, 256, True, None, 50.0)}
 # The local:global family's prefill attention, bf16, B = 2, a prompt of 8160 (past
 # gemma2's 4096 window): name -> (B, S, KV, G, D, causal, window, softcap)
 GEMMA_FLASH_SHAPES = {
@@ -1242,6 +1268,273 @@ def _gemma_flash_times(shapes: dict, dtype, gen, dev) -> dict:
         del q, k, v, got
         torch.cuda.empty_cache()
     return out
+
+
+def _ptxas_entries(lib) -> list:
+    """(kernel, registers line, spill bytes) of each entry in a library's
+    ptxas report (``build.log``); kernel is the demangled-enough name with
+    its template arguments."""
+    rows, entry = [], ""
+    for line in (lib.parent / "build.log").read_text().splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"(prologue_kernel|dkdv_kernel|dq_kernel)((?:I|L[ib]\d+E)*)", line)
+            entry = (f"{m[1]}<{','.join(re.findall(r'L[ib](\d+)E', m[2]))}>" if m
+                     else line.strip())
+        elif "spill" in line:
+            rows.append([entry, "", sum(int(n) for n in re.findall(r"(\d+) bytes spill", line))])
+        elif "registers" in line and rows and rows[-1][0] == entry:
+            rows[-1][1] = line.split(":", 1)[-1].strip()
+    return rows
+
+
+def _flash_bwd_build_report() -> None:
+    """The backward kernels' builds: no spill bytes in any instantiation of
+    either, HGMMA and UTMALDG in the tensor-core library's SASS, and each
+    kernel's shared memory per head_dim within the card's opt-in limit."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops
+
+    limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    for name in (ops.TENSOR_CORE_BWD, ops.CUDA_CORE_BWD):
+        lib = _build.library_path(name)
+        entries = _ptxas_entries(lib)
+        check(len(entries) >= (21 if name == ops.TENSOR_CORE_BWD else 9),
+              f"{name}: {len(entries)} entries in its ptxas report")
+        for entry, regs, spills in entries:
+            print(f"[flash-bwd] {name} {entry}: {regs}; {spills} bytes spill")
+        spilled = [(entry, n) for entry, _, n in entries if n]
+        check(not spilled, f"{name}: instantiations that spill (entry, bytes): {spilled}")
+        lib_fn = getattr(_build.load(name), f"{name}_smem_bytes")
+        dims = ops.TC_HEAD_DIMS if name == ops.TENSOR_CORE_BWD else (16, 64, 128, 256)
+        sizes = {d: (lib_fn(d, 0), lib_fn(d, 1)) for d in dims}
+        check(all(0 < x <= limit for pair in sizes.values() for x in pair),
+              f"{name}: shared memory {sizes}, limit {limit}")
+        print(f"[flash-bwd] {name} dynamic shared memory (dK/dV, dQ) by head_dim: {sizes} "
+              f"bytes (the card's opt-in limit {limit})")
+    sass = _sass(_build.library_path(ops.TENSOR_CORE_BWD))
+    print(f"[flash-bwd] {ops.TENSOR_CORE_BWD} SASS: "
+          f"{_sass_check(sass, ops.TENSOR_CORE_BWD, ('HGMMA', 'UTMALDG', 'MUFU.EX2'))}")
+
+
+def _flash_bwd_tol(dtype, max_g: float) -> float:
+    """FLASH_BWD_TOL of a gradient whose largest magnitude is ``max_g``:
+    of max(1, max |g|) in bf16, of max |g| in float32."""
+    return FLASH_BWD_TOL[dtype] * (max(1.0, max_g) if dtype == torch.bfloat16 else max_g)
+
+
+def _flash_bwd_case(name, q, k, v, causal, window, cap, scale=None) -> float:
+    """``FlashAttention``'s backward on the card against the plain backward:
+    the call must launch the backward kernel ``ops.bwd_route`` names, once;
+    dq, dk and dv within FLASH_BWD_TOL of ``flash_attention_bwd`` on the same
+    card tensors and forward stats; a second launch of the kernel bit-equal
+    to the first.  Returns the largest error as a share of its tolerance,
+    and the largest absolute error."""
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd, ops
+
+    dtype, d = q.dtype, q.shape[-1]
+    kw = dict(causal=causal, window=window, softcap=cap,
+              scale=scale if scale is not None else d ** -0.5)
+    kernel = ops.bwd_route(dtype, d)
+    gen = torch.Generator(device=q.device).manual_seed(q.shape[1])
+    dout = torch.randn(q.shape, generator=gen, device=q.device).to(dtype)
+    before = dict(flash_attention.bwd_kernel_launches)
+    ins = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    flash_attention(*ins, **kw).backward(dout)
+    torch.cuda.synchronize()
+    served = {n: flash_attention.bwd_kernel_launches[n] - before[n] for n in before}
+    check(served == {n: int(n == kernel) for n in served},
+          f"{name} {dtype}: backward launched {served}, want one {kernel}")
+    with torch.no_grad():
+        out, m, l = ops.flash_attention_fwd(q, k, v, **kw)
+        again = ops.flash_attention_bwd_kernel(q, k, v, out, m, l, dout, **kw)
+        ref = flash_attention_bwd(q, k, v, out, m, l, dout, q_chunk=1024, kv_chunk=1024, **kw)
+    torch.cuda.synchronize()
+    worst, worst_abs, report = 0.0, 0.0, []
+    for gname, got, twin, want in zip(("dq", "dk", "dv"), (t.grad for t in ins), again, ref):
+        check(torch.equal(got, twin), f"{name} {dtype} {gname}: two launches differ")
+        check(got.dtype == want.dtype and got.shape == want.shape, f"{name} {gname}: bad grad")
+        mx = want.float().abs().max().item()
+        tol = _flash_bwd_tol(dtype, mx)
+        err = (got.float() - want.float()).abs().max().item()
+        check(err <= tol, f"{kernel} {name} {dtype} {gname}: max|Δ| {err} > {tol}")
+        worst, worst_abs = max(worst, err / tol), max(worst_abs, err)
+        report.append(f"{gname} {err:.3g} (max |g| {mx:.3g})")
+    print(f"[flash-bwd] {name} {str(dtype)[6:]} on {kernel}: max|Δ| vs plain "
+          + ", ".join(report) + f"; {worst:.3f} of the tolerance; two launches bit-equal")
+    return worst, worst_abs
+
+
+def _flash_bwd_bound(q, k, v, out, causal=True, window=None) -> tuple[float, str]:
+    """Least time on an H100 for the attention backward: q, k, v, out, dout
+    and the row stats read and dq, dk, dv written once over HBM, vs 2.5 x
+    the forward's FLOPs (S, dP, dV, dK, dQ) at the dtype's peak."""
+    b, s, h, _ = q.shape
+    n_bytes = (2 * sum(t.numel() * t.element_size() for t in (q, k, v))
+               + 2 * out.numel() * out.element_size() + 2 * b * h * s * 4)
+    flops = 2.5 * (_causal_flops(q, window) if causal else _attention_flops(q, False))
+    peak = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else FP32_OPS_PER_S
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / peak
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _flash_bwd_time(case, dtype, gen, dev, plain: bool) -> dict:
+    """The backward kernel of ``dtype`` at ``case``: its time beside its
+    bound, held to the plain backward first; with ``plain``, also the plain
+    backward's time (one call) and the library's backward
+    (``torch.autograd.grad`` through ``scaled_dot_product_attention``, one
+    call on the same inputs and cotangent; causal, no window or softcap)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention_bwd, ops
+
+    q, k, v = _flash_inputs(case, dtype, gen, dev)
+    causal, window, cap = case[5:]
+    kw = dict(causal=causal, window=window, softcap=cap, scale=q.shape[-1] ** -0.5)
+    dout = torch.randn(q.shape, generator=gen, device=dev).to(dtype)
+    with torch.no_grad():
+        out, m, l = ops.flash_attention_fwd(q, k, v, **kw)
+    fn = lambda: ops.flash_attention_bwd_kernel(q, k, v, out, m, l, dout, **kw)  # noqa: E731
+    grads = fn()
+    ref = flash_attention_bwd(q, k, v, out, m, l, dout, q_chunk=1024, kv_chunk=1024, **kw)
+    errs = [(a.float() - r.float()).abs().max().item()
+            / _flash_bwd_tol(dtype, r.float().abs().max().item()) for a, r in zip(grads, ref)]
+    check(max(errs) <= 1.0, f"{case}: backward errors {errs} of the tolerance")
+    del ref, grads
+    torch.cuda.empty_cache()
+    ms = device_time_ms(fn, 20 if dtype == torch.bfloat16 else 3)
+    bound_ms, bound_by = _flash_bwd_bound(q, k, v, out, causal, window)
+    rec = {"shape": list(case), "ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
+           "err_share_of_tol": max(errs),
+           "fwd_gflop": (_causal_flops(q, window) if causal
+                         else _attention_flops(q, False)) / 1e9}
+    if plain:
+        rec["plain_ms"] = device_time_ms(lambda: flash_attention_bwd(
+            q, k, v, out, m, l, dout, q_chunk=1024, kv_chunk=1024, **kw), 1)
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+        sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+        dout_t = dout.transpose(1, 2).contiguous()
+        rec["library_ms"] = device_time_ms(lambda: torch.autograd.grad(
+            sdpa_out, (qt, kt, vt), dout_t, retain_graph=True), 20 if dtype == torch.bfloat16
+            else 3)
+        del qt, kt, vt, sdpa_out, dout_t
+    if dtype == torch.bfloat16 and plain:
+        # each of the three kernels' median ms a launch, from a profile of 5 calls
+        parts = {}
+        for e in _device_kernels(lambda: [fn() for _ in range(5)]):
+            hit = re.search(r"(prologue|dkdv|dq)_kernel", e.name)
+            if hit:
+                parts.setdefault(hit[1], []).append(e.time_range.elapsed_us() / 1e3)
+        rec["kernels_ms"] = {name: float(np.median(v)) for name, v in parts.items()}
+    del q, k, v, out, m, l, dout
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _fwd_bwd_turns(dev, seed: int) -> dict:
+    """B2's forward (with its stats store) + backward under autograd at
+    llama's shape, bf16, beside ``scaled_dot_product_attention``'s forward +
+    backward, in turns (ours, SDPA, SDPA, ours): median ms of each."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = _flash_inputs(SERVING_SHAPE, torch.bfloat16, gen, dev)
+    dout = torch.randn(q.shape, generator=gen, device=dev).to(torch.bfloat16)
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+    dout_t = dout.transpose(1, 2).contiguous()
+    calls = {"ours": lambda: flash_attention(qg, kg, vg, causal=True).backward(dout),
+             "sdpa": lambda: F.scaled_dot_product_attention(
+                 qt, kt, vt, is_causal=True, enable_gqa=True).backward(dout_t)}
+    turns = {"ours": [], "sdpa": []}
+    for who in ("ours", "sdpa", "sdpa", "ours"):
+        turns[who].append(device_time_ms(calls[who], 10))
+    return turns
+
+
+def phase_flash_backward(dev) -> list:
+    """5b. Both backward kernels against the plain backward on every phase-5
+    case in both dtypes (strided k, v, the padded heads of 80 as the models
+    pad them, the softcap in its nonlinear range, the serving shape), then
+    the tensor-core kernel's times at llama's, qwen3-moe's and gemma2's
+    training shapes beside their bounds; returns the kernels' records."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models import attention as attn_mod
+
+    _flash_bwd_build_report()
+    gen = torch.Generator(device=dev).manual_seed(7)
+    worst = {ops.TENSOR_CORE_BWD: [0.0, 0.0], ops.CUDA_CORE_BWD: [0.0, 0.0]}
+    dtypes = (torch.float32, torch.bfloat16)
+
+    def run(name, q, k, v, causal, window, cap, scale=None):
+        kernel = ops.bwd_route(q.dtype, q.shape[-1])
+        got = _flash_bwd_case(name, q, k, v, causal, window, cap, scale)
+        worst[kernel] = [max(a, b) for a, b in zip(worst[kernel], got)]
+
+    for case in FLASH_CASES:
+        for dtype in dtypes:
+            run(case, *_flash_inputs(case, dtype, gen, dev), *case[5:])
+    run(SERVING_SHAPE, *_flash_inputs(SERVING_SHAPE, torch.bfloat16, gen, dev),
+        *SERVING_SHAPE[5:])
+    for b, s, kv, g, d, window, cap in FLASH_STRIDED_CASES:
+        for dtype in dtypes:
+            q = torch.randn(b, s, kv * g, d, generator=gen, device=dev).to(dtype)
+            packed = torch.randn(b, s, 2, kv, d, generator=gen, device=dev).to(dtype)
+            run(f"strided k, v of [{b}, {s}, 2, {kv}, {d}]", q, packed[:, :, 0],
+                packed[:, :, 1], True, window, cap)
+    for b, s, kv, g, d, causal in FLASH_PADDED_CASES:
+        hd = attn_mod._flash_head_dim(d)
+        for dtype in dtypes:
+            q, k, v = (F.pad(t, (0, hd - d))
+                       for t in _flash_inputs((b, s, kv, g, d), dtype, gen, dev))
+            run(f"{(b, s, kv, g, d, causal)} padded to D = {hd}", q, k, v, causal, None, None,
+                d ** -0.5)
+    for b, s, kv, g, d, window, cap, q_scale in FLASH_SOFTCAP_CASES:
+        for dtype in dtypes:
+            q, k, v = _flash_inputs((b, s, kv, g, d), dtype, gen, dev)
+            run(f"{(b, s, kv, g, d)} q x{q_scale:g}", (q.float() * q_scale).to(dtype), k, v,
+                True, window, cap)
+
+    llama = _flash_bwd_time(SERVING_SHAPE, torch.bfloat16, gen, dev, plain=True)
+    turns = _fwd_bwd_turns(dev, 11)
+    print(f"[flash-bwd] {ops.TENSOR_CORE_BWD} at llama's training shape {SERVING_SHAPE[:5]} "
+          f"bf16 causal, medians: kernel {llama['ms']:.4f} ms ({llama['ms'] / llama['bound_ms']:.2f}x "
+          f"its bound {llama['bound_ms']:.4f} ms, {llama['bound_by']}: 2.5 x the forward's "
+          f"{llama['fwd_gflop']:.1f} GFLOP), plain backward {llama['plain_ms']:.4f} ms, SDPA's "
+          f"backward (torch.autograd.grad) {llama['library_ms']:.4f} ms; forward + backward "
+          f"under autograd {turns['ours'][0]:.4f} / {turns['ours'][1]:.4f} ms vs SDPA's "
+          f"{turns['sdpa'][0]:.4f} / {turns['sdpa'][1]:.4f} ms (in turns); by kernel, median ms "
+          f"a launch (torch.profiler): {llama['kernels_ms']}")
+    shapes = {}
+    for name, case in FLASH_BWD_SHAPES.items():
+        shapes[name] = rec = _flash_bwd_time(case, torch.bfloat16, gen, dev, plain=False)
+        print(f"[flash-bwd] {ops.TENSOR_CORE_BWD} at {name}'s shape {case}: kernel "
+              f"{rec['ms']:.4f} ms, {rec['ms'] / rec['bound_ms']:.2f}x its bound "
+              f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}); max|Δ| vs plain "
+              f"{rec['err_share_of_tol']:.3g} of its tolerance")
+    tc = _record(ops.TENSOR_CORE_BWD, ops.TENSOR_CORE_BWD,
+                 "none: the Pallas kernel src/repro/kernels/flash_attention/kernel.py:38 has no "
+                 "VJP (JAX differentiates full_attention through _fa_bwd, "
+                 "src/repro/models/attention.py:244)", worst[ops.TENSOR_CORE_BWD][1],
+                 llama["ms"], llama["plain_ms"], llama["bound_ms"], llama["bound_by"],
+                 llama["library_ms"])
+    tc.update(fwd_bwd_ms=turns["ours"], sdpa_fwd_bwd_ms=turns["sdpa"], shapes=shapes,
+              err_share_of_tol=worst[ops.TENSOR_CORE_BWD][0],
+              kernels_ms_at_llama=llama["kernels_ms"])
+    f32 = _flash_bwd_time(SERVING_SHAPE, torch.float32, gen, dev, plain=True)
+    print(f"[flash-bwd] {ops.CUDA_CORE_BWD} at the serving shape in float32: kernel "
+          f"{f32['ms']:.4f} ms ({f32['ms'] / f32['bound_ms']:.2f}x its bound "
+          f"{f32['bound_ms']:.4f} ms, {f32['bound_by']} at {FP32_OPS_PER_S / 1e12:g} TFLOP/s), "
+          f"plain backward {f32['plain_ms']:.4f} ms, SDPA's float32 backward "
+          f"(torch.autograd.grad) {f32['library_ms']:.4f} ms")
+    cc = _record(ops.CUDA_CORE_BWD, ops.CUDA_CORE_BWD, tc["replaces"],
+                 worst[ops.CUDA_CORE_BWD][1], f32["ms"], f32["plain_ms"], f32["bound_ms"],
+                 f32["bound_by"], f32["library_ms"])
+    cc["err_share_of_tol"] = worst[ops.CUDA_CORE_BWD][0]
+    return [tc, cc]
 
 
 def _median_s(fn, n: int) -> float:
@@ -3340,7 +3633,8 @@ def _train_reduced_cli(dev) -> None:
     for arch in ARCH_NAMES:
         args = ["--arch", arch, "--device", "cuda", "--steps", "2", "--batch", "2", "--seq",
                 "64", "--log-every", "1"]
-        flash_attention.launches = selective_scan.launches = selective_scan.bwd_launches = 0
+        flash_attention.launches = flash_attention.bwd_launches = 0
+        selective_scan.launches = selective_scan.bwd_launches = 0
         t0 = time.perf_counter()
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
@@ -3353,11 +3647,12 @@ def _train_reduced_cli(dev) -> None:
             check(selective_scan.launches > 0 and selective_scan.bwd_launches > 0,
                   f"{arch}: the training run launched no scan forward or backward kernel")
         else:
-            check(flash_attention.launches > 0,
-                  f"{arch}: the training run launched no flash kernel")
+            check(flash_attention.launches > 0 and flash_attention.bwd_launches > 0,
+                  f"{arch}: the training run launched no flash forward or backward kernel")
         print(f"[train] launch.train --arch {arch} --device cuda (REDUCED, 2 steps, B=2, "
               f"S=64): {time.perf_counter() - t0:.2f} s, flash launches "
-              f"{flash_attention.launches}, scan launches {selective_scan.launches} forward / "
+              f"{flash_attention.launches} forward / {flash_attention.bwd_launches} backward, "
+              f"scan launches {selective_scan.launches} forward / "
               f"{selective_scan.bwd_launches} backward; {lines[-1]}")
     x = torch.randn(1, 8, 16, device=dev).bfloat16().requires_grad_()
     b = torch.randn(1, 8, 4, device=dev).bfloat16()
@@ -3374,7 +3669,8 @@ def _train_flash_checks(cfg, params, batch, dev) -> None:
     """18c. One training forward at full width: every B2 call against the
     plain version, output and row stats, with the Function's output equal
     to the stats launch's; then the Function's dq, dk, dv on layer 0's own
-    q, k, v against plain autograd through ``attention_ref``."""
+    q, k, v (through the tensor-core backward kernel) against plain
+    autograd through ``attention_ref``."""
     from repro_torch.configs.base import TrainConfig
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref, ops
     from repro_torch.models import attention as attn_mod
@@ -3431,6 +3727,7 @@ def _train_flash_checks(cfg, params, batch, dev) -> None:
     dout = torch.randn(q.shape, generator=torch.Generator(device=dev).manual_seed(5),
                        device=dev).to(q.dtype)
     grads = []
+    bwd_before = dict(flash_attention.bwd_kernel_launches)
     for fn in (flash_attention, flash_attention_ref):
         ins = [t.clone().requires_grad_() for t in (q, k, v)]
         opts = kw if fn is flash_attention else {n: kw[n] for n in
@@ -3439,6 +3736,9 @@ def _train_flash_checks(cfg, params, batch, dev) -> None:
         grads.append([t.grad for t in ins])
         del ins
         torch.cuda.empty_cache()
+    served = {n: flash_attention.bwd_kernel_launches[n] - bwd_before[n] for n in bwd_before}
+    check(served == {ops.TENSOR_CORE_BWD: 1, ops.CUDA_CORE_BWD: 0},
+          f"the Function's backward launched {served}, want one {ops.TENSOR_CORE_BWD}")
     report = []
     for name, a, r in zip(("dq", "dk", "dv"), *grads):
         scale = max(1.0, r.float().abs().max().item())
@@ -3446,14 +3746,16 @@ def _train_flash_checks(cfg, params, batch, dev) -> None:
         check(a.dtype == r.dtype and err <= FLASH_TOL[torch.bfloat16] * scale,
               f"{name}: max|Δ| {err} > {FLASH_TOL[torch.bfloat16]} x {scale}")
         report.append(f"{name} max|Δ| {err:.3g} (max |g| {scale:.3g})")
-    print(f"[train] the Function's backward on layer 0's q {tuple(q.shape)} k {tuple(k.shape)} "
-          f"vs plain autograd through attention_ref: " + ", ".join(report)
+    print(f"[train] the Function's backward ({ops.TENSOR_CORE_BWD}) on layer 0's q "
+          f"{tuple(q.shape)} k {tuple(k.shape)} vs plain autograd through attention_ref: "
+          + ", ".join(report)
           + f" (tol {FLASH_TOL[torch.bfloat16]} of max(1, max |g|))")
 
 
-def _train_float32_cuda_vs_cpu(cfg, params, dev) -> None:
+def _train_float32_cuda_vs_cpu(cfg, params, dev) -> dict:
     """18d. The model's first 2 layers at full width in float32, card vs
-    CPU (llama3.2-1b through the CUDA-core kernel's stats store,
+    CPU (llama3.2-1b through the CUDA-core kernel's stats store and the
+    CUDA-core backward kernel,
     falcon-mamba-7b through the scan's storing forward and its backward
     kernel): the grads of one batch, then 2 steps: metrics, grads and
     params."""
@@ -3477,6 +3779,8 @@ def _train_float32_cuda_vs_cpu(cfg, params, dev) -> None:
     pipe.close()
     runs = []
     flash_attention.kernel_launches.update(dict.fromkeys(flash_attention.kernel_launches, 0))
+    flash_attention.bwd_kernel_launches.update(
+        dict.fromkeys(flash_attention.bwd_kernel_launches, 0))
     selective_scan.launches = selective_scan.bwd_launches = 0
     for d in (dev, torch.device("cpu")):
         p = common.tree_map(lambda t: t.to(d), few)
@@ -3496,7 +3800,9 @@ def _train_float32_cuda_vs_cpu(cfg, params, dev) -> None:
               "selective_scan_bwd": selective_scan.bwd_launches}
         check(all(kl.values()), f"float32 scan launches {kl}")
     else:
-        check(kl[ops.CUDA_CORE] > 0 and kl[ops.TENSOR_CORE] == 0, f"float32 launches {kl}")
+        kl.update(flash_attention.bwd_kernel_launches)
+        check(kl[ops.CUDA_CORE] > 0 and kl[ops.TENSOR_CORE] == 0 and kl[ops.CUDA_CORE_BWD] > 0
+              and kl[ops.TENSOR_CORE_BWD] == 0, f"float32 launches {kl}")
     (g_c, m_c, p_c, mo_c), (g_h, m_h, p_h, mo_h) = runs
     worst_m = 0.0
     for a, w in zip(m_c, m_h):
@@ -3521,6 +3827,7 @@ def _train_float32_cuda_vs_cpu(cfg, params, dev) -> None:
           f"{TRAIN_LR:g}) max|Δ| {p_worst:.3g} with {p_off} elements past 1e-5, m max|Δ| "
           f"{m_worst:.3g} ({m_off} past 1e-5); losses {[m['loss'] for m in m_c]}; kernel "
           f"launches {kl}; {time.perf_counter() - t0:.2f} s")
+    return kl
 
 
 def _train_restarts(dev) -> None:
@@ -3569,50 +3876,21 @@ def _train_restarts(dev) -> None:
           f"unbroken run")
 
 
-def _b2_training_times(dev) -> dict:
-    """18f. B2 under autograd at llama's serving shape (bf16): the forward
-    with its stats store plus the plain backward, the backward alone, its
-    bound, and ``scaled_dot_product_attention``'s forward + backward."""
-    import torch.nn.functional as F
+def _b2_training_times(bwd: dict) -> None:
+    """18f. B2 under autograd at llama's serving shape (bf16), as phase 5b
+    measured it in this run (``bwd`` is 5b's tensor-core record): the
+    forward with its stats store plus the backward kernel, beside
+    ``scaled_dot_product_attention``'s forward + backward, in turns; the
+    backward kernel alone and its bound."""
+    from repro_torch.kernels.flash_attention import ops
 
-    from repro_torch.kernels.flash_attention import flash_attention, ops
-
-    gen = torch.Generator(device=dev).manual_seed(11)
-    q, k, v = _flash_inputs(SERVING_SHAPE, torch.bfloat16, gen, dev)
-    dout = torch.randn(q.shape, generator=gen, device=dev).to(torch.bfloat16)
-    scale = 1.0 / q.shape[-1] ** 0.5
-    with torch.no_grad():
-        out, m, l = ops.flash_attention_fwd(q, k, v, causal=True)
-    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
-    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
-    dout_t = dout.transpose(1, 2).contiguous()
-
-    def ours():
-        flash_attention(qg, kg, vg, causal=True).backward(dout)
-
-    def sdpa():
-        F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                       enable_gqa=True).backward(dout_t)
-
-    bwd_ms = device_time_ms(lambda: ops.flash_attention_bwd(
-        q, k, v, out, m, l, dout, causal=True, window=None, softcap=None, scale=scale,
-        q_chunk=1024, kv_chunk=1024), 5)
-    times = {"ours": [], "sdpa": []}
-    for name in ("ours", "sdpa", "sdpa", "ours"):
-        times[name].append(device_time_ms(ours if name == "ours" else sdpa, 5))
-    fwd_ms, fwd_by = _flash_bound(q, k, v, out)
-    flops = 2.5 * _causal_flops(q)
-    n_bytes = sum(t.numel() * t.element_size() for t in (q, k, v, out, dout, m, l, q, k, v))
-    bound_ms = max(flops / BF16_OPS_PER_S, n_bytes / HBM_BYTES_PER_S) * 1e3
-    print(f"[train] B2 under autograd at llama's shape {SERVING_SHAPE[:5]} bf16, causal, "
-          f"medians in turns: forward (stats store) + plain backward {times['ours'][0]:.4f} / "
-          f"{times['ours'][1]:.4f} ms, SDPA forward + backward {times['sdpa'][0]:.4f} / "
-          f"{times['sdpa'][1]:.4f} ms; the backward alone (plain PyTorch) {bwd_ms:.4f} ms "
-          f"against its bound {bound_ms:.4f} ms (operations: 2.5 x the forward's "
-          f"{_causal_flops(q) / 1e9:.1f} GFLOP at {BF16_OPS_PER_S / 1e12:g} TFLOP/s; the "
-          f"forward's bound {fwd_ms:.4f} ms)")
-    return {"train_fwd_bwd_ms": times["ours"], "sdpa_fwd_bwd_ms": times["sdpa"],
-            "train_bwd_ms": bwd_ms, "train_bwd_bound_ms": bound_ms}
+    ours, sdpa = bwd["fwd_bwd_ms"], bwd["sdpa_fwd_bwd_ms"]
+    print(f"[train] B2 under autograd at llama's shape {SERVING_SHAPE[:5]} bf16, causal (phase "
+          f"5b's medians in turns): forward (stats store) + backward kernel {ours[0]:.4f} / "
+          f"{ours[1]:.4f} ms, SDPA forward + backward {sdpa[0]:.4f} / {sdpa[1]:.4f} ms; the "
+          f"backward alone ({ops.TENSOR_CORE_BWD}) {bwd['ms']:.4f} ms, "
+          f"{bwd['ms'] / bwd['bound_ms']:.2f}x its bound {bwd['bound_ms']:.4f} ms "
+          f"({bwd['bound_by']} at {BF16_OPS_PER_S / 1e12:g} TFLOP/s)")
 
 
 def _train_step_line(tag, cfg, n_params, b, s, times, losses, peak, extra) -> float:
@@ -3730,10 +4008,12 @@ def _train_mamba(dev) -> dict:
             "step_ms": step_s * 1e3, "scan_bwd_ms": bwd_ms}
 
 
-def phase_training(dev) -> dict:
-    """The training path; returns B2's launches per step of the full-width
-    llama remat run, B2's training times at llama's shape, and the scan
-    kernels' launches in the full-width falcon-mamba run."""
+def phase_training(dev, b2_bwd: dict) -> dict:
+    """The training path, with ``b2_bwd`` phase 5b's tensor-core backward
+    record; returns B2's launches per step of the full-width llama remat
+    run, the backward kernels' launches, the step's time and the attention
+    backward's share, and the scan kernels' launches in the full-width
+    falcon-mamba run."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import OptimizerConfig, TrainConfig
     from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
@@ -3759,8 +4039,10 @@ def phase_training(dev) -> dict:
     step_fn = make_train_step(cfg, tcfg)
     pipe = SyntheticPipeline(DataConfig(global_batch=b, seq_len=s, vocab_size=cfg.vocab_size),
                              cfg)
-    flash_attention.launches = 0
+    flash_attention.launches = flash_attention.bwd_launches = 0
     flash_attention.kernel_launches.update(dict.fromkeys(flash_attention.kernel_launches, 0))
+    flash_attention.bwd_kernel_launches.update(
+        dict.fromkeys(flash_attention.bwd_kernel_launches, 0))
     times, losses = [], []
     for _, batch in zip(range(n_steps), pipe):
         torch.cuda.synchronize()
@@ -3771,18 +4053,23 @@ def phase_training(dev) -> dict:
         times.append(time.perf_counter() - t0)
     pipe.close()
     launches, by_kernel = flash_attention.launches, dict(flash_attention.kernel_launches)
+    bwd_by_kernel = dict(flash_attention.bwd_kernel_launches)
     per_step = launches // n_steps
     check(launches == n_steps * 2 * cfg.n_layers and by_kernel[ops.CUDA_CORE] == 0,
           f"{n_steps} remat steps launched {launches} {by_kernel}, want "
           f"{2 * cfg.n_layers} a step on the tensor-core kernel")
+    want_bwd = {ops.TENSOR_CORE_BWD: n_steps * cfg.n_layers, ops.CUDA_CORE_BWD: 0}
+    check(bwd_by_kernel == want_bwd and flash_attention.bwd_launches == n_steps * cfg.n_layers,
+          f"{n_steps} steps launched backward kernels {bwd_by_kernel}, want {want_bwd}")
     check(all(np.isfinite(losses)), f"losses {losses}")
     step_s = _train_step_line(
         "[train]", cfg, n_params, b, s, times, losses, torch.cuda.max_memory_allocated(),
         f"flash launches {per_step} a step ({cfg.n_layers} forward + {cfg.n_layers} under "
-        f"remat) {by_kernel}")
+        f"remat) {by_kernel}, backward kernel launches {bwd_by_kernel[ops.TENSOR_CORE_BWD] // n_steps} "
+        f"a step {bwd_by_kernel}")
 
     # the attention backward's share of a step: CUDA events around each call
-    real, spans = ops.flash_attention_bwd, []
+    real, spans = ops.flash_attention_bwd_kernel, []
 
     def timed_bwd(*args, **kw):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -3795,7 +4082,7 @@ def phase_training(dev) -> dict:
     pipe = SyntheticPipeline(DataConfig(b, s, cfg.vocab_size, seed=1), cfg)
     batch = {k: torch.from_numpy(v).to(dev) for k, v in next(pipe).items()}
     pipe.close()
-    ops.flash_attention_bwd = timed_bwd
+    ops.flash_attention_bwd_kernel = timed_bwd
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3803,10 +4090,11 @@ def phase_training(dev) -> dict:
         torch.cuda.synchronize()
         grad_s = time.perf_counter() - t0
     finally:
-        ops.flash_attention_bwd = real
+        ops.flash_attention_bwd_kernel = real
     bwd_ms = sum(a.elapsed_time(z) for a, z in spans)
+    check(len(spans) == cfg.n_layers, f"{len(spans)} backward kernel calls in a backward")
     print(f"[train] one forward + backward {grad_s * 1e3:.1f} ms; the attention backward "
-          f"(backward.flash_attention_bwd, plain PyTorch, {len(spans)} calls) {bwd_ms:.1f} ms = "
+          f"({ops.TENSOR_CORE_BWD}, {len(spans)} calls) {bwd_ms:.2f} ms = "
           f"{bwd_ms / (grad_s * 1e3):.1%} of it, {bwd_ms / (step_s * 1e3):.1%} of a step")
     leaves = list(common.tree_leaves(grads))
     bad = [p for p, g in leaves if g is None or not torch.isfinite(g).all()]
@@ -3814,16 +4102,28 @@ def phase_training(dev) -> dict:
     print(f"[train] every one of {len(leaves)} parameter leaves has a finite gradient on the "
           f"card (largest |g| {max(g.abs().max().item() for _, g in leaves):.3g})")
     del grads, leaves
+    # where a forward + backward's device time goes: its top kernels in one profiled run
+    grad_fn = make_grad_fn(cfg, tcfg)
+    events = _device_kernels(lambda: grad_fn(params, batch))
+    busy_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3
+    print(f"[train] one profiled forward + backward: {len(events)} kernels, {busy_ms:.1f} ms of "
+          f"device time; the largest: {_top_kernels(events, 1, k=8)}")
+    del events
+    torch.cuda.empty_cache()
     _train_flash_checks(cfg, params, batch, dev)
     del opt
     torch.cuda.empty_cache()
-    _train_float32_cuda_vs_cpu(cfg, params, dev)
+    f32 = _train_float32_cuda_vs_cpu(cfg, params, dev)
     del params
     torch.cuda.empty_cache()
     _train_restarts(dev)
-    b2 = _b2_training_times(dev)
+    _b2_training_times(b2_bwd)
     mamba = _train_mamba(dev)
-    return {"flash_per_step": per_step, "b2": b2, "mamba": mamba}
+    return {"flash_per_step": per_step, "mamba": mamba,
+            "bwd_per_step": bwd_by_kernel[ops.TENSOR_CORE_BWD] // n_steps,
+            "bwd_launches": bwd_by_kernel[ops.TENSOR_CORE_BWD],
+            "bwd_launches_f32": f32[ops.CUDA_CORE_BWD], "step_ms": step_s * 1e3,
+            "attention_bwd_share": bwd_ms / (grad_s * 1e3)}
 
 
 # ---------------------------------------------------------------------------
@@ -3941,6 +4241,7 @@ def main() -> int:
     argmin = _timed("3 kernels", phase_kernels, dev)
     argmin["launches"] = _timed("4 main path", phase_main_path, dev)
     flash = _timed("5 flash kernels", phase_flash_kernels, dev)
+    flash_bwd = _timed("5b flash backward", phase_flash_backward, dev)
     flash_launches = _timed("6 serving path", phase_serving, dev)
     for record in flash:
         record["launches"] = flash_launches[record["name"]]
@@ -3957,15 +4258,19 @@ def main() -> int:
                                                               phase_moe_serving, dev)
     flash[0]["launches_hybrid"], flash[0]["hybrid_shapes"] = _timed(
         "17 hybrid and frontends serving", phase_hybrid_serving, dev)
-    train = _timed("18 training path", phase_training, dev)
+    train = _timed("18 training path", phase_training, dev, flash_bwd[0])
     flash[0]["launches_train"] = train["flash_per_step"]
-    flash[0].update(train["b2"])
+    flash_bwd[0]["launches"], flash_bwd[0]["launches_train"] = (train["bwd_launches"],
+                                                               train["bwd_per_step"])
+    flash_bwd[0]["train_step_ms"] = train["step_ms"]
+    flash_bwd[0]["attention_bwd_share"] = train["attention_bwd_share"]
+    flash_bwd[1]["launches"] = flash_bwd[1]["launches_train"] = train["bwd_launches_f32"]
     scan["launches_train"] = train["mamba"]["per_step"]["forward"]
     scan_bwd["launches"] = train["mamba"]["launches"]["backward"]       # the whole run's
     scan_bwd["launches_train"] = train["mamba"]["per_step"]["backward"]
     flash[0]["launches_llama405b"], flash[0]["llama405b_shapes"] = _timed(
         "19 llama3-405b serving", phase_llama405b_serving, dev)
-    records = [argmin, *flash, scan, scan_bwd]
+    records = [argmin, *flash, *flash_bwd, scan, scan_bwd]
     print(f"[time] all phases: {time.perf_counter() - t0:.2f} s")
     print("kernels: " + ", ".join(r["name"] for r in records))
     print(json.dumps({"kernels": records}))

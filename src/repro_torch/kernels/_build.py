@@ -14,7 +14,7 @@ is built once per build directory.  The
 build's ``ptxas`` report (registers, shared memory, spills) is kept
 beside the library as ``build.log``.  No ``--use_fast_math``: the
 kernels must round like the plain PyTorch versions.  No source links
-libcuda: the tensor-core flash kernel looks up
+libcuda: the tensor-core flash kernels (forward and backward) look up
 ``cuTensorMapEncodeTiled`` at run time with the runtime's
 ``cudaGetDriverEntryPoint``, so the flags are the same for every source.
 """
@@ -40,6 +40,8 @@ SOURCES: Dict[str, str] = {
     "grid_argmin": "grid_argmin/csrc/grid_argmin.cu",
     "flash_attention": "flash_attention/csrc/flash_attention.cu",
     "flash_attention_wgmma": "flash_attention/csrc/flash_attention_wgmma.cu",
+    "flash_attention_bwd": "flash_attention/csrc/flash_attention_bwd.cu",
+    "flash_attention_bwd_wgmma": "flash_attention/csrc/flash_attention_bwd_wgmma.cu",
     "ssm_scan": "ssm_scan/csrc/selective_scan.cu",
     "ssm_scan_bwd": "ssm_scan/csrc/selective_scan_bwd.cu",
 }

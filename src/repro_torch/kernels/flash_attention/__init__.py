@@ -23,11 +23,23 @@ one by dtype and head_dim, a fixed rule:
       version for CPU tensors, input checks, the TMA map arguments
       (``tma_map_args``) and launch counts, in total and per kernel; under
       autograd, ``FlashAttention``, whose forward also stores each row's
-      softmax stats (m, l) and whose backward is ``backward.py``;
+      softmax stats (m, l) and whose backward is a backward kernel on CUDA
+      tensors (``flash_attention_bwd_kernel``, by ``bwd_route``) and
+      ``backward.py`` on CPU tensors;
+  csrc/flash_attention_bwd_wgmma.cu — the bfloat16 backward: a prologue
+      (Δ = rowsum(dO·O) and the row's log-sum-exp), a dK/dV kernel (one
+      block per KV head and 64-key tile, walking the G query heads and the
+      query tiles of its band, dK and dV summed in registers) and a dQ
+      kernel (the forward's band per query tile), every product on wgmma,
+      no atomics, so two launches give the same bits;
+  csrc/flash_attention_bwd.cu — the float32 backward: the same two passes
+      as fp32 FMAs on the CUDA cores;
   ref.py — ``attention_ref`` / ``flash_attention_ref``: the plain version,
       with the same stats on request;
   backward.py — ``flash_attention_bwd``: the JAX package's ``_fa_bwd`` in
-      plain PyTorch (the JAX package has no backward kernel either).
+      plain PyTorch (the JAX package has no backward kernel): the CPU's
+      backward, the tests' and ``chip_smoke.py``'s reference for the
+      backward kernels, and on no card's training path.
 
 Both are GQA-folded (query head h reads KV head h / G), align the causal
 mask at 0, take a sliding window and a softcap, mask ragged ends and read
@@ -36,8 +48,9 @@ their inputs through their strides.
 
 from repro_torch.kernels.flash_attention.backward import flash_attention_bwd
 from repro_torch.kernels.flash_attention.ops import (FlashAttention, flash_attention,
+                                                     flash_attention_bwd_kernel,
                                                      flash_attention_fwd)
 from repro_torch.kernels.flash_attention.ref import attention_ref, flash_attention_ref
 
 __all__ = ["flash_attention", "flash_attention_fwd", "FlashAttention", "flash_attention_bwd",
-           "attention_ref", "flash_attention_ref"]
+           "flash_attention_bwd_kernel", "attention_ref", "flash_attention_ref"]

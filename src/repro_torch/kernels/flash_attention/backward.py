@@ -5,7 +5,11 @@ The JAX package has no backward kernel: it differentiates its flash
 attention through this custom VJP, XLA einsums over query × KV chunks that
 recompute each score block from the forward's row stats (m, l) instead of
 keeping the probabilities.  This is the same computation in plain PyTorch,
-on whatever device its inputs are on:
+on whatever device its inputs are on.  It is the plain version of the
+backward kernels (``csrc/flash_attention_bwd*.cu``): ``FlashAttention``
+runs it for CPU tensors, and the tests and ``chip_smoke.py`` hold the
+kernels to it; a CUDA call of the op trains through the kernels, never
+through this.
 
   delta = rowsum(dout·out)                  (fp32)
   per query chunk and each KV chunk of its band (``_kv_extent``):

@@ -25,10 +25,24 @@ version.
 Training: when grad is enabled and q, k or v requires grad, the op runs
 as :class:`FlashAttention`, a ``torch.autograd.Function`` on every device.
 Its forward is the same kernel (or plain version) asked also for the row
-stats m and l, and saves (q, k, v, out, m, l); its backward is
-``backward.flash_attention_bwd``, the JAX package's ``_fa_bwd`` in plain
-PyTorch over ``q_chunk`` × ``kv_chunk`` blocks.  ``flash_attention_fwd``
-is the forward with the stats, for callers that check them.
+stats m and l, and saves (q, k, v, out, m, l).  Its backward follows the
+device in the same way: CUDA tensors launch the backward kernel that
+``bwd_route`` names (``flash_attention_bwd_kernel``), by the same rule as
+the forward's:
+
+* bfloat16 → ``flash_attention_bwd_wgmma``
+  (``csrc/flash_attention_bwd_wgmma.cu``): dK/dV and dQ in two passes on
+  wgmma, fed by TMA, no atomics;
+* float32 → ``flash_attention_bwd`` (``csrc/flash_attention_bwd.cu``): the
+  same two passes as fp32 FMAs on the CUDA cores.
+
+CPU tensors run ``backward.flash_attention_bwd``, the JAX package's
+``_fa_bwd`` in plain PyTorch over ``q_chunk`` × ``kv_chunk`` blocks.
+``flash_attention.bwd_launches`` counts backward kernel launches (one a
+call, which runs the kernel's three parts) and
+``flash_attention.bwd_kernel_launches`` those of each backward kernel.
+``flash_attention_fwd`` is the forward with the stats, for callers that
+check them.
 """
 
 from __future__ import annotations
@@ -64,6 +78,23 @@ _WGMMA_ARGTYPES = ([ctypes.c_void_p] * 6 + [_MapArg] * 3 + [ctypes.c_int] * 6
                       ctypes.c_float, ctypes.c_void_p])
 #: Error codes the tensor-core launch adds to CUDA's.
 _NO_ENCODER, _ENCODE_FAILED = 9999, 10000
+#: The backward kernels, by their ``_build.SOURCES`` names, and the forward
+#: kernel whose calls each differentiates.
+TENSOR_CORE_BWD, CUDA_CORE_BWD = "flash_attention_bwd_wgmma", "flash_attention_bwd"
+_BWD = {TENSOR_CORE: TENSOR_CORE_BWD, CUDA_CORE: CUDA_CORE_BWD}
+#: Rows of the TMA boxes of q, dO, k and v in the tensor-core backward (its
+#: dK/dV kernel's 64-key and 64-query tiles, its dQ kernel's 64 query rows
+#: a warpgroup); the dQ kernel's k, v boxes are ``bwd_kv_box_rows``.
+BWD_TILE_ROWS = 64
+#: The tensor-core backward's row-stats scratch is padded to a multiple of
+#: its query tile (``kStatsPad`` in the kernel), one bulk copy a tile.
+BWD_STATS_PAD = 64
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 9
+                 + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_float, ctypes.c_void_p])
+_BWD_WGMMA_ARGTYPES = ([ctypes.c_void_p] * 12 + [_MapArg] * 6 + [ctypes.c_int] * 7
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_float, ctypes.c_void_p])
 
 
 def route(dtype: torch.dtype, head_dim: int) -> str:
@@ -82,6 +113,22 @@ def route(dtype: torch.dtype, head_dim: int) -> str:
         raise ValueError(f"flash_attention: the bfloat16 tensor-core kernel takes head_dim "
                          f"in {TC_HEAD_DIMS}, got {head_dim}")
     return TENSOR_CORE
+
+
+def bwd_route(dtype: torch.dtype, head_dim: int) -> str:
+    """The backward kernel that serves CUDA inputs of ``dtype`` and
+    ``head_dim``: the one beside the forward kernel ``route`` names
+    (``TENSOR_CORE_BWD`` for bfloat16, ``CUDA_CORE_BWD`` for float32); raises
+    as ``route`` does."""
+    return _BWD[route(dtype, head_dim)]
+
+
+def bwd_kv_box_rows(head_dim: int) -> int:
+    """Keys per TMA box of k, v in the tensor-core backward's dQ kernel (one
+    K/V ring stage, ``Tile::kBK``): 64, or 32 at head_dim 256, where the
+    score fragments of 64 keys beside the dQ accumulator would not fit in
+    registers.  Its dK/dV kernel reads q, dO, k and v in 64-row boxes."""
+    return 32 if head_dim == 256 else 64
 
 
 def kv_box_rows(head_dim: int) -> int:
@@ -212,7 +259,9 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 class FlashAttention(torch.autograd.Function):
     """The op under autograd: forward by the kernel (CUDA) or the plain
-    version (CPU) with the row stats, backward by ``flash_attention_bwd``."""
+    version (CPU) with the row stats, backward by the backward kernel
+    (CUDA, ``flash_attention_bwd_kernel``) or ``flash_attention_bwd``
+    (CPU)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, softcap, scale, q_chunk, kv_chunk):
@@ -225,8 +274,83 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, m, l = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, m, l, dout, **ctx.opts)
+        if q.device.type == "cpu":
+            dq, dk, dv = flash_attention_bwd(q, k, v, out, m, l, dout, **ctx.opts)
+        else:
+            opts = {n: ctx.opts[n] for n in ("causal", "window", "softcap", "scale")}
+            dq, dk, dv = flash_attention_bwd_kernel(q, k, v, out, m, l, dout, **opts)
         return dq, dk, dv, None, None, None, None, None, None
+
+
+def flash_attention_bwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                               out: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
+                               dout: torch.Tensor, *, causal: bool, window: Optional[int],
+                               softcap: Optional[float], scale: float
+                               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward kernel that ``bwd_route`` names, on CUDA tensors: (dq,
+    dk, dv) in q's, k's and v's shapes and dtype, contiguous, from the
+    forward's inputs, its output ``out`` and row stats ``m``, ``l``
+    (float32 [B,H,Sq]) and the cotangent ``dout``.  The kernels read q, k and
+    v through their strides, as the forward does; ``out`` and ``dout`` are
+    copied contiguous first where they are not (autograd may hand in a
+    non-contiguous ``dout``).  Launches on the current stream without
+    synchronizing.  Raises on CPU tensors (their backward is
+    ``flash_attention_bwd``) and on what the kernels do not take."""
+    dev = _check(q, k, v, causal, window, softcap)
+    if dev.type != "cuda":
+        raise ValueError(f"flash_attention_bwd_kernel takes CUDA tensors, got {dev}; the "
+                         "CPU's backward is backward.flash_attention_bwd")
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    kernel = bwd_route(q.dtype, d)
+    for name, t, shape, dtype in (("out", out, q.shape, q.dtype),
+                                  ("dout", dout, q.shape, q.dtype),
+                                  ("m", m, (b, h, sq), torch.float32),
+                                  ("l", l, (b, h, sq), torch.float32)):
+        if t.device != dev or tuple(t.shape) != tuple(shape) or t.dtype != dtype:
+            raise ValueError(f"flash_attention_bwd_kernel: {name} must be {dtype} "
+                             f"{tuple(shape)} on {dev}, got {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device}")
+    if -(-sk // 64) > 65535:
+        raise ValueError(f"flash_attention backward kernel grid too large for Sk={sk}")
+    out, dout, m, l = (t.contiguous() for t in (out, dout, m, l))
+    dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=dev)
+    dk = torch.empty((b, sk, kvh, d), dtype=k.dtype, device=dev)
+    dv = torch.empty((b, sk, kvh, d), dtype=v.dtype, device=dev)
+    # the row scratch: Δ, and for the tensor-core kernel the log-sum-exp, padded
+    pad = -(-sq // BWD_STATS_PAD) * BWD_STATS_PAD if kernel == TENSOR_CORE_BWD else sq
+    scratch = [torch.empty((b, h, pad), dtype=torch.float32, device=dev)
+               for _ in range(2 if kernel == TENSOR_CORE_BWD else 1)]
+    options = (float(scale), int(causal), -1 if window is None else int(window),
+               int(softcap is not None), float(softcap or 0.0))
+    if kernel == TENSOR_CORE_BWD:
+        rows = bwd_kv_box_rows(d)
+        maps = [tma_map_args(t, BWD_TILE_ROWS) for t in (q, dout, k, v)]
+        maps += [tma_map_args(k, rows), tma_map_args(v, rows)]
+        fn = _build.load(kernel).flash_attention_bwd_wgmma_launch
+        fn.argtypes, fn.restype = _BWD_WGMMA_ARGTYPES, ctypes.c_int
+    else:
+        fn = _build.load(kernel).flash_attention_bwd_launch
+        fn.argtypes, fn.restype = _BWD_ARGTYPES, ctypes.c_int
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        ptrs = [t.data_ptr() for t in (q, k, v, out, dout, m, l, dq, dk, dv, *scratch)]
+        if kernel == TENSOR_CORE_BWD:
+            rc = fn(*ptrs, *(mp.as_c() for mp in maps), b, sq, sk, h, kvh, d, pad,
+                    *options, stream)
+        else:
+            rc = fn(*ptrs, b, sq, sk, h, kvh, d, *q.stride()[:3], *k.stride()[:3],
+                    *v.stride()[:3], *options, stream)
+    if rc == _NO_ENCODER:
+        raise RuntimeError("flash_attention: libcuda has no cuTensorMapEncodeTiled")
+    if rc >= _ENCODE_FAILED:
+        raise RuntimeError(f"flash_attention: cuTensorMapEncodeTiled refused a map: "
+                           f"CUresult {rc - _ENCODE_FAILED}")
+    if rc != 0:
+        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {rc}")
+    flash_attention.bwd_launches += 1
+    flash_attention.bwd_kernel_launches[kernel] += 1
+    return dq, dk, dv
 
 
 def _forward(q, k, v, causal, window, softcap, scale, stats: bool):
@@ -279,3 +403,5 @@ def _forward(q, k, v, causal, window, softcap, scale, stats: bool):
 
 flash_attention.launches = 0
 flash_attention.kernel_launches = {TENSOR_CORE: 0, CUDA_CORE: 0}
+flash_attention.bwd_launches = 0
+flash_attention.bwd_kernel_launches = {TENSOR_CORE_BWD: 0, CUDA_CORE_BWD: 0}

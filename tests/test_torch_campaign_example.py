@@ -4,7 +4,11 @@
 Its campaign table (the mean gain of each technique over the five
 accelerators and the proposed technique's QoS violations, a row per
 scenario) at 256 steps against ``repro.core.scenarios.run_campaign`` at
-the same count: within 1e-5 relative (1e-5 absolute for rates).  Its
+the same count: within 1e-5 relative (1e-5 absolute for rates).  Both
+run the 15 built-in scenarios by name, which must be the first 15 of
+both registries in one order: other test files register derived
+scenarios (``with_failure_model``, ``register_replay``) in the same
+process, and those must not change what is compared.  Its
 ``main --device cpu`` at small ``--steps`` / ``--stream-steps`` prints
 the JAX example's lines, the kernel-library line in place of the
 retrace counts.
@@ -24,6 +28,7 @@ from repro.core.accelerators import ACCELERATORS as JACC
 
 EXAMPLE = pathlib.Path(__file__).resolve().parent.parent / "examples" / "scenario_campaign_torch.py"
 STEPS = 256
+N_BUILT_IN = 15
 
 
 def _example():
@@ -35,12 +40,17 @@ def _example():
 
 def test_twin_table_matches_jax_campaign():
     mod = _example()
-    platforms, out = mod.run_table(STEPS, torch.device("cpu"))
+    names = tuple(mod.scn.SCENARIOS)[:N_BUILT_IN]
+    assert names == tuple(jscn.SCENARIOS)[:N_BUILT_IN]
+    platforms = [mod.ctl.fpga_platform(a) for a in mod.ACCELERATORS.values()]
+    out = mod.scn.run_campaign(platforms, scenario_names=names, techniques=mod.TECHNIQUES,
+                               n_steps=STEPS, chunk_size=1024, device=torch.device("cpu"))
     rows = mod.campaign_rows(out, platforms)
     jplats = [jctl.fpga_platform(a) for a in JACC.values()]
-    jout = jscn.run_campaign(jplats, techniques=mod.TECHNIQUES, n_steps=STEPS, chunk_size=1024)
+    jout = jscn.run_campaign(jplats, scenario_names=names, techniques=mod.TECHNIQUES,
+                             n_steps=STEPS, chunk_size=1024)
     want = mod.campaign_rows(jout, jplats)
-    assert list(rows) == list(want) and len(rows) == 15
+    assert list(rows) == list(want) == list(names) and len(rows) == 15
     for scen, (gains, qos) in want.items():
         for t, g in gains.items():
             assert rows[scen][0][t] == pytest.approx(g, rel=1e-5), (scen, t)

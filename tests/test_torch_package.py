@@ -84,6 +84,7 @@ def test_port_package_covers_the_slice():
     for name, src in _build.SOURCES.items():
         assert (_build.KERNELS_DIR / src).exists(), name
     assert set(_build.SOURCES) == {"grid_argmin", "flash_attention", "flash_attention_wgmma",
+                                   "flash_attention_bwd", "flash_attention_bwd_wgmma",
                                    "ssm_scan", "ssm_scan_bwd"}
 
 
