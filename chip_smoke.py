@@ -90,13 +90,15 @@ printing its seconds:
    N = 16, the serving shape), y and h both; at the serving shape (B = 4,
    S = 2048, d_inner 8192, d_state 16, fp32) the kernel's and the plain
    version's times and the bound; the backward kernel's ptxas report (no
-   spill bytes) and SASS (MUFU.EX2), its gradients against the plain
-   backward on the same boundary store (each within 1e-4 of its max |g|,
-   two launches bit-equal; a ragged S, D and N = 4, N = 1 and 12, S = 1,
-   D = 8200, the serving shape), the store against a plain re-scan and the
-   store-less launch's y and h; at the serving shape the backward's, the
-   plain backward's and the bound's times, and the forward with and
-   without the store, in turns;
+   spill bytes) and SASS (MUFU.EX2 and LDGSTS, the ``cp.async`` copies of
+   its ring; no floating-point ATOM or RED), its gradients against the
+   plain backward on the same boundary store (each within 1e-4 of its max
+   |g|, two launches bit-equal; a ragged S, D and N = 4, N = 1 and 12,
+   S = 1, D = 8200, delta, x and dy starting off a 16-byte boundary, the
+   serving shape), the store against a plain re-scan and the store-less
+   launch's y and h; at the serving shape the backward's time beside the
+   first backward kernel's and the bound, the plain backward's time, and
+   the forward with and without the store, in turns;
 8. Mamba serving path — ``launch.serve --arch falcon-mamba-7b --no-reduced``
    on ``cuda``; ``ServeEngine`` on full-width falcon-mamba-7b (64 Mamba-1
    layers, 7.27 B float32 parameters from a seed, bf16 activations) at the
@@ -390,6 +392,13 @@ SCAN_SERVING = (4, 2048, 8192, 16, torch.float32)   # falcon-mamba-7b prefill sc
 SCAN_BWD_TOL = 1e-4
 SCAN_BWD_CASES = [(2, 77, 70, 16), (1, 40, 33, 4), (2, 45, 201, 12), (2, 50, 128, 1),
                   (3, 1, 300, 16), (1, 33, 8200, 16), (4, 2048, 8192, 16)]
+# delta, x and the cotangent dy as views that start off a 16-byte boundary (autograd hands
+# the backward a dy that may start anywhere): (case, delta's, x's and dy's offsets in
+# elements into their buffers)
+SCAN_BWD_OFFSET_CASES = [((2, 70, 256, 16), 1, 3, 2), ((1, 45, 201, 12), 3, 0, 1)]
+# The first backward kernel's time at the serving shape (commit 3ca4b88 on an NVIDIA H100
+# 80GB HBM3 at 700.00 W), printed beside this run's.
+SCAN_BWD_FIRST_MS = 5.1809
 MAMBA_ARCH = "falcon-mamba-7b"
 MAMBA_F32_LAYERS = 2    # layers of the float32 card-vs-CPU check
 # Phase 15: gemma2-2b at full depth and gemma3-27b cut to 8 layers (one period of 6
@@ -1812,8 +1821,16 @@ def _scan_case_check(name: str, ins) -> float:
     return max(err_y, err_h)
 
 
+def _float_atomics(sass: str) -> list:
+    """SASS lines of floating-point atomics or reductions (ATOM*, RED* on F16/F32/F64)."""
+    return [line.strip() for line in sass.splitlines()
+            if re.search(r"\b(ATOM|RED)\w*(\.\w+)*\.F(16|32|64)\b", line)]
+
+
 def _scan_bwd_build_check() -> None:
-    """The built backward kernel: no spills, MUFU.EX2 in its SASS."""
+    """The built backward kernel: no spills; its SASS holds MUFU.EX2 (the
+    SFU's exponential) and LDGSTS (the ``cp.async`` copies of its ring), and
+    no floating-point atomic (its sums run in a fixed order)."""
     from repro_torch.kernels import _build
 
     lib = _build.library_path("ssm_scan_bwd")
@@ -1822,17 +1839,35 @@ def _scan_bwd_build_check() -> None:
             print(f"[scan-bwd] ptxas: {line.strip()[:140]}")
             spills = [int(n) for n in re.findall(r"(\d+) bytes spill", line)]
             check(not any(spills), f"the scan backward kernel spills: {line.strip()}")
-    print(f"[scan-bwd] SASS: {_sass_check(_sass(lib), lib.name, ('MUFU.EX2',))}")
+    sass = _sass(lib)
+    found = _sass_check(sass, lib.name, ("MUFU.EX2", "LDGSTS"))
+    atomics = _float_atomics(sass)
+    check(not atomics, f"the scan backward kernel has float atomics: {atomics[:4]}")
+    print(f"[scan-bwd] SASS: {found}; floating-point ATOM / RED x0")
+    # every block of the serving shape resident at once: one wave
+    from repro_torch.kernels.ssm_scan import ops
+
+    b, _, d, _ = SCAN_BWD_CASES[-1]
+    per_sm = _build.load("ssm_scan_bwd").selective_scan_bwd_blocks_per_sm(1)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    grid = -(-d // ops.BWD_CHANNELS) * b
+    check(per_sm > 0 and grid <= per_sm * sms,
+          f"the backward's {grid} blocks at the serving shape do not fit one wave: {per_sm} an "
+          f"SM on {sms} SMs")
+    print(f"[scan-bwd] {per_sm} blocks an SM, {grid} blocks at the serving shape on {sms} SMs: "
+          f"one wave")
 
 
-def _scan_bwd_inputs(case, gen, dev):
-    """Inputs, the forward's boundary store and cotangents dy, dh of a case."""
+def _scan_bwd_inputs(case, gen, dev, offsets=(0, 0, 0)):
+    """Inputs, the forward's boundary store and cotangents dy, dh of a case;
+    ``offsets``: delta's, x's and dy's starts in elements into their buffers."""
     from repro_torch.kernels.ssm_scan import ops
 
     b, s, d, n = case
-    ins = _scan_inputs(b, s, d, n, torch.float32, gen, dev)
+    delta, B, C, x, A_log = _scan_inputs(b, s, d, n, torch.float32, gen, dev)
+    ins = (_offset_copy(delta, offsets[0]), B, C, _offset_copy(x, offsets[1]), A_log)
     y, h, bnd = ops._forward(*ins, store=True)
-    dy = torch.randn(b, s, d, generator=gen, device=dev)
+    dy = _offset_copy(torch.randn(b, s, d, generator=gen, device=dev), offsets[2])
     dh = torch.randn(b, d, n, generator=gen, device=dev)
     return ins, bnd, dy, dh, (y, h)
 
@@ -1864,8 +1899,13 @@ def _scan_backward_kernel(dev) -> dict:
     _scan_bwd_build_check()
     gen = torch.Generator(device=dev).manual_seed(3)
     max_err = 0.0
-    for case in SCAN_BWD_CASES:
-        ins, bnd, dy, dh, (y, h) = _scan_bwd_inputs(case, gen, dev)
+    cases = [(case, (0, 0, 0)) for case in SCAN_BWD_CASES]
+    cases[-1:-1] = [(case, offs) for case, *offs in SCAN_BWD_OFFSET_CASES]
+    for case, offsets in cases:
+        ins, bnd, dy, dh, (y, h) = _scan_bwd_inputs(case, gen, dev, offsets)
+        if any(offsets):
+            check(ins[0].data_ptr() % 16 and dy.data_ptr() % 16,
+                  f"{case}: the offset case's delta and dy start on a boundary")
         y0, h0 = selective_scan(*ins)
         check(torch.equal(y, y0) and torch.equal(h, h0),
               f"{case}: the storing forward's y, h differ from the serving launch's")
@@ -1889,7 +1929,8 @@ def _scan_backward_kernel(dev) -> dict:
                   f"{case} {name}: max|Δ| {err} > {SCAN_BWD_TOL} x {scale}")
             errs.append(err / scale)
             max_err = max(max_err, err)
-        print(f"[scan-bwd] {case}: each gradient vs the plain backward, max|Δ| / max|g|: "
+        where = f" delta, x, dy {', '.join(map(str, offsets))} elements off" if any(offsets) else ""
+        print(f"[scan-bwd] {case}{where}: each gradient vs the plain backward, max|Δ| / max|g|: "
               + ", ".join(f"{v:.3g}" for v in errs) + f" (tol {SCAN_BWD_TOL}); two launches "
               f"bit-equal")
         del ins, bnd, dy, dh, g1, g2, ref, y, h, y0, h0
@@ -1910,6 +1951,10 @@ def _scan_backward_kernel(dev) -> dict:
           f"{ms:.4f} ms ({ms / bound_ms:.2f}x the bound), plain backward {plain_ms:.4f} ms, "
           f"bound {bound_ms:.4f} ms ({bound_by}: {detail}); "
           f"{selective_scan.bwd_launches - launches_before} timing launches")
+    print(f"[scan-bwd] the backward kernel at the serving shape: {ms:.4f} ms, against the first "
+          f"kernel's {SCAN_BWD_FIRST_MS:.4f} ms (3ca4b88; {SCAN_BWD_FIRST_MS / ms:.2f}x) and the "
+          f"{bound_ms:.4f} ms bound ({ms / bound_ms:.2f}x; the first kernel "
+          f"{SCAN_BWD_FIRST_MS / bound_ms:.2f}x)")
     print(f"[scan-bwd] the forward at the serving shape, in turns (no store, store, store, no "
           f"store): without the boundary store {fwd['plain'][0]:.4f} / {fwd['plain'][1]:.4f} ms, "
           f"with it (training) {fwd['store'][0]:.4f} / {fwd['store'][1]:.4f} ms")

@@ -7,8 +7,12 @@
       previous chunk is scanned; for training it also stores the state at
       every 32-step chunk boundary;
   csrc/selective_scan_bwd.cu — its backward: chunks in reverse, each
-      chunk's states recomputed from its stored start, channel sums
-      reduced in a fixed order (no atomics);
+      chunk's states recomputed from its stored start in 4-step
+      sub-chunks whose decays are kept (1.875 exponentials a state
+      element), delta, x, dy, B and C staged ahead by ``cp.async``, the
+      serving shape's 256 blocks resident in one wave, channel sums
+      reduced in a fixed order (no atomics); bound by the bytes it moves
+      (0.4423 ms at the serving shape);
   ops.py — ``selective_scan``: the kernel for CUDA tensors, the plain
       version for CPU tensors, with input checks and launch counts;
       ``SelectiveScan``, the op under autograd; ``selective_scan_bwd``,

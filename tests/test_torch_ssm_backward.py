@@ -6,17 +6,23 @@
   the port's ``_mamba1_core`` prefill against ``jax.vjp`` of the JAX
   package's ``_mamba1_core`` (its XLA chunked scan) with the same weights:
   gradients of x_proj, dt_proj, dt_bias, A_log, D and the block input;
-* a plain-torch model of ``csrc/selective_scan_bwd.cu`` (its lane split,
-  chunks walked back from the stored boundaries in sub-chunks, decays as
-  exp2 of delta·A·log2(e), the channel sums as the kernel's warp
-  reduce-scatter simulated lane by lane, partials added in block and batch
-  order) against the plain backward: the kernel's index arithmetic and
-  its tolerance argument, since the kernel itself runs only on the card;
-* the kernel's design constants read out of both sources, and the
-  wrapper's checks.
+* a plain-torch model of ``csrc/selective_scan_bwd.cu`` (8 states of 2
+  channels a thread, chunks walked forward to their last 4-step
+  sub-chunk and each sub-chunk recomputed with its decays kept, decays as
+  exp2 of delta·A·log2(e), the ragged chunk and sub-chunk ends, dx and dδ
+  reduce-scattered over a lane pair, dB and dC summed over a thread's two
+  channels and then by the warp's reduce-scatter simulated lane by lane,
+  warps, blocks and batch rows added in order) against the plain
+  backward: the kernel's index arithmetic and its tolerance argument,
+  since the kernel itself runs only on the card;
+* the ring's unit order (every step walked back once, in reverse);
+* the kernel's design constants read out of both sources, its shared
+  memory and the launch arithmetic of the serving shape (one wave on 132
+  SMs, 255 registers a thread, 1.875 exponentials a state element), and
+  the wrapper's checks.
 
 Shapes have S not a multiple of the 32-step chunk, D not a multiple of
-the 64-channel block and N in {4, 16} (and 1, 12 for the model).  fp32
+the 128-channel block and N in {4, 16} (and 1, 12 for the model).  fp32
 throughout: every gradient within 1e-5 of its largest magnitude.  A
 repeated backward is bit-equal.
 """
@@ -183,11 +189,24 @@ def _constant(path, name):
 
 
 BWD = CSRC / "selective_scan_bwd.cu"
-MAX_N, LANES, CHANNELS, CHUNK, SUB, MIN_BLOCKS = (
-    _constant(BWD, k) for k in ("kMaxN", "kLanes", "kChannels", "kChunk", "kSub", "kMinBlocks"))
-SPL = MAX_N // LANES
-CH_PER_WARP = 32 // LANES
-WARPS = CHANNELS * LANES // 32
+MAX_N, LANES, PAIR, CHANNELS, MIN_BLOCKS, CHUNK, SUB, STAGES = (
+    _constant(BWD, k) for k in ("kMaxN", "kLanes", "kPair", "kChannels", "kMinBlocks",
+                                "kChunk", "kSub", "kStages"))
+SPL = MAX_N // LANES                      # states a lane keeps
+THREADS = CHANNELS * LANES // PAIR
+HALF = CHANNELS // PAIR                   # channel c's partner is c + HALF
+PAIRS_PER_WARP = 32 // LANES
+WARPS = THREADS // 32
+SUBS = CHUNK // SUB
+
+
+def _smem_bytes():
+    """``sizeof(Smem)``: the ring (δ, x, dy rows of CHANNELS floats plus 16 bytes of
+    shift, B and C [SUB][16] a stage), the sub-chunk starts, the recomputed states and
+    the warps' dB, dC sums, as the kernel lays them out."""
+    ring = STAGES * (3 * SUB * (4 * CHANNELS + 16) + 2 * SUB * MAX_N * 4)
+    states = 16 * (PAIR * SPL // 4) * THREADS        # one float4 array a step
+    return ring + (SUBS - 1) * states + (SUB - 1) * states + 2 * SUB * WARPS * 2 * MAX_N * 4
 
 
 def test_design_constants_agree_with_the_forward_and_the_wrapper():
@@ -195,108 +214,190 @@ def test_design_constants_agree_with_the_forward_and_the_wrapper():
     assert CHUNK == _constant(fwd, "kChunk") == BOUNDARY_STEPS
     assert LANES == _constant(fwd, "kLanes") and MAX_N == _constant(fwd, "kMaxN") == ops.MAX_STATE
     assert CHANNELS == ops.BWD_CHANNELS
-    threads = CHANNELS * LANES
-    smem = 4 * (CHUNK // SUB * SPL * threads + SUB * SPL * threads + 2 * CHUNK * MAX_N
-                + 2 * CHUNK * WARPS * MAX_N)
-    assert smem == 69632                                   # the header's 68 KB
-    assert MIN_BLOCKS * (smem + 1024) <= 227 * 1024        # three blocks an SM
-    assert 65536 // (MIN_BLOCKS * threads) >= 128          # registers a thread allowed
+    assert _smem_bytes() == 106560                         # the header's figure
+    assert PAIRS_PER_WARP == 2 * SPL                       # one of 16 values a lane
 
 
-def _channel_sum(p):
-    """The kernel's ``channel_sum`` on one warp, lane by lane: ``p``
-    [..., 16 channels, 2 lanes, 8 states]; returns [..., 16, 2], the value
-    of lane (c, g): state 8g + (c & 7) summed over the 16 channels."""
-    c = torch.arange(CH_PER_WARP)
-    for o in (4, 2, 1):
-        upper = ((c & o) != 0)[:, None]
-        new = p.clone()
+def test_launch_arithmetic_of_the_serving_shape():
+    """b = 4, D = 8192: every block resident at once (one wave on 132 SMs), the
+    shared memory of MIN_BLOCKS blocks within an SM's 228 KB, 255 registers a
+    thread, and at most two exponentials a state element (1.875)."""
+    b, S, D = 4, 2048, 8192
+    blocks = -(-D // CHANNELS) * b
+    assert blocks <= 132 * MIN_BLOCKS and -(-blocks // (132 * MIN_BLOCKS)) == 1
+    assert MIN_BLOCKS * (_smem_bytes() + 1024) <= 233472
+    assert _smem_bytes() <= 227 * 1024
+    assert min(255, 65536 // (MIN_BLOCKS * THREADS)) == 255
+    full = S // CHUNK
+    exps = full * ((SUBS - 1) * SUB + CHUNK)               # the first walk and the recompute
+    assert exps / S == 1.875 <= 2
+
+
+def _butterfly(pv):
+    """The kernel's dB, dC reduce-scatter on one warp, lane by lane: ``pv``
+    [..., 16 lane pairs, 2 lanes, 16 values]; returns [..., 16, 2], the value
+    of lane (p, g): value p summed over the 16 pairs."""
+    pl = torch.arange(PAIRS_PER_WARP)
+    for o in (8, 4, 2, 1):
+        upper = ((pl & o) != 0)[:, None]
+        new = pv.clone()
         for i in range(o):
-            keep = torch.where(upper, p[..., i + o], p[..., i])
-            send = torch.where(upper, p[..., i], p[..., i + o])
-            new[..., i] = keep + send[..., c ^ o, :]        # __shfl_xor_sync(send, 2·o)
-        p = new
-    s = p[..., 0]
-    return s + s[..., c ^ SPL, :]                           # lanes 16 apart
+            keep = torch.where(upper, pv[..., i + o], pv[..., i])
+            send = torch.where(upper, pv[..., i], pv[..., i + o])
+            new[..., i] = keep + send[..., pl ^ o, :]           # the pair 2·o lanes apart
+        pv = new
+    return pv[..., 0]
+
+
+def _pair_scatter(sums):
+    """The dx, dδ reduce-scatter over a lane pair: ``sums`` [..., 2 lanes, 4]
+    (Σ g·B and Σ g·A′·a·h of channel c, then of c + HALF); returns
+    [..., 2 lanes, 2], lane g's sums of its channel g over both lanes."""
+    upper = torch.tensor([False, True])[:, None]
+    keep = torch.where(upper, sums[..., 2:], sums[..., :2])
+    send = torch.where(upper, sums[..., :2], sums[..., 2:])
+    return keep + send.flip(-2)                              # the lane 1 apart
 
 
 def test_channel_sum_gives_every_state_its_channel_sum():
-    p = torch.from_numpy(np.random.default_rng(0).standard_normal((3, 16, 2, 8))
+    """dB, dC: lane (p, g) ends with state 8g + (p & 7) of dB (p < 8) or dC,
+    summed over the warp's 16 lane pairs."""
+    p = torch.from_numpy(np.random.default_rng(0).standard_normal((3, 16, 2, 16))
                          .astype(np.float32))
-    got = _channel_sum(p)
-    want = p.sum(1)                                          # [3, 2 lanes, 8 states]
-    for c in range(16):
+    got = _butterfly(p)
+    want = p.sum(1)                                          # [3, 2 lanes, 16 values]
+    for pl in range(16):
         for g in range(2):
-            torch.testing.assert_close(got[:, c, g], want[:, g, c & 7], rtol=1e-6, atol=1e-6)
+            torch.testing.assert_close(got[:, pl, g], want[:, g, pl], rtol=1e-6, atol=1e-6)
+
+
+def test_pair_scatter_gives_each_lane_its_channel():
+    s = torch.from_numpy(np.random.default_rng(1).standard_normal((5, 2, 4)).astype(np.float32))
+    got = _pair_scatter(s)
+    total = s.sum(-2)                                        # [5, 4]
+    for g in range(2):
+        torch.testing.assert_close(got[:, g], total[:, 2 * g:2 * g + 2], rtol=1e-6, atol=1e-6)
+
+
+def _unit_at(u, chunks, last_subs):
+    """The kernel's ``unit_at``: (chunk, sub-chunk, walked back) of unit u."""
+    first = 2 * last_subs - 1
+    if u < first:
+        return ((chunks - 1, u, False) if u < last_subs - 1
+                else (chunks - 1, 2 * last_subs - 2 - u, True))
+    per = 2 * SUBS - 1
+    v = u - first
+    k, r = chunks - 2 - v // per, v % per
+    return (k, r, False) if r < SUBS - 1 else (k, 2 * SUBS - 2 - r, True)
+
+
+@pytest.mark.parametrize("S", [1, 3, 4, 5, 32, 33, 77, 2048])
+def test_unit_order_walks_every_step_back_once(S):
+    """The ring's units, in the kernel's order: each chunk, last first, walks
+    forward through full units to its last sub-chunk, then back through every
+    sub-chunk, last first; every step is walked back once, in reverse."""
+    chunks = -(-S // CHUNK)
+    last_subs = -(-(S - (chunks - 1) * CHUNK) // SUB)
+    units = 2 * last_subs - 1 + (chunks - 1) * (2 * SUBS - 1)
+    seq = [_unit_at(u, chunks, last_subs) for u in range(units)]
+    back = []
+    for k in reversed(range(chunks)):
+        subs = -(-(min(CHUNK, S - k * CHUNK)) // SUB)
+        mine = [un for un in seq if un[0] == k]
+        assert mine == ([(k, j, False) for j in range(subs - 1)]
+                        + [(k, j, True) for j in reversed(range(subs))])
+        for _, j, _ in mine[:subs - 1]:
+            assert k * CHUNK + (j + 1) * SUB <= S                 # forward units are full
+        back += [t for _, j, _ in mine[subs - 1:]
+                 for t in reversed(range(k * CHUNK + j * SUB, min(S, k * CHUNK + (j + 1) * SUB)))]
+    assert [un[0] for un in seq] == sorted((un[0] for un in seq), reverse=True)
+    assert back == list(reversed(range(S)))
 
 
 def _kernel_model(delta, B, C, x, A_log, dy, dh):
-    """``selective_scan_bwd.cu``'s arithmetic, vectorized over batch rows
-    and blocks: [b, blocks·64 channels, 2 lanes, 8 states]."""
+    """``selective_scan_bwd.cu``'s arithmetic, vectorized over batch rows and
+    blocks: [b, blocks, PAIR channels, HALF lane pairs, 2 lanes, 8 states];
+    channel j·HALF + p of a block is kept by lane pair p."""
     b, S, D = delta.shape
     N = B.shape[-1]
     blocks = -(-D // CHANNELS)
-    dsel = torch.arange(blocks * CHANNELS).clamp(max=D - 1)
-    valid = (torch.arange(blocks * CHANNELS) < D)[None, :, None, None]
+    cidx = (torch.arange(blocks)[:, None, None] * CHANNELS
+            + torch.arange(PAIR)[None, :, None] * HALF + torch.arange(HALF)[None, None, :])
+    dsel = cidx.clamp(max=D - 1)                       # past D: channel D − 1, nothing stored
+    valid = cidx < D                                   # [blocks, PAIR, HALF]
     n_of = torch.arange(MAX_N).view(LANES, SPL)
     on = n_of < N
-    A = torch.where(on, -torch.exp(A_log[dsel][:, n_of.clamp(max=N - 1)]), 0.0)
+    A = torch.where(on, -torch.exp(A_log[dsel][..., n_of.clamp(max=N - 1)]), 0.0)
     A2 = A * np.float32(math.log2(math.e))
     lane = lambda t: torch.where(on, t[..., n_of.clamp(max=N - 1)], 0.0)  # noqa: E731
-    Bl, Cl = lane(B), lane(C)                                          # [b, S, 2, 8]
-    dt, xs, dys = (t[:, :, dsel] for t in (delta, x, dy))             # [b, S, Dp]
-    G = lane(dh[:, dsel]) if dh is not None else torch.zeros(b, len(dsel), LANES, SPL)
+    Bl, Cl = lane(B)[:, :, None, None, None], lane(C)[:, :, None, None, None]
+    dt, xs, dys = (t[:, :, dsel] for t in (delta, x, dy))         # [b, S, blocks, PAIR, HALF]
+    ex = lambda v: v[..., None, None]                             # noqa: E731
+    G = (lane(dh[:, dsel]) if dh is not None
+         else torch.zeros(b, blocks, PAIR, HALF, LANES, SPL))
     dA = torch.zeros_like(G)
+    vmask = valid[..., None, None]
 
     def step(h, t):
-        du = (dt[:, t] * xs[:, t])[..., None, None]
-        return torch.exp2(dt[:, t, :, None, None] * A2) * h + du * Bl[:, t, None]
+        a = torch.exp2(ex(dt[:, t]) * A2)
+        return a, a * h + ex(dt[:, t] * xs[:, t]) * Bl[:, t]
 
-    # the forward's boundary store, with the kernel's arithmetic
-    bnd, h = [], torch.zeros_like(G)
+    bnd, h = [], torch.zeros_like(G)                  # the forward's boundary store
     for t in range(S):
-        h = step(h, t)
+        h = step(h, t)[1]
         if (t + 1) % CHUNK == 0 or t == S - 1:
             bnd.append(h)
     parts = torch.zeros(2, blocks, b, S, MAX_N)
     ddelta, dx = torch.zeros(b, S, D), torch.zeros(b, S, D)
+    ln2 = np.float32(math.log(2.0))
     for k in reversed(range(len(bnd))):
         t0, length = k * CHUNK, min(CHUNK, S - k * CHUNK)
+        subs = -(-length // SUB)
         h = bnd[k - 1] if k > 0 else torch.zeros_like(G)
-        sb = []
-        for tt in range(length):
-            if tt % SUB == 0:
-                sb.append(h)
-            h = step(h, t0 + tt)
-        for j in reversed(range(len(sb))):
-            s0, s1 = j * SUB, min(j * SUB + SUB, length)
-            hs, h = [], sb[j]
-            for tt in range(s0, s1):
-                h = step(h, t0 + tt)
+        starts = [h]                                   # the state before each sub-chunk
+        for j in range(subs - 1):
+            for s in range(SUB):
+                h = step(h, t0 + j * SUB + s)[1]
+            starts.append(h)
+        for j in reversed(range(subs)):
+            r = min(SUB, length - j * SUB)
+            h, avs, hs = starts[j], [], []
+            for s in range(r):
+                a, h = step(h, t0 + j * SUB + s)
+                avs.append(a)
                 hs.append(h)
-            for tt in reversed(range(s0, s1)):
-                t = t0 + tt
-                ht, hp = hs[tt - s0], (hs[tt - s0 - 1] if tt > s0 else sb[j])
-                d_, x_, dy_ = (v[:, t, :, None, None] for v in (dt, xs, dys))
-                a = torch.exp2(d_ * A2)
-                g = G + dy_ * Cl[:, t, None]
-                ah = a * hp
-                sx = (g * Bl[:, t, None]).sum(-1).sum(-1)
-                sd = (g * (A * ah + x_ * Bl[:, t, None])).sum(-1).sum(-1)
-                dA = dA + g * d_ * ah
-                vb = torch.where(valid, g * (d_ * x_), 0.0)
-                vc = torch.where(valid, dy_ * ht, 0.0)
-                dx[:, t] = (dt[:, t] * sx)[:, :D]
-                ddelta[:, t] = sd[:, :D]
-                G = a * g
-                for q, v in enumerate((vb, vc)):
-                    w = _channel_sum(v.reshape(b, blocks, WARPS, CH_PER_WARP, LANES, SPL))
-                    lanes = w[:, :, :, :SPL, :]                # lanes with c & 8 == 0
-                    by_n = lanes.permute(0, 1, 2, 4, 3).reshape(b, blocks, WARPS, MAX_N)
-                    acc = by_n[:, :, 0]
-                    for wi in range(1, WARPS):
-                        acc = acc + by_n[:, :, wi]
-                    parts[q, :, :, t] = acc.transpose(0, 1)
+            for s in reversed(range(r)):
+                t = t0 + j * SUB + s
+                ht, hp = hs[s], (hs[s - 1] if s > 0 else starts[j])
+                d_, x_, dy_ = (ex(v[:, t]) for v in (dt, xs, dys))
+                gi = G + dy_ * Cl[:, t]
+                sx, s1 = torch.zeros(gi.shape[:-1]), torch.zeros(gi.shape[:-1])
+                w = gi * (avs[s] * hp)
+                for i in range(SPL):                   # a lane's states in order
+                    sx = sx + gi[..., i] * Bl[:, t, ..., i]
+                    s1 = s1 + w[..., i] * A2[..., i]
+                dA = dA + w * d_
+                vb = torch.where(vmask, gi * (d_ * x_), 0.0)
+                vc = torch.where(vmask, dy_ * ht, 0.0)
+                G = avs[s] * gi
+                # dx, dδ: the lane pair's sums, lane g keeping channel g
+                sums = torch.stack([sx[:, :, 0], s1[:, :, 0], sx[:, :, 1], s1[:, :, 1]], -1)
+                per = _pair_scatter(sums)                  # [b, blocks, HALF, 2 g, 2]
+                sxc, s1c = per[..., 0].permute(0, 1, 3, 2), per[..., 1].permute(0, 1, 3, 2)
+                flat = lambda v: v.reshape(b, blocks * CHANNELS)[:, :D]  # noqa: E731
+                dx[:, t] = flat(dt[:, t] * sxc)
+                ddelta[:, t] = flat(xs[:, t] * sxc + ln2 * s1c)
+                # dB, dC: pair sums in registers, the warp's butterfly, warps in order
+                pv = torch.cat([vb[:, :, 0] + vb[:, :, 1], vc[:, :, 0] + vc[:, :, 1]], -1)
+                lanes = _butterfly(pv.reshape(b, blocks, WARPS, PAIRS_PER_WARP, LANES, 2 * SPL))
+                pl = torch.arange(PAIRS_PER_WARP)
+                red = torch.zeros(b, blocks, WARPS, 2, MAX_N)
+                for g in range(LANES):
+                    red[:, :, :, pl // SPL, g * SPL + pl % SPL] = lanes[..., g]
+                acc = red[:, :, 0]
+                for wi in range(1, WARPS):
+                    acc = acc + red[:, :, wi]
+                parts[:, :, :, t] = acc.permute(2, 1, 0, 3)
     dBC = []
     for q in range(2):
         acc = parts[q, 0]
@@ -306,7 +407,7 @@ def _kernel_model(delta, B, C, x, A_log, dy, dh):
     dA_sum = dA[0]
     for r in range(1, b):
         dA_sum = dA_sum + dA[r]
-    dA_log = (A * dA_sum)[:D].reshape(D, MAX_N)[:, :N]
+    dA_log = (A * dA_sum).reshape(blocks * CHANNELS, MAX_N)[:D, :N]
     return ddelta, dBC[0], dBC[1], dx, dA_log
 
 
