@@ -243,7 +243,23 @@ printing its seconds:
    tensor-core launches a ``generate``, peak device memory (at most 75
    GiB), every flash call of a prefill against the plain version; its
    first layer in float32 on ``cuda`` and on the CPU on a seeded
-   256-token hidden state.
+   256-token hidden state;
+20. multi-device path — 20a: the default campaign (``launch.campaign``'s
+   arguments, ``CAMPAIGN_CLI_STEPS`` steps) through ``run_campaign`` with
+   ``shard=fleet_mesh(devices=[cuda:0, cuda:0])`` (and ``fleet_mesh()``,
+   every card, where there are two or more): every cell within
+   ``SUMMARY_RTOL`` of phase 10's unsharded result, miss rates and Pareto
+   fronts equal, one ``grid_argmin`` launch, wall time and µs a step
+   beside phase 10's; 20b: on a one-rank NCCL group, ``make_host_mesh``,
+   ``default_rules``, ``launch.train.init_state`` and the train step under
+   ``use_rules`` for phase 18b's full-width llama3.2-1b run, as configured
+   and with ``fsdp`` forced: the 8 losses bit-equal to phase 18b's and no
+   collective issued (a one-rank data axis takes the one-device step), ms a
+   step and peak memory beside phase 18b's; then
+   ``launch.train.main`` REDUCED on that mesh printing phase 18a's lines;
+   20c: ``reshard_tree`` of 20b's FSDP state (params and both moments)
+   onto ``shrink_mesh_plan``'s mesh and back, then a save and a
+   ``restore_latest(..., shardings=...)`` of its params, all bit-equal.
 
 Phase 5 also times each flash kernel with its row-stats store (the
 training forward's) beside the store-less launch that serving makes.
@@ -451,6 +467,7 @@ WARM_RUNS = 1               # warm and staged 2048-step Table II calls timed in 
 PEAK_SLACK_BYTES = 1 << 20
 PROFILE_STEPS = 32
 CAMPAIGN_CLI_STEPS = 2048   # launch.campaign in phase 10 (its default: 4096)
+FLEET_SLOTS = 2             # slots of the one card in phase 20a's fleet mesh
 COMPOSE_CLI_STEPS = 512     # launch.compose in phase 13 (its default: 2048)
 PRED_STEPS, PRED_CHUNK = 2048, 512     # benchmarks/run.py's predictor sweep
 COMPOSE_SCENARIOS = ("burse", "diurnal")
@@ -2292,10 +2309,11 @@ def _bench_campaign_rows(dev) -> dict:
     return rows
 
 
-def phase_campaign(dev) -> None:
+def phase_campaign(dev) -> dict:
     """The campaign CLI (its defaults, CAMPAIGN_CLI_STEPS steps) on the card
     and on the CPU, its
-    step loop's profile, and BENCH_fleet.json's campaign-path rows."""
+    step loop's profile, and BENCH_fleet.json's campaign-path rows.
+    Returns the card's result, its wall time and its cell count."""
     from repro_torch.kernels.grid_argmin import grid_argmin
     from repro_torch.launch import campaign
 
@@ -2363,6 +2381,7 @@ def phase_campaign(dev) -> None:
         print(f"[campaign]   {name}: {got[name]}")
     print(f"[campaign] skipped {skipped}: they count JAX retraces, which the port has no "
           f"counter for yet (ROADMAP A13)")
+    return {"result": res["cuda"], "wall": wall, "cells": cells}
 
 
 def phase_long_stream(dev) -> None:
@@ -3665,16 +3684,18 @@ def _hold_train_state(got, want, bound, what: str) -> tuple:
     return worst, n_off
 
 
-def _train_reduced_cli(dev) -> None:
+def _train_reduced_cli(dev) -> dict:
     """18a. ``launch.train`` REDUCED on the card for every arch, 2 steps
-    each (falcon-mamba-7b through the scan's forward and backward kernels);
-    a grad-requiring bf16 scan call on the card refused (only float32
-    trains there)."""
+    each (falcon-mamba-7b through the scan's forward and backward kernels),
+    each ``main`` on the one-rank NCCL mesh it sets up and destroys; a
+    grad-requiring bf16 scan call on the card refused (only float32 trains
+    there).  Returns each arch's printed lines."""
     from repro_torch.configs import ARCH_NAMES, get_config
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ssm_scan import selective_scan
     from repro_torch.launch import train
 
+    printed = {}
     for arch in ARCH_NAMES:
         args = ["--arch", arch, "--device", "cuda", "--steps", "2", "--batch", "2", "--seq",
                 "64", "--log-every", "1"]
@@ -3687,6 +3708,8 @@ def _train_reduced_cli(dev) -> None:
         torch.cuda.synchronize()
         lines = buf.getvalue().strip().splitlines()
         check(len(lines) == 3 and lines[-1].startswith("loss "), f"{arch}: {lines}")
+        check(not torch.distributed.is_initialized(), f"{arch}: main left its group running")
+        printed[arch] = lines
         cfg = get_config(arch, reduced=True)
         if cfg.ssm is not None and cfg.ssm.kind == "mamba1":
             check(selective_scan.launches > 0 and selective_scan.bwd_launches > 0,
@@ -3708,6 +3731,7 @@ def _train_reduced_cli(dev) -> None:
         check("only float32 trains" in str(e), f"unexpected error: {e}")
         print(f"[train] a grad-requiring bf16 selective_scan call on cuda raises: "
               f"{str(e)[:90]}...")
+    return printed
 
 
 def _train_flash_checks(cfg, params, batch, dev) -> None:
@@ -4068,7 +4092,7 @@ def phase_training(dev, b2_bwd: dict) -> dict:
     from repro_torch.train import make_grad_fn, make_train_step
 
     torch.cuda.empty_cache()
-    _train_reduced_cli(dev)
+    cli_lines = _train_reduced_cli(dev)
 
     # 18b. full-width llama3.2-1b, float32 masters, bf16 activations, remat
     cfg = get_config("llama3.2-1b")
@@ -4107,8 +4131,9 @@ def phase_training(dev, b2_bwd: dict) -> dict:
     check(bwd_by_kernel == want_bwd and flash_attention.bwd_launches == n_steps * cfg.n_layers,
           f"{n_steps} steps launched backward kernels {bwd_by_kernel}, want {want_bwd}")
     check(all(np.isfinite(losses)), f"losses {losses}")
+    peak = torch.cuda.max_memory_allocated()
     step_s = _train_step_line(
-        "[train]", cfg, n_params, b, s, times, losses, torch.cuda.max_memory_allocated(),
+        "[train]", cfg, n_params, b, s, times, losses, peak,
         f"flash launches {per_step} a step ({cfg.n_layers} forward + {cfg.n_layers} under "
         f"remat) {by_kernel}, backward kernel launches {bwd_by_kernel[ops.TENSOR_CORE_BWD] // n_steps} "
         f"a step {bwd_by_kernel}")
@@ -4168,7 +4193,8 @@ def phase_training(dev, b2_bwd: dict) -> dict:
             "bwd_per_step": bwd_by_kernel[ops.TENSOR_CORE_BWD] // n_steps,
             "bwd_launches": bwd_by_kernel[ops.TENSOR_CORE_BWD],
             "bwd_launches_f32": f32[ops.CUDA_CORE_BWD], "step_ms": step_s * 1e3,
-            "attention_bwd_share": bwd_ms / (grad_s * 1e3)}
+            "attention_bwd_share": bwd_ms / (grad_s * 1e3), "losses": losses, "peak": peak,
+            "cli_lines": cli_lines}
 
 
 # ---------------------------------------------------------------------------
@@ -4267,6 +4293,208 @@ def phase_llama405b_serving(dev) -> tuple:
     return by_kernel[ops.TENSOR_CORE], times
 
 
+# ---------------------------------------------------------------------------
+# 20. multi-device path
+# ---------------------------------------------------------------------------
+
+
+def _sharded_campaign(dev, campaign: dict) -> None:
+    """20a. The default campaign split over a fleet mesh of two slots of
+    the card (and over every card where there are more), against phase
+    10's unsharded result."""
+    from repro_torch.core import scenarios as scn
+    from repro_torch.kernels.grid_argmin import grid_argmin
+    from repro_torch.launch import campaign as cli
+    from repro_torch.parallel import sharding as shd
+
+    meshes = [shd.fleet_mesh(devices=[torch.device("cuda", 0)] * FLEET_SLOTS)]
+    if torch.cuda.device_count() > 1:
+        meshes.append(shd.fleet_mesh())
+    for mesh in meshes:
+        grid_argmin.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        # the arguments launch.campaign builds at its defaults
+        res = scn.run_campaign(cli.build_platforms("all"), scenario_names=None,
+                               techniques=("proposed", "power_gating", "hybrid"),
+                               n_steps=CAMPAIGN_CLI_STEPS, seed=0, chunk_size=1024, n_nodes=8,
+                               predictor="markov", tenants=None, scheduler="none",
+                               headroom_frac=0.5, shard=mesh, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(grid_argmin.launches == 1,
+              f"the sharded campaign launched grid_argmin {grid_argmin.launches} times, want 1")
+        worst = _compare_campaigns(json.loads(json.dumps(res)), campaign["result"],
+                                   f"sharded campaign {mesh}")
+        cells, n = campaign["cells"], len(mesh.devices)
+        print(f"[multi] 20a run_campaign (launch.campaign's defaults, K = {cells} cells x "
+              f"{CAMPAIGN_CLI_STEPS} steps, chunk 1024) over {mesh}: K padded to "
+              f"{-(-cells // n) * n}, {-(-cells // n)} cells a device, {wall:.2f} s, {wall / CAMPAIGN_CLI_STEPS * 1e6:.1f} us per step, grid_argmin "
+              f"launches {grid_argmin.launches}; phase 10's unsharded CLI run {campaign['wall']:.2f}"
+              f" s ({campaign['wall'] / CAMPAIGN_CLI_STEPS * 1e6:.1f} us per step); every cell "
+              f"within {SUMMARY_RTOL} of phase 10's (worst rel {worst:.3g}), miss rates and "
+              f"Pareto fronts equal")
+
+
+def _mesh_training(dev, train: dict) -> tuple:
+    """20b. The mesh path of ``launch.train`` (``make_host_mesh``,
+    ``default_rules``, ``init_state``, the step under ``use_rules``) on this
+    process's one-rank NCCL group: phase 18b's full-width llama3.2-1b run,
+    as configured and with ``fsdp`` forced, losses bit-equal to phase
+    18b's and no collective issued (a one-rank data axis takes the
+    one-device step); then ``launch.train.main`` REDUCED on the same mesh.
+    Returns the FSDP run's state, layout and rules."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import OptimizerConfig, TrainConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import train as tlaunch
+    from repro_torch.models import common, transformer
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.train import make_train_step
+
+    mesh = mesh_mod.make_host_mesh(device=dev)
+    check(tuple(mesh.shape) == (1, 1) and mesh.device_type == "cuda"
+          and torch.distributed.get_backend() == "nccl", f"want a 1 x 1 NCCL mesh, got {mesh}")
+    b, s, n_steps = TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS
+    tcfg = TrainConfig(optimizer=OptimizerConfig(learning_rate=3e-4, warmup_steps=2,
+                                                 total_steps=n_steps))
+    kept = None
+    for fsdp in (False, True):
+        cfg = dataclasses.replace(get_config("llama3.2-1b"), fsdp=fsdp)
+        rules = shd.default_rules(mesh, fsdp=cfg.fsdp)
+        check(tlaunch.refusal(cfg, dev, rules) is None
+              and tlaunch.split_refusal(cfg, b, s, mesh.size(0)) is None, "20b refused")
+        kept = None
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with shd.use_rules(rules):
+            params, opt = tlaunch.init_state(cfg, rules, dev)
+            step_fn = make_train_step(cfg, tcfg)
+            pipe = SyntheticPipeline(DataConfig(global_batch=b, seq_len=s,
+                                                vocab_size=cfg.vocab_size), cfg,
+                                     rank=mesh.get_local_rank("data"), n_ranks=mesh.size(0))
+            shd.collective_calls.update(dict.fromkeys(shd.collective_calls, 0))
+            flash_attention.launches = flash_attention.bwd_launches = 0
+            times, losses = [], []
+            for _, batch in zip(range(n_steps), pipe):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+                params, opt, metrics = step_fn(params, opt, batch)
+                losses.append(metrics["loss"].item())
+                times.append(time.perf_counter() - t0)
+            pipe.close()
+        issued = dict(shd.collective_calls)
+        calls = {k: v // n_steps for k, v in issued.items()}
+        check(losses == train["losses"],
+              f"20b fsdp={fsdp}: losses {losses} differ from phase 18b's {train['losses']}")
+        check(flash_attention.launches == n_steps * 2 * cfg.n_layers
+              and flash_attention.bwd_launches == n_steps * cfg.n_layers,
+              f"20b fsdp={fsdp}: flash launches {flash_attention.launches} / "
+              f"{flash_attention.bwd_launches}")
+        # a one-rank data axis takes the one-device step: no collective
+        check(not any(issued.values()), f"20b fsdp={fsdp}: collectives {issued}")
+        step_ms = float(np.median(times[1:])) * 1e3
+        peak = torch.cuda.max_memory_allocated()
+        print(f"[multi] 20b llama3.2-1b on the 1 x 1 NCCL mesh, fsdp={fsdp} (B={b} S={s}, "
+              f"{n_steps} steps): {step_ms:.1f} ms a step (median of steps 2-{n_steps}; phase "
+              f"18b {train['step_ms']:.1f} ms, {step_ms / train['step_ms']:.3f}x), peak device "
+              f"memory {peak / 2**30:.2f} GiB (phase 18b {train['peak'] / 2**30:.2f} GiB), "
+              f"collective calls a step {calls}; losses bit-equal to phase 18b's: "
+              + " ".join(f"{x:.4f}" for x in losses))
+        if fsdp:
+            kept = ((params, opt), transformer.model_layout(cfg), rules)
+        del params, opt
+    torch.cuda.empty_cache()
+
+    buf = io.StringIO()
+    args = ["--arch", "llama3.2-1b", "--device", "cuda", "--steps", "2", "--batch", "2",
+            "--seq", "64", "--log-every", "1"]
+    with contextlib.redirect_stdout(buf):
+        check(tlaunch.main(args) == 0, "launch.train on the mesh failed")
+    check(torch.distributed.is_initialized(), "launch.train destroyed a group it did not own")
+    lines = buf.getvalue().strip().splitlines()
+    strip = lambda ls: [re.sub(r" \d+ ms/step$", "", ln) for ln in ls]
+    check(strip(lines) == strip(train["cli_lines"]["llama3.2-1b"]),
+          f"launch.train on the mesh printed {lines}, phase 18a {train['cli_lines']}")
+    print(f"[multi] 20b launch.train.main REDUCED llama3.2-1b on the same 1 x 1 mesh prints "
+          f"phase 18a's lines (ms/step aside): {lines[-1]}")
+    return kept
+
+
+def _reshard_and_restore(dev, kept: tuple) -> None:
+    """20c. ``reshard_tree`` of 20b's trained FSDP state (params and both
+    moments) onto ``shrink_mesh_plan``'s mesh and back, then a save and a
+    ``restore_latest(..., shardings=...)`` of its params (the moments'
+    leaves take the same path: 3 x 4.9 GB through sha256 and the disk
+    would add ~50 s), every leaf bit-equal."""
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import train as tlaunch
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.runtime.checkpoint import CheckpointManager, tree_flatten
+    from repro_torch.runtime.elastic import reshard_tree, shrink_mesh_plan
+
+    state, layout, big = kept
+    slayout = tlaunch.state_layout(layout)
+    d, m = shrink_mesh_plan(torch.distributed.get_world_size())
+    small = shd.default_rules(mesh_mod.make_mesh((d, m), ("data", "model")), fsdp=True)
+    n_bytes = sum(x.numel() * x.element_size() for x in tree_flatten(state))
+
+    def same(a, b, what):
+        la, lb = tree_flatten(a), tree_flatten(b)
+        bad = [i for i, (x, y) in enumerate(zip(la, lb))
+               if x.dtype != y.dtype or x.shape != y.shape or not torch.equal(x, y)]
+        check(len(la) == len(lb) and not bad, f"20c {what}: leaves {bad} differ")
+
+    t0 = time.perf_counter()
+    shrunk = reshard_tree(state, slayout, small, rules=big)
+    same(shrunk, state, "onto the shrunk mesh")
+    back = reshard_tree(shrunk, slayout, big, rules=small)
+    same(back, state, "back")
+    del shrunk, back
+    torch.cuda.synchronize()
+    reshard_s = time.perf_counter() - t0
+    params, shardings = state[0], tlaunch.state_shardings(layout, big)[0]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ckpt = CheckpointManager(tmp)
+        ckpt.save(params, step=TRAIN_STEPS, blocking=True, shardings=shardings)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        restored, step = ckpt.restore_latest(params, shardings)
+        restore_s = time.perf_counter() - t0
+    check(step == TRAIN_STEPS, f"restored step {step}")
+    same(restored, params, "restore_latest with shardings")
+    print(f"[multi] 20c reshard_tree of 20b's FSDP state ({len(tree_flatten(state))} leaves, "
+          f"{n_bytes / 1e9:.2f} GB) onto shrink_mesh_plan's ({d}, {m}) mesh and back: "
+          f"{reshard_s:.2f} s, bit-equal; its params ({len(tree_flatten(params))} leaves) saved "
+          f"with shardings in {save_s:.2f} s and restored by restore_latest with shardings in "
+          f"{restore_s:.2f} s, bit-equal")
+
+
+def phase_multi_device(dev, campaign: dict, train: dict) -> None:
+    """20. The sharded campaign (20a), the mesh training path on a
+    one-rank NCCL group (20b) and re-sharding onto a shrunk mesh (20c).
+    The card holds one device: NCCL refuses two ranks on one GPU, so the
+    mesh path runs one rank here, where it issues no collective; its
+    collectives run under gloo in ``tests/test_torch_train_dist.py`` and
+    under NCCL across cards in ``scripts/multi_card.py``."""
+    from repro_torch.launch import mesh as mesh_mod
+
+    _sharded_campaign(dev, campaign)
+    owned = mesh_mod.init_group(dev)
+    check(owned, "a process group was already running before phase 20")
+    try:
+        kept = _mesh_training(dev, train)
+        _reshard_and_restore(dev, kept)
+        del kept
+    finally:
+        torch.distributed.destroy_process_group()
+    torch.cuda.empty_cache()
+
+
 def _timed(label: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -4293,7 +4521,7 @@ def main() -> int:
     scan, scan_bwd = _timed("7 scan kernels", phase_scan_kernels, dev)
     scan["launches"] = _timed("8 mamba serving path", phase_mamba_serving, dev)
     _timed("9 figures", phase_figures, dev)
-    _timed("10 campaign", phase_campaign, dev)
+    campaign = _timed("10 campaign", phase_campaign, dev)
     _timed("11 long stream", phase_long_stream, dev)
     _timed("12 predictors", phase_predictors, dev)
     _timed("13 composition", phase_composition, dev)
@@ -4315,6 +4543,7 @@ def main() -> int:
     scan_bwd["launches_train"] = train["mamba"]["per_step"]["backward"]
     flash[0]["launches_llama405b"], flash[0]["llama405b_shapes"] = _timed(
         "19 llama3-405b serving", phase_llama405b_serving, dev)
+    _timed("20 multi-device path", phase_multi_device, dev, campaign, train)
     records = [argmin, *flash, *flash_bwd, scan, scan_bwd]
     print(f"[time] all phases: {time.perf_counter() - t0:.2f} s")
     print("kernels: " + ", ".join(r["name"] for r in records))

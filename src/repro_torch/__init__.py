@@ -19,14 +19,18 @@ Mirrors the JAX package's layout and imports neither jax nor ``repro``:
                           many nodes) with per-scenario Pareto sets
   core.aot              — the kernel-build cache and the fleet-path warmer
   runtime.fault         — correlated fleet-failure models (numpy)
-  runtime.elastic       — the usable mesh of a fleet that lost nodes
+  runtime.elastic       — the usable mesh of a fleet that lost nodes, and
+                          a state re-sharded onto it
+  parallel.sharding     — the logical-axis rules, FSDP gathers and the
+                          fleet axis split over local devices
+  launch.mesh           — the ("data", "model") DeviceMesh of the ranks
   kernels.grid_argmin   — the table sweep: a CUDA kernel plus its plain
                           PyTorch version
   convert               — JAX-side ``PlatformParams`` leaves → tensors
   serving               — the generation engine, the continuous batcher
                           and the closed-loop DVFS serving simulator
-  launch.serve, launch.campaign, launch.compose — the command-line entry
-                          points
+  launch.serve, launch.campaign, launch.compose, launch.train — the
+                          command-line entry points
 
 Entry points take an explicit ``device``.  Left unset it means the CUDA
 card, and a machine without one raises instead of falling back to the CPU;

@@ -2,8 +2,8 @@
 
 126L d_model=16384 128H (GQA kv=8) d_ff=53248 vocab=128256
 
-``fsdp`` is carried as a field (the port runs one device); ``moment_dtype``
-is read by ``optim.adamw_init``.
+``fsdp`` shards the masters and both moments over the data axis of
+``launch.train``'s mesh; ``moment_dtype`` is read by ``optim.adamw_init``.
 """
 import dataclasses
 

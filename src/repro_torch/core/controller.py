@@ -45,6 +45,7 @@ from repro_torch.core import voltage as volt_mod
 from repro_torch.core.accelerators import Accelerator
 from repro_torch.device import resolve_device
 from repro_torch.kernels.grid_argmin import grid_argmin
+from repro_torch.parallel import sharding as shd
 
 TECHNIQUES = ("proposed", "core_only", "bram_only", "freq_only",
               "power_gating", "nominal", "hybrid", "headroom")
@@ -719,11 +720,12 @@ def compare_all(platform: PlatformSpec, trace,
             for t in techniques}
 
 
-def _tree_map(fn, x):
-    """``fn`` on every tensor of a (nested) NamedTuple."""
+def _tree_map(fn, x, *rest):
+    """``fn`` on every tensor of a (nested) NamedTuple, or on the tensors
+    at the same place in several of them."""
     if isinstance(x, torch.Tensor):
-        return fn(x)
-    return type(x)(*[_tree_map(fn, v) for v in x])
+        return fn(x, *rest)
+    return type(x)(*[_tree_map(fn, *vs) for vs in zip(x, *rest)])
 
 
 def _unflatten(x, lead: Tuple[int, ...]):
@@ -959,9 +961,17 @@ def _flatten_tenant_spec(spec: sched_mod.TenantSpec, lead: Tuple[int, ...],
                                   zip(spec._fields, spec)])
 
 
+def _fleet_mesh_of(shard):
+    """The fleet mesh ``shard`` asks for: a mesh itself; ``True`` and
+    ``False`` none (see :func:`simulate_fleet_stream`)."""
+    if shard is True or shard is False or shard is None:
+        return None
+    return shard
+
+
 def simulate_fleet_stream(tables: BinTables, traces, cfg: ControllerConfig,
                           chunk_size: int = 1024, emit: Sequence[str] = (),
-                          shard: bool = True, avail=None,
+                          shard=True, avail=None,
                           tenant_spec: Optional[sched_mod.TenantSpec] = None,
                           device=None) -> FleetSummary:
     """Streaming :func:`simulate_fleet`: memory independent of the trace
@@ -985,9 +995,22 @@ def simulate_fleet_stream(tables: BinTables, traces, cfg: ControllerConfig,
     in the ``tenant_*`` fields.  Without a spec the workload rides as one
     default tenant with the scheduler off, as :func:`simulate_fleet` runs.
 
-    ``shard`` is accepted for the JAX package's signature: the port runs
-    every cell on ``device`` (on one device the JAX package pads nothing
-    either); sharding over several cards is not ported.
+    **Sharding.**  A ``FleetMesh`` (``parallel.sharding.fleet_mesh()``
+    over every local card, or ``fleet_mesh(devices=[...])``) splits ``K``
+    over its devices.  Cells are independent, so each device streams its
+    own slice of ``K`` with no collective, and the tables and spec move to
+    it once.  ``K`` is padded to a multiple of the device count as the
+    reference pads it (tables edge-padded, trace and availability rows and
+    spec rows copied from cell 0), and the padding is cut off every
+    result.  Each chunk is issued on every device before any sum is read
+    back; the memory bound is ``[K / d, C]`` a device.
+
+    ``shard=True`` (the reference's default, which splits over every local
+    device) runs on ``device``, as ``False`` does, until a split is no
+    slower than one card.  The loop is bound by host launches and each
+    slice issues as many as the whole fleet: on 4 × H100 the default
+    campaign at 2048 steps took 29.96 s split from one host thread and
+    110.12 s from a thread a card, against 7.80 s and 5.34 s on one card.
     """
     alias = {"violations": "violation"}
     emit = tuple(emit)
@@ -1016,46 +1039,79 @@ def simulate_fleet_stream(tables: BinTables, traces, cfg: ControllerConfig,
     c = max(1, min(int(chunk_size), s))
     scfg = cfg.scheduler if tenant_spec is not None \
         else sched_mod.SCHEDULERS["none"]
-    sched = sched_mod.scheduler_values(scfg, dev)
     spec = _flatten_tenant_spec(spec_in, lead, k, dev)
+    # over all K, so that every slice takes the same branch
     any_headroom = bool((flat.headroom > 0).any())
+
+    mesh = _fleet_mesh_of(shard)
+    devices = mesh.devices if mesh is not None else (dev,)
+    k_pad = -(-k // len(devices)) * len(devices)
+    if k_pad != k:
+        pad = k_pad - k
+        flat = BinTables(*[torch.cat([x, x[-1:].expand((pad,) + x.shape[1:])])
+                           for x in flat])
+        spec = sched_mod.TenantSpec(*[torch.cat([x, x[:1].expand(pad, t)]) for x in spec])
+    if mesh is not None:
+        rules = shd.fleet_rules(mesh)
+        parts = list(zip(devices, shd.shard_fleet(flat, rules), shd.shard_fleet(spec, rules)))
+    else:
+        parts = [(dev, flat, spec)]
+    rows = k_pad // len(parts)
+
+    def host_rows(x: np.ndarray) -> np.ndarray:
+        """``[k, ...]`` host rows padded to ``k_pad`` with cell 0."""
+        if k_pad == k:
+            return x
+        return np.concatenate([x, np.broadcast_to(x[:1], (k_pad - k,) + x.shape[1:])])
+
+    states = []
+    for d, _, _ in parts:
+        zk = torch.zeros(rows, device=d)
+        zt = torch.zeros((rows, t), device=d)
+        states.append(_StreamAcc(
+            mstate=pred_mod.init_state(cfg.predictor, rows, d),
+            astate=pred_mod.init_state(cfg.avail_predictor, rows, d),
+            backlog=zt, place=zt, power_sum=zk, viol_sum=zk, backlog_sum=zk,
+            offered_sum=zk, avail_sum=zk, t_viol_sum=zt, t_starve_sum=zt,
+            t_served_sum=zt, t_offered_sum=zt))
+    scheds = [sched_mod.scheduler_values(scfg, d) for d, _, _ in parts]
     # A healthy fleet's schedule is one constant row for every step.
-    av_const = (torch.full((k,), float(cfg.n_nodes), device=dev)
+    av_const = ([torch.full((rows,), float(cfg.n_nodes), device=d) for d, _, _ in parts]
                 if avail is None else None)
 
-    zk = torch.zeros(k, device=dev)
-    zt = torch.zeros((k, t), device=dev)
-    acc = _StreamAcc(mstate=pred_mod.init_state(cfg.predictor, k, dev),
-                     astate=pred_mod.init_state(cfg.avail_predictor, k, dev),
-                     backlog=zt, place=zt, power_sum=zk, viol_sum=zk,
-                     backlog_sum=zk, offered_sum=zk, avail_sum=zk,
-                     t_viol_sum=zt, t_starve_sum=zt, t_served_sum=zt,
-                     t_offered_sum=zt)
     sum_fields = _StreamAcc._fields[4:]
-    sums = {f: np.zeros(tuple(getattr(acc, f).shape), np.float64)
+    sums = {f: np.zeros((k_pad,) + tuple(getattr(states[0], f).shape[1:]), np.float64)
             for f in sum_fields}
     emitted = {e: [] for e in emit}
     for s0 in range(0, s, c):
         # Slicing the step axis keeps the stride-0 view: only k·C elements
         # (k·C·T for a tenant plane) are made dense, then copied once.
-        chunk = torch.from_numpy(
-            np.array(traces[..., s0:s0 + c, :]).reshape(k, -1, t)).to(dev)
-        av = av_const if av_const is not None else torch.from_numpy(
-            np.array(avail_full[..., s0:s0 + c]).reshape(k, -1)).to(dev)
-        acc, ys = _stream_chunk(flat, cfg, acc, chunk, av, spec, sched,
-                                any_headroom, emit_internal)
-        for f in sum_fields:
-            sums[f] += getattr(acc, f).cpu().numpy().astype(np.float64)
+        chunk = host_rows(np.array(traces[..., s0:s0 + c, :]).reshape(k, -1, t))
+        av = None if av_const is not None else host_rows(
+            np.array(avail_full[..., s0:s0 + c]).reshape(k, -1))
+        ins = [(torch.from_numpy(chunk[i * rows:(i + 1) * rows]).to(d),
+                av_const[i] if av_const is not None
+                else torch.from_numpy(av[i * rows:(i + 1) * rows]).to(d))
+               for i, (d, _, _) in enumerate(parts)]
+        ys_parts = []
+        for i, (_, ftab, fspec) in enumerate(parts):    # every device's chunk first
+            states[i], ys = _stream_chunk(ftab, cfg, states[i], *ins[i], fspec, scheds[i],
+                                          any_headroom, emit_internal)
+            ys_parts.append(ys)
+        for f in sum_fields:                             # then read the sums
+            sums[f] += np.concatenate([getattr(a, f).cpu().numpy() for a in states]
+                                      ).astype(np.float64)
         for e, ei in zip(emit, emit_internal):
-            emitted[e].append(ys[ei].cpu().numpy())
+            emitted[e].append(np.concatenate([ys[ei].cpu().numpy() for ys in ys_parts]))
 
     def cut(x):
-        x = np.asarray(x)
+        x = np.asarray(x)[:k]
         return x.reshape(lead + x.shape[1:])
 
-    backlog = acc.backlog.cpu().numpy().astype(np.float64)
+    backlog = np.concatenate([a.backlog.cpu().numpy() for a in states]).astype(np.float64)
     served = sums["offered_sum"] - backlog.sum(-1)
-    mstate = _tree_map(lambda x: x.cpu().numpy(), _unflatten(acc.mstate, lead))
+    mstate = _tree_map(lambda *xs: cut(np.concatenate([x.cpu().numpy() for x in xs])),
+                       *[a.mstate for a in states])
     return FleetSummary(
         mean_power_w=cut(sums["power_sum"] / s),
         qos_violation_rate=cut(sums["viol_sum"] / s),

@@ -563,7 +563,7 @@ def run_campaign(platforms: Sequence[ctl.PlatformSpec],
                  scenario_names: Optional[Sequence[str]] = None,
                  techniques: Sequence[str] = ctl.DEFAULT_TECHNIQUES,
                  n_steps: int = 2048, seed: int = 0, chunk_size: int = 1024,
-                 shard: bool = True,
+                 shard=True,
                  tenants: Optional[int | str] = None,
                  device=None, **cfg_kwargs) -> Dict[str, object]:
     """Sweep platforms × techniques × scenarios through the streaming
@@ -584,7 +584,9 @@ def run_campaign(platforms: Sequence[ctl.PlatformSpec],
     suite's widest), the ``scheduler=`` config splits capacity per step,
     and every cell also reports per-tenant QoS lists and
     ``worst_tenant_qos_violation``.  ``device`` follows the port's rule
-    (``None`` is the card).
+    (``None`` is the card).  ``shard`` is
+    :func:`controller.simulate_fleet_stream`'s: a ``FleetMesh`` splits the
+    fleet axis over its devices; ``True`` runs on ``device`` for now.
 
     Returns ``{"scenarios", "techniques", "n_steps", "scheduler",
     "tenants", "table", "pareto"}`` where

@@ -6,9 +6,13 @@ shows a falling loss without an external dataset.  numpy draws every
 batch from one seeded generator in the reference's order, so a seed gives
 the JAX package's batches bit for bit (``patches`` of the VLM family and
 ``features`` of the audio family included).  A background thread keeps
-``prefetch`` batches ready.  Batches are host numpy arrays; the caller
-moves them to its device.  ``make_batch_specs`` (dry-run tooling) stays
-with the JAX package.
+``prefetch`` batches ready; a batch the full queue does not take within
+its 0.5 s wait is offered again, never dropped (the reference's worker
+draws a new one, so its sequence skips batches whenever a step takes
+longer than that).  Batches are host numpy arrays; the caller moves them
+to its device.  A data-parallel rank draws the same global batch and
+keeps its own rows of it (``local_rows``).  ``make_batch_specs``
+(dry-run tooling) stays with the JAX package.
 """
 
 from __future__ import annotations
@@ -47,13 +51,37 @@ def _sample(rng: np.random.Generator, cfg: DataConfig) -> Dict[str, np.ndarray]:
     return {"tokens": seq[:, :-1], "labels": seq[:, 1:]}
 
 
+def local_rows(batch: Dict[str, np.ndarray], rank: int, n_ranks: int,
+               microbatch: int = 0) -> Dict[str, np.ndarray]:
+    """Rank ``rank``'s rows of a global batch of B rows.
+
+    With ``microbatch`` n > 1 the global batch is n microbatches of B / n
+    rows, as the one-process step splits it, and the rank keeps its
+    B / (n · ranks) rows of each, so that the rank's own i-th microbatch
+    is its share of the global i-th one.  Otherwise it keeps the
+    contiguous block ``[rank · B / ranks, (rank + 1) · B / ranks)``."""
+    n = max(microbatch, 1)
+    out = {}
+    for key, x in batch.items():
+        b = x.shape[0]
+        if b % (n * n_ranks):
+            raise ValueError(f"a global batch of {b} rows does not split into {n} "
+                             f"microbatch(es) on each of {n_ranks} ranks")
+        per = x.reshape((n, n_ranks, b // (n * n_ranks)) + x.shape[1:])[:, rank]
+        out[key] = np.ascontiguousarray(per.reshape((b // n_ranks,) + x.shape[1:]))
+    return out
+
+
 class SyntheticPipeline:
     """Iterator of host batches with background prefetch; ``close`` stops
-    the thread."""
+    the thread.  ``rank`` of ``n_ranks`` keeps its ``local_rows`` of each
+    global batch (``microbatch`` as the train step splits it)."""
 
-    def __init__(self, cfg: DataConfig, model_cfg: Optional[ModelConfig] = None):
+    def __init__(self, cfg: DataConfig, model_cfg: Optional[ModelConfig] = None,
+                 rank: int = 0, n_ranks: int = 1, microbatch: int = 0):
         self.cfg = cfg
         self.model_cfg = model_cfg
+        self.rows = (rank, n_ranks, microbatch)
         self._rng = np.random.default_rng(cfg.seed)
         self._q: queue.Queue = queue.Queue(maxsize=cfg.prefetch)
         self._stop = threading.Event()
@@ -70,14 +98,20 @@ class SyntheticPipeline:
             feats = self._rng.standard_normal(
                 (self.cfg.global_batch, self.cfg.seq_len, mc.frontend_dim)).astype(np.float32)
             batch = {"features": feats, "labels": batch["labels"]}
+        if self.rows[1] > 1:
+            batch = local_rows(batch, *self.rows)
         return batch
 
     def _worker(self):
+        batch = None
         while not self._stop.is_set():
+            if batch is None:
+                batch = self._make()
             try:
-                self._q.put(self._make(), timeout=0.5)
+                self._q.put(batch, timeout=0.5)
+                batch = None
             except queue.Full:
-                continue   # the queue's backpressure; the loop re-checks _stop
+                continue   # the queue's backpressure: re-check _stop, offer the same batch
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         return self

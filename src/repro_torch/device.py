@@ -2,16 +2,23 @@
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 
 def resolve_device(device: str | torch.device | None) -> torch.device:
-    """``None`` means the CUDA card; ``"cpu"`` must be asked for.
+    """``None`` means the CUDA card (under ``torchrun``, this rank's
+    ``cuda:{LOCAL_RANK}``); ``"cpu"`` must be asked for.
 
     Raises when the card is wanted but absent, so a run never falls back
     to the CPU without the caller saying so.
     """
-    dev = torch.device("cuda" if device is None else device)
+    if device is None:
+        rank = os.environ.get("LOCAL_RANK")
+        dev = torch.device("cuda") if rank is None else torch.device("cuda", int(rank))
+    else:
+        dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run the "

@@ -71,13 +71,16 @@ def stacked(layout: Any, n: int) -> Any:
 
 
 def init_params(generator: torch.Generator, layout: Any,
-                dtype: torch.dtype = torch.float32) -> Any:
+                dtype: torch.dtype = torch.float32,
+                keep: Optional[Callable[[str, torch.Tensor], torch.Tensor]] = None) -> Any:
     """Materialize a parameter tree from a layout on ``generator``'s device.
 
     Leaves are drawn one after another, in sorted-key order, from the one
     seeded generator, so a seed gives the same weights on every run on
     the same kind of device.  A CUDA generator and a CPU one give
     different numbers from one seed, and neither gives ``jax.random``'s.
+    ``keep(path, leaf)`` replaces each leaf as soon as it is drawn (a
+    rank keeps its shard, so no whole tree is ever held).
     """
     dev = generator.device
 
@@ -92,7 +95,8 @@ def init_params(generator: torch.Generator, layout: Any,
         # stacked expert weight of tens of GB) would double the peak
         return torch.randn(d.shape, generator=generator, dtype=dtype, device=dev).mul_(d.scale)
 
-    made = {path: make(d) for path, d in tree_leaves(layout)}
+    keep = keep or (lambda path, x: x)
+    made = {path: keep(path, make(d)) for path, d in tree_leaves(layout)}
     return place_leaves(layout, made)
 
 
@@ -166,12 +170,16 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, z_loss: float = 0.0,
-                  mask: Optional[torch.Tensor] = None
+                  mask: Optional[torch.Tensor] = None,
+                  denom: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Token cross-entropy in fp32 with optional z-loss and padding mask.
 
     logits: [..., vocab]; labels: [...] int.  Returns (scalar, metrics)
-    with the metric keys ``ce``, ``z_loss`` and ``accuracy``.
+    with the metric keys ``ce``, ``z_loss`` and ``accuracy``.  ``denom``
+    replaces this call's count of (masked) tokens: a data-parallel rank
+    passes the global batch's, so that its sums are its share of the
+    global means.
     """
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
@@ -179,7 +187,7 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, z_loss: float = 0.
     nll = lse - gold
     zl = torch.square(lse)
     mask = torch.ones_like(nll) if mask is None else mask.float()
-    denom = torch.clamp(torch.sum(mask), min=1.0)
+    denom = torch.clamp(torch.sum(mask) if denom is None else denom, min=1.0)
     loss = torch.sum(nll * mask) / denom
     z = torch.sum(zl * mask) / denom
     total = loss + z_loss * z

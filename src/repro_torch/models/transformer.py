@@ -41,6 +41,11 @@ from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import ParamDef, fan_in_def, stacked
+from repro_torch.parallel import sharding as shd
+
+# the parameter tree's per-layer entries; every other entry is gathered
+# once at the start of a sharded forward
+_LAYER_KEYS = ("prefix", "slots", "rem", "shared")
 
 
 # ---------------------------------------------------------------------------
@@ -255,7 +260,18 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
     ``moe_router_z`` and ``moe_dropped`` (float32 scalars); the other
     families have none: ``{}``.  The batch holds ``tokens`` [B, S], and
     ``features`` (audio, in place of tokens) or ``patches`` (VLM, optional).
+
+    Under sharding rules that hold leaves as a rank's FSDP shards
+    (``parallel.sharding.fsdp_specs``), each layer's leaves are gathered
+    whole inside that layer's call, so under remat the recompute gathers
+    them again and no whole copy of the layers is kept; the embedding,
+    head and norms are gathered once.
     """
+    specs = shd.fsdp_specs(model_layout(cfg)) if shd.data_group() is not None else None
+    if specs is not None:
+        top = [k for k in params if k not in _LAYER_KEYS]
+        params = {**params, **shd.gather_params({k: params[k] for k in top},
+                                                {k: specs[k] for k in top})}
     x = _embed_inputs(params, cfg, batch)
     s = x.shape[1]
     decoding = cache is not None
@@ -270,7 +286,8 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
     new_cache: Dict[str, Any] = {"prefix": [], "rem": []}
     aux_acc = _zero_aux(cfg, x.device)
 
-    def apply_layer(lp, x, gidx, layer_cache):
+    def apply_layer(lp, x, gidx, layer_cache, spec=None):
+        lp = shd.gather_params(lp, spec)
         kind = _layer_kind(cfg, gidx)
         if kind == "mamba":
             return _apply_mamba(lp, x, cfg, cache=layer_cache, return_state=return_state)
@@ -279,16 +296,17 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
             cache=layer_cache, cache_pos=cache_pos, return_state=return_state,
             cache_capacity=cache_capacity)
 
-    def run_layer(lp, x, gidx, layer_cache, rematted=False):
+    def run_layer(lp, x, gidx, layer_cache, spec, rematted=False):
         if rematted:
-            x, nc, aux = checkpoint(apply_layer, lp, x, gidx, None, use_reentrant=False)
+            x, nc, aux = checkpoint(apply_layer, lp, x, gidx, None, spec, use_reentrant=False)
         else:
-            x, nc, aux = apply_layer(lp, x, gidx, layer_cache)
+            x, nc, aux = apply_layer(lp, x, gidx, layer_cache, spec)
         for k, v in aux.items():
             aux_acc[k] = aux_acc[k] + v
         return x, nc
 
     def apply_shared(lp, x, layer_cache):
+        lp = shd.gather_params(lp, specs and specs["shared"])
         return _apply_dense_or_moe(
             lp, x, cfg, kind="dense", is_local=False, positions=positions,
             cache=layer_cache, cache_pos=cache_pos, return_state=return_state,
@@ -296,7 +314,8 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
 
     for i in range(prefix):
         x, nc = run_layer(params["prefix"][i], x, i,
-                          cache["prefix"][i] if decoding else None)
+                          cache["prefix"][i] if decoding else None,
+                          specs and specs["prefix"][i])
         new_cache["prefix"].append(nc)
 
     def stack(per):
@@ -305,12 +324,15 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
     if n_per:
         shared = params.get("shared")
         slot_caches, shared_caches = [[] for _ in range(p)], []
+        # a stacked leaf's spec without its "layers" entry fits one layer
+        slot_specs = [specs and common.tree_map(lambda sp: sp[1:], specs["slots"][si])
+                      for si in range(p)]
         for i in range(n_per):                 # the scan over periods
             for si in range(p):
                 lp = common.tree_map(lambda t: t[i], params["slots"][si])
                 lc = (common.tree_map(lambda t: t[i], cache["slots"][si])
                       if decoding else None)   # views: decode writes through
-                x, nc = run_layer(lp, x, prefix + si, lc, rematted=remat)
+                x, nc = run_layer(lp, x, prefix + si, lc, slot_specs[si], rematted=remat)
                 slot_caches[si].append(nc)
             if shared is not None:
                 lc = (common.tree_map(lambda t: t[i], cache["shared"])
@@ -332,7 +354,8 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
     for i in range(rem):
         gidx = prefix + n_per * p + i
         x, nc = run_layer(params["rem"][i], x, gidx,
-                          cache["rem"][i] if decoding else None)
+                          cache["rem"][i] if decoding else None,
+                          specs and specs["rem"][i])
         new_cache["rem"].append(nc)
 
     if last_only:

@@ -12,13 +12,14 @@ stays with the JAX package.
 
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Tuple
+from typing import Any, Collection, Dict, NamedTuple, Tuple
 
 import torch
 
 from repro_torch.configs.base import OptimizerConfig
 from repro_torch.models import common
 from repro_torch.optim.schedule import make_schedule
+from repro_torch.parallel import sharding as shd
 
 
 class AdamWState(NamedTuple):
@@ -41,20 +42,30 @@ def adamw_init(params: Any, moment_dtype: str = "float32") -> AdamWState:
                       m=common.tree_map(zeros, params), v=common.tree_map(zeros, params))
 
 
-def global_norm(tree: Any) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in float32."""
-    sums = [torch.sum(torch.square(x.float())) for _, x in common.tree_leaves(tree)]
-    return torch.sqrt(torch.sum(torch.stack(sums)))
+def global_norm(tree: Any, sharded: Collection[str] = (), group=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in float32.
+
+    ``sharded`` names the leaves (by path) that hold only this rank's
+    shard: their sums of squares are added over ``group`` first."""
+    leaves = list(common.tree_leaves(tree))
+    sums = torch.stack([torch.sum(torch.square(x.float())) for _, x in leaves])
+    if sharded:
+        held = torch.tensor([path in sharded for path, _ in leaves], device=sums.device)
+        total = shd.all_reduce_sum(torch.where(held, sums, 0.0), group)
+        sums = torch.where(held, total, sums)
+    return torch.sqrt(torch.sum(sums))
 
 
 @torch.no_grad()
 def adamw_update(cfg: OptimizerConfig, grads: Any, state: AdamWState,
-                 params: Any) -> Tuple[Any, AdamWState, Dict[str, torch.Tensor]]:
+                 params: Any, *, sharded: Collection[str] = (), group=None
+                 ) -> Tuple[Any, AdamWState, Dict[str, torch.Tensor]]:
     """One AdamW step (global-norm clipping, decoupled decay).  Returns
-    ``(params, state, {"grad_norm", "lr"})``."""
+    ``(params, state, {"grad_norm", "lr"})``.  ``sharded`` and ``group``
+    go to :func:`global_norm`."""
     lr = make_schedule(cfg)(state.step)
     step = state.step + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, sharded, group)
     f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=gnorm.device)
     if cfg.grad_clip > 0:
         scale = torch.clamp_max(cfg.grad_clip / torch.clamp_min(gnorm, 1e-9), 1.0)

@@ -17,6 +17,14 @@ float32 checkpoint of ``(params, opt_state)`` written by the JAX package
 restores here leaf for leaf.  ``restore`` puts each leaf on the
 template's device in the template's dtype.
 
+A state sharded over a mesh is saved whole: ``save(..., shardings=...)``
+gathers the sharded leaves one at a time (each rank calls it), rank 0
+copies each to the host at once and alone writes, and the other ranks drop
+it.  ``restore(..., shardings=...)`` reads one whole leaf at a time on the
+host and moves only this rank's shard to the device, so a checkpoint
+written on one mesh restores onto another and no card ever holds more than
+one whole leaf.
+
 bfloat16 has no numpy dtype without ``ml_dtypes``: a bfloat16 leaf is
 stored as its 16-bit patterns (``uint16``), with ``bfloat16`` named in the
 manifest, and read back as bfloat16.  The bytes, and so the digests, are
@@ -34,6 +42,7 @@ from typing import Any, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
 def _digest(arr: np.ndarray) -> str:
@@ -93,6 +102,14 @@ def _from_host(arr: np.ndarray, dtype: str) -> torch.Tensor:
     return torch.from_numpy(np.require(arr, requirements="C").copy())
 
 
+def _read_leaf(path: str, meta: dict) -> torch.Tensor:
+    """One leaf, whole, on the host; ``IOError`` on a digest mismatch."""
+    arr = np.load(os.path.join(path, meta["file"]))
+    if _digest(arr) != meta["sha256"]:
+        raise IOError(f"checkpoint corruption in {meta['file']}")
+    return _from_host(arr, meta["dtype"])
+
+
 class CheckpointManager:
     def __init__(self, directory: str, keep: int = 3):
         self.dir = directory
@@ -102,9 +119,25 @@ class CheckpointManager:
         self._error: Optional[BaseException] = None
 
     # -- save ---------------------------------------------------------------
-    def save(self, tree: Any, step: int, blocking: bool = False):
+    def save(self, tree: Any, step: int, blocking: bool = False, shardings: Any = None):
+        """Write ``tree`` at ``step`` (in the background unless
+        ``blocking``).  ``shardings`` (a ``NamedSharding`` per leaf, each
+        rank calling) gathers the leaves whole, one at a time; only rank 0
+        keeps them, on the host, and writes."""
         self.wait()
-        host = [_to_host(x) for x in tree_flatten(tree)]
+        leaves = tree_flatten(tree)
+        if shardings is None:
+            host = [_to_host(x) for x in leaves]
+        else:
+            writer = not dist.is_initialized() or dist.get_rank() == 0
+            host = []
+            for x, sh in zip(leaves, _shardings_for(tree, shardings)):
+                if writer:
+                    host.append(_to_host(sh.gather(x)))
+                else:
+                    sh.gather(x)    # this rank's part of the collective
+            if not writer:
+                return
 
         def work():
             try:
@@ -159,10 +192,12 @@ class CheckpointManager:
                 out.append(int(name.split("_")[1]))
         return out
 
-    def restore(self, template: Any, step: int) -> Any:
+    def restore(self, template: Any, step: int, shardings: Any = None) -> Any:
         """The tree saved at ``step``, shaped like ``template``, each leaf
-        on the template leaf's device in its dtype.  Raises ``IOError`` on
-        a digest mismatch."""
+        on the template leaf's device in its dtype; with ``shardings`` (a
+        ``NamedSharding`` per leaf) each leaf is this rank's shard, cut on
+        the host, and the template's leaves are shards too.  Raises
+        ``IOError`` on a digest mismatch."""
         path = os.path.join(self.dir, f"step_{step:09d}")
         with open(os.path.join(path, "manifest.json")) as f:
             manifest = json.load(f)
@@ -170,19 +205,28 @@ class CheckpointManager:
         if len(manifest["leaves"]) != len(want):
             raise ValueError(f"checkpoint at step {step} holds {len(manifest['leaves'])} "
                              f"leaves, the template {len(want)}")
+        shs = (_shardings_for(template, shardings) if shardings is not None
+               else [None] * len(want))
         leaves = []
-        for meta, t in zip(manifest["leaves"], want):
-            arr = np.load(os.path.join(path, meta["file"]))
-            if _digest(arr) != meta["sha256"]:
-                raise IOError(f"checkpoint corruption in {meta['file']}")
-            x = _from_host(arr, meta["dtype"])
+        for meta, t, sh in zip(manifest["leaves"], want, shs):
+            x = _read_leaf(path, meta)
+            if sh is not None:
+                x = sh.shard(x)
             if isinstance(t, torch.Tensor):
                 x = x.to(device=t.device, dtype=t.dtype)
             leaves.append(x)
         return tree_unflatten(template, leaves)
 
-    def restore_latest(self, template: Any) -> Optional[Tuple[Any, int]]:
+    def restore_latest(self, template: Any, shardings: Any = None
+                       ) -> Optional[Tuple[Any, int]]:
         steps = self.list_steps()
         if not steps:
             return None
-        return self.restore(template, steps[-1]), steps[-1]
+        return self.restore(template, steps[-1], shardings), steps[-1]
+
+
+def _shardings_for(tree: Any, shardings: Any) -> List[Any]:
+    flat = tree_flatten(shardings)
+    if len(flat) != len(tree_flatten(tree)):
+        raise ValueError(f"{len(flat)} shardings for {len(tree_flatten(tree))} leaves")
+    return flat
