@@ -111,8 +111,9 @@ printing its seconds:
    at 256 steps, the Table I accelerators at 1024): gains within 0.006,
    fig10's voltage ranges and rates and fig12's lowest BRAM voltage equal at
    the printed decimals, every ``Summary`` field within 1e-5 of the same
-   rows on the CPU, miss counts equal; the wall time and the grid_argmin
-   launches;
+   rows on the CPU for fig10, fig12 and every technique of fig4/5/6 at one
+   load, α and β (16 rows), miss counts equal; the wall time and the
+   grid_argmin launches;
 10. campaign — ``python -m repro_torch.launch.campaign`` at its defaults but
    1024 steps (five accelerators × ``proposed,power_gating,hybrid`` × the
    fifteen scenarios, chunk 1024) on ``cuda`` and on the CPU: every cell
@@ -134,7 +135,7 @@ printing its seconds:
    ``BENCH_fleet.json`` (gains within 0.006, rates within 2/S); the
    holt_winters campaign within 1e-5 of the CPU, every family's
    ``evaluate_trace`` bins equal to the CPU's; µs, device kernels and busy
-   share per step of each family's streaming loop (32-step profile); a
+   share per step of each family's streaming loop (16-step profile); a
    seasonal trace whose dips drive the raw forecast to −1 through both
    fleet loops on ``cuda``, equal to the CPU;
 13. composition — ``benchmarks/run.py``'s composition search on ``cuda``
@@ -259,7 +260,21 @@ printing its seconds:
    ``launch.train.main`` REDUCED on that mesh printing phase 18a's lines;
    20c: ``reshard_tree`` of 20b's FSDP state (params and both moments)
    onto ``shrink_mesh_plan``'s mesh and back, then a save and a
-   ``restore_latest(..., shardings=...)`` of its params, all bit-equal.
+   ``restore_latest(..., shardings=...)`` of its params, all bit-equal;
+21. dry run — ``python -m repro_torch.launch.dryrun --arch llama3.2-1b
+   --single-pod`` on the card's host (a ``fake`` process group of 256
+   ranks, fake ``cuda`` tensors), its lines printed; its ``train_4k``
+   cell again on fake ``cpu`` tensors, in this process: FLOPs, bytes,
+   collective bytes and peak equal; the two
+   ``gpu_serving/llama3.2-1b/*`` rows through ``compare_techniques`` on
+   ``cuda`` and on the CPU, gains within 1e-5 relative; then phase 18b's
+   configuration (full-width llama3.2-1b, B = 4, S = 2048) and phase
+   18g's (falcon-mamba-7b cut to 8 layers) each stepped once on the card
+   under ``analysis.op_cost`` and reckoned on fake ``cuda`` tensors:
+   FLOPs and collective bytes equal, bytes within 1 %, the reckoned peak
+   within 15 % of ``torch.cuda.max_memory_allocated`` of that step (peak
+   stats reset before it); the reckoned roofline step beside the measured
+   one, and the counter's cost on one step.
 
 Phase 5 also times each flash kernel with its row-stats store (the
 training forward's) beside the store-less launch that serving makes.
@@ -456,23 +471,31 @@ SFU_PER_SM_CLOCK = 16
 # The §III analytic platforms of phase 3 (α, β): α = 0 zeroes the BRAM delay term.
 ANALYTIC = ((0.0, 0.4), (0.8, 0.4), (0.2, 2.0))
 FIGURES = ("fig4", "fig5", "fig6", "fig10", "fig12")
+# The figure rows phase 9 also runs on the CPU: fig10 and fig12 whole, fig4/5/6 at one
+# load, α and β, every technique.
+FIGURE_CPU_ROWS = ("fig10/", "fig12/", "fig4/load0.5/", "fig5/alpha0.2/", "fig6/beta0.50/")
 BENCH_STEPS = 1024          # the steps of BENCH_fleet.json's rows
 BENCH_CHUNK = 512           # benchmarks/run.py's chunk at 1024 steps
 # Depths cut to keep the whole script well inside its time limit as phases were added
 # (the checks are unchanged): phase 11's stream (once 16384 steps, then 8192), phase 4's
-# warm runs (once 5, then 3), the profile windows (once 64 steps), and phase 10's and
-# 13's CLI runs (once at their 4096- and 2048-step defaults).
+# warm runs (once 5, then 3), the profile windows (once 64 steps, then 32), phase 10's and 13's
+# CLI runs (once at their 4096- and 2048-step defaults, phase 13's then at 512), phase
+# 9's CPU twin (once all 56 rows) and zamba2's second median prefill in phase 17.
 LONG_STEPS, LONG_CHUNK, LONG_SCENARIO = (2048, 4096), 2048, "node_failure"
 WARM_RUNS = 1               # warm and staged 2048-step Table II calls timed in phase 4
 PEAK_SLACK_BYTES = 1 << 20
-PROFILE_STEPS = 32
+PROFILE_STEPS = 16
 CAMPAIGN_CLI_STEPS = 2048   # launch.campaign in phase 10 (its default: 4096)
 FLEET_SLOTS = 2             # slots of the one card in phase 20a's fleet mesh
-COMPOSE_CLI_STEPS = 512     # launch.compose in phase 13 (its default: 2048)
+COMPOSE_CLI_STEPS = 128     # launch.compose in phase 13 (its default: 2048)
 PRED_STEPS, PRED_CHUNK = 2048, 512     # benchmarks/run.py's predictor sweep
 COMPOSE_SCENARIOS = ("burse", "diurnal")
 SERVE_LOOP_STEPS = 4096                # hybrid/closed_loop_serving's arrival steps
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 8    # full-width llama3.2-1b training
+# Phase 21: the dry run's CLI arch, and how close a counted step on the card must come
+# to its reckoning on fake tensors (bytes; the peak against max_memory_allocated).
+DRYRUN_ARCH = "llama3.2-1b"
+COUNT_BYTES_RTOL, PEAK_RTOL = 0.01, 0.15
 TRAIN_F32 = (2, 256, 1)                # float32 card vs CPU: layers, S, B
 TRAIN_LR = 1e-3
 TRAIN_OUTLIERS = 1e-3                  # share of a leaf's elements past 1e-5 (Adam's noise)
@@ -2124,10 +2147,13 @@ def phase_figures(dev) -> None:
     print(f"[figures] all {len(rows)} gains within {GAIN_ATOL} of BENCH_fleet.json (worst |Δ| "
           f"{worst:.4f}); fig10's voltage ranges and rates and fig12's lowest BRAM voltage equal")
     t0 = time.perf_counter()
-    cpu = {key: _figure_run(key, "cpu", trace)[0] for key in rows}
-    worst = _compare_summaries({"figures": {k: v[0] for k, v in cuda.items()}},
+    cpu = {key: _figure_run(key, "cpu", trace)[0] for key in rows
+           if key.startswith(FIGURE_CPU_ROWS)}
+    check(len(cpu) == 16, f"{len(cpu)} figure rows picked for the CPU, want 16")
+    worst = _compare_summaries({"figures": {k: cuda[k][0] for k in cpu}},
                                {"figures": cpu}, "figures")
-    print(f"[figures] the same rows on the CPU in {time.perf_counter() - t0:.2f} s: every "
+    print(f"[figures] {len(cpu)} of the rows (fig10, fig12, and fig4/5/6 at load 0.5, α 0.2, "
+          f"β 0.5, every technique) on the CPU in {time.perf_counter() - t0:.2f} s: every "
           f"Summary field within {SUMMARY_RTOL} (worst rel {worst:.3g}), miss rates equal")
 
 
@@ -3461,7 +3487,7 @@ def _zamba2_cell(dev) -> dict:
                                      device=dev,
                                      generator=torch.Generator(device=dev).manual_seed(1))}
     with torch.inference_mode():
-        prefill_s = _median_s(lambda: engine._prefill(engine._params, batch), 3)
+        prefill_s = _median_s(lambda: engine._prefill(engine._params, batch), 1)
     _ssd_share(engine, batch, prefill_s)
     _model_flash_check(cfg, lambda: engine._prefill(engine._params, batch), n_shared,
                        "[hybrid]")
@@ -4495,6 +4521,175 @@ def phase_multi_device(dev, campaign: dict, train: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# 21. dry run
+# ---------------------------------------------------------------------------
+
+
+def _dryrun_cli() -> list:
+    """``python -m repro_torch.launch.dryrun --arch DRYRUN_ARCH --single-pod``
+    in a process of its own; its records."""
+    out = os.path.join(ROOT, "chiprun_out", "dryrun_smoke.jsonl")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    if os.path.exists(out):
+        os.remove(out)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                          DRYRUN_ARCH, "--single-pod", "--out", out], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=600)
+    check(run.returncode == 0, f"launch.dryrun exited {run.returncode}:\n{run.stdout[-2000:]}"
+          f"\n{run.stderr[-2000:]}")
+    for line in run.stdout.splitlines():
+        if line.strip():
+            print(f"[dryrun] {line}")
+    with open(out) as fh:
+        records = [json.loads(x) for x in fh]
+    by_shape = {r["shape"]: r for r in records}
+    for shape in ("train_4k", "decode_32k"):
+        r = by_shape[shape]
+        check(r["status"] == "ok" and r["device"] == "cuda" and r["chips"] == 256,
+              f"dry run {DRYRUN_ARCH} {shape}: {r.get('status')} {r.get('error', '')}")
+    print(f"[dryrun] the CLI on fake cuda tensors in a 256-rank fake group: "
+          f"{time.perf_counter() - t0:.2f} s")
+    return records
+
+
+def _same_reckoning(a: dict, b: dict, what: str) -> None:
+    """Two records of one cell count the same work and peak."""
+    for key in ("flops_per_device", "bytes_per_device", "coll_bytes_per_device"):
+        check(a["roofline"][key] == b["roofline"][key],
+              f"{what}: {key} {a['roofline'][key]} vs {b['roofline'][key]}")
+    check(a["collectives"] == b["collectives"], f"{what}: collectives differ")
+    pa, pb = (r["memory"]["peak_live_bytes_per_device"] for r in (a, b))
+    check(pa == pb, f"{what}: peak {pa} vs {pb}")
+
+
+def _counted_step(dev, cfg, tag: str) -> dict:
+    """One training step of ``cfg`` at B = TRAIN_BATCH, S = TRAIN_SEQ on the
+    card under ``op_cost``, against the same step reckoned on fake cuda
+    tensors: FLOPs and collective bytes equal, bytes within
+    COUNT_BYTES_RTOL, the reckoned peak within PEAK_RTOL of the step's
+    ``max_memory_allocated``."""
+    import gc
+
+    from repro_torch.analysis import op_cost
+    from repro_torch.analysis.roofline import model_flops_for, roofline_terms
+    from repro_torch.configs.base import OptimizerConfig, ShapeConfig, TrainConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
+    from repro_torch.launch import dryrun
+    from repro_torch.models import common, transformer
+    from repro_torch.optim import adamw_init
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.train import make_train_step
+
+    b, s = TRAIN_BATCH, TRAIN_SEQ
+    tcfg = TrainConfig(optimizer=OptimizerConfig(learning_rate=3e-4, warmup_steps=2,
+                                                 total_steps=TRAIN_STEPS))
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    params = common.init_params(torch.Generator(device=dev).manual_seed(0),
+                                transformer.model_layout(cfg))
+    opt = adamw_init(params, cfg.moment_dtype)
+    pipe = SyntheticPipeline(DataConfig(global_batch=b, seq_len=s, vocab_size=cfg.vocab_size),
+                             cfg)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in next(pipe).items()}
+               for _ in range(3)]
+    pipe.close()
+    step = make_train_step(cfg, tcfg)
+    params, opt, _ = step(params, opt, batches.pop(0))            # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, opt, _ = step(params, opt, batches.pop(0))
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    batch = batches.pop(0)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with op_cost.OpCounter() as real:
+        real.hold((params, opt, batch))
+        params, opt, metrics = step(params, opt, batch)
+        torch.cuda.synchronize()
+    counted_s = time.perf_counter() - t0
+    measured = torch.cuda.max_memory_allocated() - base
+    check(bool(torch.isfinite(metrics["loss"])), f"{tag}: loss {metrics['loss']}")
+    del params, opt, batch, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    fake = dryrun.reckon("train", cfg, b, s, shd.default_rules(None), tcfg, device="cuda")
+    reckon_s = time.perf_counter() - t0
+    got, want = real.cost, fake.cost
+    check(got.flops == want.flops, f"{tag}: the card's step counts {got.flops} FLOPs, the "
+          f"fake one {want.flops}")
+    check(got.collective_bytes() == want.collective_bytes(),
+          f"{tag}: collectives {got.collective_bytes()} vs {want.collective_bytes()}")
+    rel = abs(got.bytes - want.bytes) / got.bytes
+    check(rel <= COUNT_BYTES_RTOL, f"{tag}: bytes {got.bytes} vs {want.bytes} ({rel:.3%})")
+    ratio = fake.peak_bytes / measured
+    check(abs(ratio - 1) <= PEAK_RTOL, f"{tag}: reckoned peak {fake.peak_bytes / 2**30:.2f} GiB "
+          f"vs max_memory_allocated {measured / 2**30:.2f} GiB ({ratio:.3f})")
+    n_params = sum(int(np.prod(d.shape))
+                   for _, d in common.tree_leaves(transformer.model_layout(cfg)))
+    mf = model_flops_for(cfg, ShapeConfig("train", s, b, "train"), n_params)
+    roof = roofline_terms(want.flops, want.bytes, want.coll_total(), mf, 1, HW_H100)
+    print(f"{tag} {cfg.name} ({cfg.n_layers} layers) B={b} S={s}, one step on the card under "
+          f"op_cost vs reckoned on fake cuda tensors: FLOPs {got.flops:.6g} both, bytes "
+          f"{got.bytes:.6g} vs {want.bytes:.6g} ({rel:.2e} rel), collective bytes "
+          f"{got.coll_total():.6g} both; peak: reckoned {fake.peak_bytes / 2**30:.2f} GiB, "
+          f"tracked on the card's tensors {real.peak_bytes / 2**30:.2f} GiB, "
+          f"max_memory_allocated {measured / 2**30:.2f} GiB (reckoned / measured {ratio:.3f})")
+    print(f"{tag} {cfg.name}: reckoned roofline step {roof.t_step * 1e3:.1f} ms "
+          f"({roof.dominant}: compute {roof.t_compute * 1e3:.1f} ms, memory "
+          f"{roof.t_memory * 1e3:.1f} ms) beside the measured {plain_s * 1e3:.1f} ms; the "
+          f"6·N·T bound {mf / HW_H100.peak_flops * 1e3:.1f} ms; the counter's cost on one "
+          f"step {(counted_s - plain_s) * 1e3:.1f} ms ({counted_s / plain_s:.2f}x); the "
+          f"reckoning took {reckon_s:.2f} s")
+    return {"flops": want.flops, "bytes": want.bytes, "peak_ratio": ratio,
+            "t_step_ms": roof.t_step * 1e3, "step_ms": plain_s * 1e3}
+
+
+def phase_dryrun(dev) -> dict:
+    """The dry run's CLI on the card's host, its reckoning independent of
+    the fake tensors' device, the serving rows on the card and the CPU, and
+    two training steps on the card counted against their reckoning."""
+    import dataclasses as dc
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+
+    records = _dryrun_cli()
+    by_shape = {r["shape"]: r for r in records}
+    t0 = time.perf_counter()
+    cpu = dryrun.run_cell(DRYRUN_ARCH, "train_4k", False, device="cpu")
+    check(cpu["status"] == "ok", f"dry run on fake cpu tensors: {cpu.get('error')}")
+    _same_reckoning(by_shape["train_4k"], cpu, f"{DRYRUN_ARCH} train_4k fake cuda vs fake cpu")
+    print(f"[dryrun] train_4k again on fake cpu tensors: FLOPs, bytes, collective bytes and "
+          f"peak equal to the fake cuda ones ({time.perf_counter() - t0:.2f} s)")
+    on_card, on_cpu = dryrun.serving_rows(records, device=dev), dryrun.serving_rows(records,
+                                                                                   "cpu")
+    check([r["name"] for r in on_card] == [r["name"] for r in on_cpu]
+          == [f"gpu_serving/{DRYRUN_ARCH}/{x}" for x in ("train_4k", "decode_32k")],
+          f"serving rows {[r['name'] for r in on_card]}")
+    worst = 0.0
+    for a, c in zip(on_card, on_cpu):
+        for k, g in a["gains"].items():
+            rel = abs(g - c["gains"][k]) / abs(c["gains"][k])
+            worst = max(worst, rel)
+            check(rel <= POWER_RTOL, f"{a['name']} {k}: gain {g} on cuda vs {c['gains'][k]}")
+        print(f"[dryrun] {a['name']}: {a['row']}")
+    print(f"[dryrun] the serving rows' gains on cuda within {POWER_RTOL} of the CPU's (worst "
+          f"rel {worst:.3g})")
+    llama = _counted_step(dev, get_config(DRYRUN_ARCH), "[dryrun]")
+    mamba = _counted_step(dev, dc.replace(get_config(MAMBA_ARCH), n_layers=MAMBA_TRAIN_LAYERS),
+                          "[dryrun]")
+    return {"llama": llama, "mamba": mamba}
+
+
 def _timed(label: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -4544,6 +4739,7 @@ def main() -> int:
     flash[0]["launches_llama405b"], flash[0]["llama405b_shapes"] = _timed(
         "19 llama3-405b serving", phase_llama405b_serving, dev)
     _timed("20 multi-device path", phase_multi_device, dev, campaign, train)
+    _timed("21 dry run", phase_dryrun, dev)
     records = [argmin, *flash, *flash_bwd, scan, scan_bwd]
     print(f"[time] all phases: {time.perf_counter() - t0:.2f} s")
     print("kernels: " + ", ".join(r["name"] for r in records))

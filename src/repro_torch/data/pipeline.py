@@ -11,8 +11,9 @@ its 0.5 s wait is offered again, never dropped (the reference's worker
 draws a new one, so its sequence skips batches whenever a step takes
 longer than that).  Batches are host numpy arrays; the caller moves them
 to its device.  A data-parallel rank draws the same global batch and
-keeps its own rows of it (``local_rows``).  ``make_batch_specs``
-(dry-run tooling) stays with the JAX package.
+keeps its own rows of it (``local_rows``).  ``make_batch_specs`` gives
+the dry run empty stand-ins of every model input (fake tensors under
+``FakeTensorMode``).
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import threading
 from typing import Dict, Iterator, Optional
 
 import numpy as np
+import torch
 
 from repro_torch.configs.base import ModelConfig
 
@@ -121,3 +123,27 @@ class SyntheticPipeline:
 
     def close(self):
         self._stop.set()
+
+
+def make_batch_specs(cfg: ModelConfig, global_batch: int, seq_len: int, kind: str = "train",
+                     device=None) -> Dict[str, torch.Tensor]:
+    """Empty stand-ins for every model input of a step, with the
+    reference's keys, shapes and dtypes: ``tokens`` [B, S] int32 (decode:
+    [B, 1]), the audio family's ``features`` [B, S, frontend_dim] float32
+    in place of tokens, the VLM family's ``patches`` [B, P, frontend_dim]
+    float32, and ``labels`` [B, S] int32 for training.  On ``device``
+    (the CPU by default); under ``FakeTensorMode`` they are fake."""
+    i32 = dict(dtype=torch.int32, device=device)
+    f32 = dict(dtype=torch.float32, device=device)
+    if kind == "decode":
+        return {"tokens": torch.empty((global_batch, 1), **i32)}
+    if cfg.family == "audio":
+        out = {"features": torch.empty((global_batch, seq_len, cfg.frontend_dim), **f32)}
+    else:
+        out = {"tokens": torch.empty((global_batch, seq_len), **i32)}
+        if cfg.family == "vlm":
+            out["patches"] = torch.empty((global_batch, cfg.frontend_len, cfg.frontend_dim),
+                                         **f32)
+    if kind == "train":
+        out["labels"] = torch.empty((global_batch, seq_len), **i32)
+    return out

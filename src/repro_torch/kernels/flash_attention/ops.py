@@ -43,6 +43,15 @@ call, which runs the kernel's three parts) and
 ``flash_attention.bwd_kernel_launches`` those of each backward kernel.
 ``flash_attention_fwd`` is the forward with the stats, for callers that
 check them.
+
+Both entries (``_forward``, reached from ``flash_attention``,
+``flash_attention_fwd`` and ``FlashAttention.forward``, and
+``FlashAttention.backward``) report their work to a running
+``analysis.op_cost`` counter on every route: 2·B·H·(D + Dv) FLOPs a kept
+score forward and 2.5× that backward (``kept_scores``), each input read
+once and each output written once.  On a fake tensor (the dry run's) they
+return empty outputs and run nothing; a fake tensor stands for a card
+tensor, so it is checked as one.
 """
 
 from __future__ import annotations
@@ -50,8 +59,10 @@ from __future__ import annotations
 import ctypes
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
+from repro_torch.analysis import op_cost
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.backward import flash_attention_bwd
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
@@ -201,7 +212,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
         raise ValueError(f"window must be None or >= 1, got {window}")
     if softcap is not None and not softcap > 0:
         raise ValueError(f"softcap must be None or > 0, got {softcap}")
-    if dev.type == "cuda":
+    if dev.type == "cuda" or op_cost.is_fake(q):
         route(q.dtype, d)
         if window is not None and sq != sk:
             raise ValueError(f"a windowed flash_attention kernel needs Sq == Sk (got {sq}, "
@@ -257,6 +268,30 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return _forward(q, k, v, causal, window, softcap, scale, stats=True)
 
 
+def kept_scores(sq: int, sk: int, causal: bool, window: Optional[int]) -> int:
+    """Scores a (batch, head) keeps: query ``i`` sits at ``i + sk − sq``
+    (right-aligned, as the plain version; the kernels take Sq == Sk where
+    a mask is on) and keeps key ``j`` where ``j <= qpos`` (causal) and
+    ``qpos − j < window``."""
+    qpos = np.arange(sq, dtype=np.int64) + (sk - sq)
+    hi = np.minimum(qpos + 1, sk) if causal else np.full(sq, sk, dtype=np.int64)
+    lo = np.maximum(qpos - window + 1, 0) if window is not None else 0
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def _work(q, k, v, causal, window, tensors, backward: bool, stats: bool = False):
+    """``op_cost.kernel``'s work of a forward (or backward) call: products,
+    the bytes of ``tensors`` (each read or written once; with ``stats`` the
+    forward's m and l besides), exponentials."""
+    def work():
+        b, sq, h, d = q.shape
+        kept = b * h * kept_scores(sq, k.shape[1], causal, window)
+        flops = 2.0 * (d + v.shape[-1]) * kept
+        n_bytes = op_cost.tensor_bytes(*tensors) + (2 * 4 * b * h * sq if stats else 0)
+        return (2.5 * flops if backward else flops), n_bytes, float(kept)
+    return work
+
+
 class FlashAttention(torch.autograd.Function):
     """The op under autograd: forward by the kernel (CUDA) or the plain
     version (CPU) with the row stats, backward by the backward kernel
@@ -274,11 +309,16 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, m, l = ctx.saved_tensors
-        if q.device.type == "cpu":
-            dq, dk, dv = flash_attention_bwd(q, k, v, out, m, l, dout, **ctx.opts)
-        else:
-            opts = {n: ctx.opts[n] for n in ("causal", "window", "softcap", "scale")}
-            dq, dk, dv = flash_attention_bwd_kernel(q, k, v, out, m, l, dout, **opts)
+        o = ctx.opts
+        # dq, dk, dv are written in q's, k's and v's sizes
+        work = _work(q, k, v, o["causal"], o["window"], (q, k, v, out, m, l, dout, q, k, v),
+                     backward=True)
+        with op_cost.kernel("flash_attention_bwd", work):
+            if q.device.type == "cpu" and not op_cost.is_fake(q):
+                dq, dk, dv = flash_attention_bwd(q, k, v, out, m, l, dout, **o)
+            else:
+                opts = {n: o[n] for n in ("causal", "window", "softcap", "scale")}
+                dq, dk, dv = flash_attention_bwd_kernel(q, k, v, out, m, l, dout, **opts)
         return dq, dk, dv, None, None, None, None, None, None
 
 
@@ -297,12 +337,17 @@ def flash_attention_bwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     synchronizing.  Raises on CPU tensors (their backward is
     ``flash_attention_bwd``) and on what the kernels do not take."""
     dev = _check(q, k, v, causal, window, softcap)
-    if dev.type != "cuda":
+    fake = op_cost.is_fake(q)
+    if dev.type != "cuda" and not fake:
         raise ValueError(f"flash_attention_bwd_kernel takes CUDA tensors, got {dev}; the "
                          "CPU's backward is backward.flash_attention_bwd")
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     kernel = bwd_route(q.dtype, d)
+    if fake:   # the dry run: the gradients' shapes, nothing launched
+        return (torch.empty_like(q, memory_format=torch.contiguous_format),
+                torch.empty_like(k, memory_format=torch.contiguous_format),
+                torch.empty_like(v, memory_format=torch.contiguous_format))
     for name, t, shape, dtype in (("out", out, q.shape, q.dtype),
                                   ("dout", dout, q.shape, q.dtype),
                                   ("m", m, (b, h, sq), torch.float32),
@@ -355,7 +400,21 @@ def flash_attention_bwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 
 def _forward(q, k, v, causal, window, softcap, scale, stats: bool):
     """``(out, m, l)`` (m, l None without ``stats``) of checked inputs: the
-    kernel for CUDA tensors, the plain version for CPU tensors."""
+    kernel for CUDA tensors, the plain version for CPU tensors, empty
+    outputs for fake tensors; the work reported to ``op_cost``."""
+    b, sq, h, d = q.shape
+    # out is written in q's size
+    with op_cost.kernel("flash_attention_fwd",
+                        _work(q, k, v, causal, window, (q, k, v, q), False, stats)):
+        if op_cost.is_fake(q):
+            out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+            m, l = ((torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+                     for _ in range(2)) if stats else (None, None))
+            return out, m, l
+        return _launch(q, k, v, causal, window, softcap, scale, stats)
+
+
+def _launch(q, k, v, causal, window, softcap, scale, stats: bool):
     b, sq, h, d = q.shape
     if q.device.type == "cpu":
         with torch.no_grad():

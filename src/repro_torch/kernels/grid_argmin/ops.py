@@ -9,6 +9,10 @@ raises.  ``grid_argmin.launches`` counts kernel launches.
 
 The kernel takes any grid whose flat indices fit an int32, and sizes its
 own launch from the card's SM count (``make_plan`` in the ``.cu``).
+
+The entry reports its work to a running ``analysis.op_cost`` counter on
+every route: no products, each input read once and each output written
+once.  On a fake tensor it returns empty outputs and runs nothing.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ import ctypes
 
 import torch
 
+from repro_torch.analysis import op_cost
 from repro_torch.core import characterization as char
 from repro_torch.core import voltage as volt
 from repro_torch.kernels import _build
@@ -100,9 +105,27 @@ def grid_argmin(params: char.PlatformParams, masks: torch.Tensor,
     nominal corner when none is feasible.
     """
     dev = _check(params, masks, levels, core_grid, bram_grid)
-    if dev.type == "cpu":
-        return grid_argmin_ref(params, masks, levels, core_grid, bram_grid,
-                               slack_eps=slack_eps)
+    n_p, (n_r, m) = params.watts_scale.shape[0], levels.shape
+    # v_core, v_bram, power (fp32) and feasible (bool) of [P, R, M]
+    ins = (*params, masks, levels, core_grid, bram_grid)
+    work = lambda: (0.0, op_cost.tensor_bytes(*ins) + 13.0 * n_p * n_r * m, 0.0)
+    with op_cost.kernel("grid_argmin", work):
+        if op_cost.is_fake(masks):
+            _check_kernel_layout(params, masks, levels, core_grid, bram_grid)
+            out = [torch.empty((n_p, n_r, m), dtype=torch.float32, device=dev)
+                   for _ in range(3)]
+            return volt.OperatingPoint(
+                v_core=out[0], v_bram=out[1], f_rel=levels[None].expand(n_p, n_r, m),
+                power=out[2], feasible=torch.empty((n_p, n_r, m), dtype=torch.bool,
+                                                   device=dev))
+        if dev.type == "cpu":
+            return grid_argmin_ref(params, masks, levels, core_grid, bram_grid,
+                                   slack_eps=slack_eps)
+        return _launch(params, masks, levels, core_grid, bram_grid, slack_eps)
+
+
+def _launch(params, masks, levels, core_grid, bram_grid, slack_eps):
+    dev = masks.device
     _check_kernel_layout(params, masks, levels, core_grid, bram_grid)
     fn = _build.load("grid_argmin").grid_argmin_launch
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int

@@ -35,6 +35,13 @@ reduce-scatter, warps in order, then a second kernel over the blocks'
 partials.  Its bound at the serving shape is the bytes it must move,
 1481.6 MB in 0.4423 ms at 3.35 TB/s (the least work, one exponential a
 state element, takes 0.2568 ms); its header comment has the design.
+
+Both entries (``_run`` forward, ``SelectiveScan.backward``) report their
+work to a running ``analysis.op_cost`` counter on every route: no
+products, each input read once and each output written once, one
+exponential a state element.  On a fake tensor (the dry run's) they
+return empty outputs and run nothing; a fake tensor stands for a card
+tensor, so it is checked as one.
 """
 
 from __future__ import annotations
@@ -44,6 +51,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.analysis import op_cost
 from repro_torch.kernels import _build
 from repro_torch.kernels.ssm_scan.backward import BOUNDARY_STEPS, selective_scan_bwd_ref
 from repro_torch.kernels.ssm_scan.ref import selective_scan_ref
@@ -87,7 +95,7 @@ def _check(delta: torch.Tensor, B: torch.Tensor, C: torch.Tensor, x: torch.Tenso
     if n > MAX_STATE:
         raise ValueError(f"selective_scan kernel takes a state size N <= {MAX_STATE}, "
                          f"got {n}")
-    if dev.type == "cuda":
+    if dev.type == "cuda" or op_cost.is_fake(delta):
         _check_kernel_layout(ins)
     return dev
 
@@ -114,14 +122,52 @@ def selective_scan(delta: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
     """
     dev = _check(delta, B, C, x, A_log)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (delta, B, C, x, A_log)):
-        if dev.type == "cuda" and x.dtype != torch.float32:
+        if (dev.type == "cuda" or op_cost.is_fake(x)) and x.dtype != torch.float32:
             raise TypeError(f"selective_scan: only float32 trains on the card (the backward "
                             f"kernel reads fp32 inputs), got a grad-requiring {x.dtype} call")
         return SelectiveScan.apply(delta, B, C, x, A_log)
-    if dev.type == "cpu":
-        return selective_scan_ref(delta, B, C, x, A_log)
-    y, h, _ = _forward(delta, B, C, x, A_log, store=False)
+    y, h, _ = _run(delta, B, C, x, A_log, store=False)
     return y, h
+
+
+def _store_bytes(delta, B) -> int:
+    """Bytes of the forward's fp32 boundary store ``[b, ⌈S/BOUNDARY_STEPS⌉,
+    D, N]``."""
+    b, s, d = delta.shape
+    return 4 * b * -(-s // BOUNDARY_STEPS) * d * B.shape[-1]
+
+
+def _work(ins, out_bytes: int):
+    """``op_cost.kernel``'s work: no products, the bytes of ``ins`` read
+    once and ``out_bytes`` written, one exponential a state element.  The
+    boundary store counts on every route, as the card's kernels move it."""
+    def work():
+        b, s, d = ins[0].shape
+        return 0.0, op_cost.tensor_bytes(*ins) + out_bytes, float(b * s * d * ins[1].shape[-1])
+    return work
+
+
+def _run(delta, B, C, x, A_log, store: bool):
+    """``(y, h_final, boundary)`` of checked inputs (``boundary`` None without
+    ``store`` or on real CPU tensors): the kernel for CUDA tensors, the plain
+    version for CPU tensors, empty outputs for fake tensors; the work
+    reported."""
+    b, s, d = delta.shape
+    n = B.shape[-1]
+    # y in x's dtype, h_final fp32 [b, D, N], and the store
+    out_bytes = (b * s * d * x.element_size() + 4 * b * d * n
+                 + (_store_bytes(delta, B) if store else 0))
+    with op_cost.kernel("selective_scan", _work((delta, B, C, x, A_log), out_bytes)):
+        if op_cost.is_fake(delta):
+            dev = delta.device
+            bnd = (torch.empty((b, -(-s // BOUNDARY_STEPS), d, n), dtype=torch.float32,
+                               device=dev) if store else None)
+            return (torch.empty((b, s, d), dtype=x.dtype, device=dev),
+                    torch.empty((b, d, n), dtype=torch.float32, device=dev), bnd)
+        if delta.device.type == "cpu":
+            y, h = selective_scan_ref(delta, B, C, x, A_log)
+            return y, h, None
+        return _forward(delta, B, C, x, A_log, store=store)
 
 
 class SelectiveScan(torch.autograd.Function):
@@ -131,11 +177,7 @@ class SelectiveScan(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, delta, B, C, x, A_log):
-        if delta.device.type == "cpu":
-            y, h = selective_scan_ref(delta, B, C, x, A_log)
-            boundary = None
-        else:
-            y, h, boundary = _forward(delta, B, C, x, A_log, store=True)
+        y, h, boundary = _run(delta, B, C, x, A_log, store=True)
         ctx.save_for_backward(delta, B, C, x, A_log, boundary)
         ctx.set_materialize_grads(False)
         return y, h
@@ -145,11 +187,15 @@ class SelectiveScan(torch.autograd.Function):
         delta, B, C, x, A_log, boundary = ctx.saved_tensors
         if dy is None:
             dy = torch.zeros_like(x)
-        if delta.device.type == "cpu":
-            grads = selective_scan_bwd_ref(delta, B, C, x, A_log, dy, dh)
-        else:
-            grads = selective_scan_bwd(delta, B, C, x, A_log, boundary, dy.contiguous(),
-                                       None if dh is None else dh.contiguous())
+        # reads the inputs, the store, dy and dh; writes a gradient per input
+        work = _work((delta, B, C, x, A_log, dy, dh), _store_bytes(delta, B)
+                     + op_cost.tensor_bytes(delta, B, C, x, A_log))
+        with op_cost.kernel("selective_scan_bwd", work):
+            if delta.device.type == "cpu" and not op_cost.is_fake(delta):
+                grads = selective_scan_bwd_ref(delta, B, C, x, A_log, dy, dh)
+            else:
+                grads = selective_scan_bwd(delta, B, C, x, A_log, boundary, dy.contiguous(),
+                                           None if dh is None else dh.contiguous())
         return tuple(g.to(t.dtype) if need else None for g, t, need in
                      zip(grads, (delta, B, C, x, A_log), ctx.needs_input_grad))
 
@@ -190,6 +236,8 @@ def selective_scan_bwd(delta: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
     dev = _check(delta, B, C, x, A_log)
     b, s, d = delta.shape
     n = B.shape[-1]
+    if op_cost.is_fake(delta):   # the dry run: the gradients' shapes, nothing launched
+        return tuple(torch.empty_like(t) for t in (delta, B, C, x, A_log))
     if dev.type != "cuda" or x.dtype != torch.float32:
         raise ValueError(f"selective_scan_bwd takes float32 CUDA tensors, got {x.dtype} on "
                          f"{dev}")

@@ -6,8 +6,8 @@ package computes in float32 — the schedule, ``b1 ** step``, ``b2 ** step``
 and the clip scale — is a float32 tensor here too, not a Python float,
 so the updates round as the reference's do.  The update is functional, as
 the reference's: new parameter and moment tensors come back and the
-inputs are left as they are.  ``opt_state_layout`` (dry-run tooling)
-stays with the JAX package.
+inputs are left as they are.  ``opt_state_layout`` gives the state's
+layout for the dry run (``launch.dryrun``), leaf for leaf.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.configs.base import OptimizerConfig
 from repro_torch.models import common
+from repro_torch.models.common import ParamDef
 from repro_torch.optim.schedule import make_schedule
 from repro_torch.parallel import sharding as shd
 
@@ -26,6 +27,16 @@ class AdamWState(NamedTuple):
     step: torch.Tensor
     m: Any
     v: Any
+
+
+def opt_state_layout(layout: Any, moment_dtype: str = "float32") -> AdamWState:
+    """The ``ParamDef`` tree of the optimizer state of a model ``layout``:
+    the step a scalar, m and v the layout itself (the moments take the
+    parameters' shardings).  ``moment_dtype`` is the reference's argument
+    and changes nothing: a layout has no dtype."""
+    del moment_dtype
+    return AdamWState(step=ParamDef((), (), "zeros"), m=common.tree_map(lambda d: d, layout),
+                      v=common.tree_map(lambda d: d, layout))
 
 
 def _first_leaf(tree: Any) -> torch.Tensor:

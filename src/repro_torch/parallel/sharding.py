@@ -51,6 +51,8 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import Replicate, Shard
 
+from repro_torch.analysis import op_cost
+
 AxisName = Optional[str]
 LogicalAxes = Tuple[AxisName, ...]
 MeshAxes = Union[None, str, Tuple[str, ...]]
@@ -237,7 +239,8 @@ def _layout_map(fn, tree):
 
 
 # ---------------------------------------------------------------------------
-# Collectives (each call counted in ``collective_calls``)
+# Collectives (each call counted in ``collective_calls``, and its operand
+# bytes per device reported to a running ``analysis.op_cost`` counter)
 # ---------------------------------------------------------------------------
 
 # torch renamed the tensor collectives; either name takes the same arguments
@@ -248,6 +251,7 @@ _reduce_scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_sc
 def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     """``x`` summed over ``group``, in place."""
     collective_calls["all_reduce"] += 1
+    op_cost.add_collective("all-reduce", x)
     dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
     return x
 
@@ -255,6 +259,7 @@ def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
 def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
     """``x``'s elementwise max over ``group``, in place."""
     collective_calls["all_reduce"] += 1
+    op_cost.add_collective("all-reduce", x)
     dist.all_reduce(x, op=dist.ReduceOp.MAX, group=group)
     return x
 
@@ -266,6 +271,7 @@ def all_gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     moved = x.movedim(dim, 0).contiguous()
     out = torch.empty((n * moved.shape[0],) + moved.shape[1:], dtype=x.dtype, device=x.device)
     collective_calls["all_gather"] += 1
+    op_cost.add_collective("all-gather", x)
     _all_gather(out, moved, group=group)
     return out.movedim(0, dim).contiguous()
 
@@ -276,6 +282,7 @@ def reduce_scatter_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     moved = x.movedim(dim, 0).contiguous()
     out = torch.empty((moved.shape[0] // n,) + moved.shape[1:], dtype=x.dtype, device=x.device)
     collective_calls["reduce_scatter"] += 1
+    op_cost.add_collective("reduce-scatter", x)
     _reduce_scatter(out, moved, op=dist.ReduceOp.SUM, group=group)
     return out.movedim(0, dim).contiguous()
 
@@ -341,13 +348,23 @@ def named_shardings(layout: Any, rules: Optional[ShardingRules] = None) -> Any:
 
 
 def data_group(rules: Optional[ShardingRules] = None):
-    """The process group of the ``data`` mesh axis, or None (the one-device
-    path) when the rules carry no ``DeviceMesh`` or its data axis has one
-    rank: a collective over one rank is a copy, so a plain run on a 1 × 1
-    mesh takes the one-device step at its speed."""
+    """The process group of the ``data`` mesh axis (with a ``pod`` axis,
+    of the pod and data axes together: ``batch`` splits over both), or
+    None (the one-device path) when the rules carry no ``DeviceMesh`` or
+    that group has one rank: a collective over one rank is a copy, so a
+    plain run on a 1 × 1 mesh takes the one-device step at its speed."""
     rules = rules or active_rules()
-    if not isinstance(rules.mesh, DeviceMesh) or axis_sizes(rules.mesh)["data"] == 1:
+    if not isinstance(rules.mesh, DeviceMesh):
         return None
+    sizes = axis_sizes(rules.mesh)
+    if sizes["data"] * sizes.get("pod", 1) == 1:
+        return None
+    if "pod" in sizes:
+        # made once a mesh: a sub-mesh is cut with tensor ops on the mesh's ranks
+        mesh = rules.mesh
+        if getattr(mesh, "_pod_data_group", None) is None:
+            mesh._pod_data_group = mesh["pod", "data"]._flatten("pod_data").get_group()
+        return mesh._pod_data_group
     return rules.mesh.get_group("data")
 
 
