@@ -58,7 +58,9 @@ printing its seconds:
    ``scaled_dot_product_attention``, for reference), and the CUDA-core
    kernel at gemma2's local layer in float32 (B = 1, S = 4160);
 5b. flash backward — both backward kernels' ptxas reports (no spill bytes
-   in any instantiation) and shared memory per head_dim, HGMMA, UTMALDG and
+   in any instantiation; the tensor-core library's wgmma serialized by
+   ptxas only in its D = 128 dK/dV kernel, for want of registers) and
+   shared memory per head_dim, HGMMA, UTMALDG and
    MUFU.EX2 in the tensor-core backward's SASS; every case of phase 5 in
    both dtypes (strided k, v, the padded heads of 80, the softcap cases,
    the serving shape) through ``FlashAttention`` on the card: one launch
@@ -67,9 +69,11 @@ printing its seconds:
    backward on the same tensors and forward stats, a second launch bit-
    equal; at llama's shape the tensor-core backward's time beside its
    bound, the plain backward (one call), SDPA's backward
-   (``torch.autograd.grad``) and both forward + backward in turns; the
-   kernel alone at qwen3-moe's D = 128, G = 16 layer and gemma2's
-   softcapped D = 256 global layer beside their bounds; the CUDA-core
+   (``torch.autograd.grad``) and both forward + backward in turns, and its
+   three kernels' times beside those of its first design (recorded at
+   f827266); the kernel alone at qwen3-moe's D = 128, G = 16 layer and gemma2's
+   softcapped D = 256 global layer beside their bounds and the first
+   design's times; the CUDA-core
    backward at llama's shape in float32;
 6. serving path — ``python -m repro_torch.launch.serve --no-reduced`` on
    ``cuda``; ``ServeEngine`` on full-width llama3.2-1b (random weights from
@@ -373,6 +377,13 @@ FLASH_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # gemma2-2b's softcapped global layer (D = 256): (B, S, KV, G, D, causal, window, softcap)
 FLASH_BWD_SHAPES = {"qwen3_moe": (2, 4096, 4, 16, 128, True, None, None),
                     "gemma2_global": (2, 8160, 4, 2, 256, True, None, 50.0)}
+# B2's bf16 backward as it was first written (its two warpgroups sharing each 64-key step
+# through a shared P tile), recorded at f827266 on an NVIDIA H100 80GB HBM3 at 700.00 W: ms
+# a call at llama's shape and of its three kernels a launch there (torch.profiler), and ms
+# a call at the shapes above.  Printed beside this run's times; another run on another
+# card, so not compared by a check.
+B2_BWD_FIRST_MS = {"llama": 1.2331, "qwen3_moe": 5.5204, "gemma2_global": 6.5426}
+B2_BWD_FIRST_KERNELS_MS = {"dkdv": 0.896, "dq": 0.245, "prologue": 0.084}
 # The local:global family's prefill attention, bf16, B = 2, a prompt of 8160 (past
 # gemma2's 4096 window): name -> (B, S, KV, G, D, causal, window, softcap)
 GEMMA_FLASH_SHAPES = {
@@ -1326,7 +1337,8 @@ def _ptxas_entries(lib) -> list:
     rows, entry = [], ""
     for line in (lib.parent / "build.log").read_text().splitlines():
         if "Compiling entry function" in line:
-            m = re.search(r"(prologue_kernel|dkdv_kernel|dq_kernel)((?:I|L[ib]\d+E)*)", line)
+            m = re.search(r"(prologue_kernel|dkdv_kernel|dkdv_split_kernel|dq_kernel)"
+                          r"((?:I|L[ib]\d+E)*)", line)
             entry = (f"{m[1]}<{','.join(re.findall(r'L[ib](\d+)E', m[2]))}>" if m
                      else line.strip())
         elif "spill" in line:
@@ -1336,10 +1348,28 @@ def _ptxas_entries(lib) -> list:
     return rows
 
 
+def _wgmma_serialized(lib) -> list:
+    """(kernel, reason) of each instantiation whose wgmma ptxas serializes
+    (its "Potential Performance Loss" notes in ``build.log``)."""
+    out = []
+    for line in (lib.parent / "build.log").read_text().splitlines():
+        if "wgmma.mma_async instructions are serialized" in line:
+            m = re.search(r"(prologue_kernel|dkdv_split_kernel|dkdv_kernel|dq_kernel)"
+                          r"((?:I|L[ib]\d+E)*)", line)
+            name = f"{m[1]}<{','.join(re.findall(r'L[ib](\d+)E', m[2]))}>" if m else "?"
+            why = re.split(r" (?:in|for) the function", line.split("serialized due to ")[-1])[0]
+            out.append((name, why))
+    return out
+
+
 def _flash_bwd_build_report() -> None:
     """The backward kernels' builds: no spill bytes in any instantiation of
     either, HGMMA and UTMALDG in the tensor-core library's SASS, and each
-    kernel's shared memory per head_dim within the card's opt-in limit."""
+    kernel's shared memory per head_dim within the card's opt-in limit.
+    ptxas serializes the tensor-core library's wgmma only where the design
+    says it does: in the D = 128 own-keys dK/dV kernel, for want of
+    registers (any other note, such as an accumulator set while a product is
+    in flight, undoes the pipelining)."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import ops
 
@@ -1347,7 +1377,7 @@ def _flash_bwd_build_report() -> None:
     for name in (ops.TENSOR_CORE_BWD, ops.CUDA_CORE_BWD):
         lib = _build.library_path(name)
         entries = _ptxas_entries(lib)
-        check(len(entries) >= (21 if name == ops.TENSOR_CORE_BWD else 9),
+        check(len(entries) >= (25 if name == ops.TENSOR_CORE_BWD else 9),
               f"{name}: {len(entries)} entries in its ptxas report")
         for entry, regs, spills in entries:
             print(f"[flash-bwd] {name} {entry}: {regs}; {spills} bytes spill")
@@ -1360,6 +1390,11 @@ def _flash_bwd_build_report() -> None:
               f"{name}: shared memory {sizes}, limit {limit}")
         print(f"[flash-bwd] {name} dynamic shared memory (dK/dV, dQ) by head_dim: {sizes} "
               f"bytes (the card's opt-in limit {limit})")
+    notes = _wgmma_serialized(_build.library_path(ops.TENSOR_CORE_BWD))
+    for name, why in notes:
+        print(f"[flash-bwd] {ops.TENSOR_CORE_BWD} {name}: ptxas serializes its wgmma: {why}")
+    check(all(name.startswith("dkdv_kernel<128,") and "register" in why for name, why in notes),
+          f"{ops.TENSOR_CORE_BWD}: wgmma serialized beyond the D = 128 dK/dV kernel: {notes}")
     sass = _sass(_build.library_path(ops.TENSOR_CORE_BWD))
     print(f"[flash-bwd] {ops.TENSOR_CORE_BWD} SASS: "
           f"{_sass_check(sass, ops.TENSOR_CORE_BWD, ('HGMMA', 'UTMALDG', 'MUFU.EX2'))}")
@@ -1470,7 +1505,7 @@ def _flash_bwd_time(case, dtype, gen, dev, plain: bool) -> dict:
         # each of the three kernels' median ms a launch, from a profile of 5 calls
         parts = {}
         for e in _device_kernels(lambda: [fn() for _ in range(5)]):
-            hit = re.search(r"(prologue|dkdv|dq)_kernel", e.name)
+            hit = re.search(r"(prologue|dkdv(?:_split)?|dq)_kernel", e.name)
             if hit:
                 parts.setdefault(hit[1], []).append(e.time_range.elapsed_us() / 1e3)
         rec["kernels_ms"] = {name: float(np.median(v)) for name, v in parts.items()}
@@ -1557,13 +1592,24 @@ def phase_flash_backward(dev) -> list:
           f"under autograd {turns['ours'][0]:.4f} / {turns['ours'][1]:.4f} ms vs SDPA's "
           f"{turns['sdpa'][0]:.4f} / {turns['sdpa'][1]:.4f} ms (in turns); by kernel, median ms "
           f"a launch (torch.profiler): {llama['kernels_ms']}")
+    print(f"[flash-bwd] {ops.TENSOR_CORE_BWD} at llama's shape against its first design "
+          f"(f827266, H100 80GB HBM3 at 700.00 W: {B2_BWD_FIRST_MS['llama']} ms, by kernel "
+          f"{B2_BWD_FIRST_KERNELS_MS}): {llama['ms']:.4f} ms "
+          f"({B2_BWD_FIRST_MS['llama'] / llama['ms']:.2f}x faster), by kernel "
+          + ", ".join(f"{k} {v:.4f} ms ({B2_BWD_FIRST_KERNELS_MS[k] / v:.2f}x)"
+                      for k, v in sorted(llama["kernels_ms"].items())
+                      if k in B2_BWD_FIRST_KERNELS_MS)
+          + f"; bound {llama['bound_ms']:.4f} ms, plain backward {llama['plain_ms']:.4f} ms, "
+          f"SDPA's backward {llama['library_ms']:.4f} ms ({llama['ms'] / llama['library_ms']:.2f}x "
+          "it)")
     shapes = {}
     for name, case in FLASH_BWD_SHAPES.items():
         shapes[name] = rec = _flash_bwd_time(case, torch.bfloat16, gen, dev, plain=False)
         print(f"[flash-bwd] {ops.TENSOR_CORE_BWD} at {name}'s shape {case}: kernel "
               f"{rec['ms']:.4f} ms, {rec['ms'] / rec['bound_ms']:.2f}x its bound "
               f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}); max|Δ| vs plain "
-              f"{rec['err_share_of_tol']:.3g} of its tolerance")
+              f"{rec['err_share_of_tol']:.3g} of its tolerance; first design (f827266) "
+              f"{B2_BWD_FIRST_MS[name]} ms, {B2_BWD_FIRST_MS[name] / rec['ms']:.2f}x this run's")
     tc = _record(ops.TENSOR_CORE_BWD, ops.TENSOR_CORE_BWD,
                  "none: the Pallas kernel src/repro/kernels/flash_attention/kernel.py:38 has no "
                  "VJP (JAX differentiates full_attention through _fa_bwd, "

@@ -93,10 +93,14 @@ _NO_ENCODER, _ENCODE_FAILED = 9999, 10000
 #: kernel whose calls each differentiates.
 TENSOR_CORE_BWD, CUDA_CORE_BWD = "flash_attention_bwd_wgmma", "flash_attention_bwd"
 _BWD = {TENSOR_CORE: TENSOR_CORE_BWD, CUDA_CORE: CUDA_CORE_BWD}
-#: Rows of the TMA boxes of q, dO, k and v in the tensor-core backward (its
-#: dK/dV kernel's 64-key and 64-query tiles, its dQ kernel's 64 query rows
-#: a warpgroup); the dQ kernel's k, v boxes are ``bwd_kv_box_rows``.
+#: Rows of the TMA boxes of q and dO in the tensor-core backward (its dK/dV
+#: kernel's 64-query tiles, its dQ kernel's 64 query rows a warpgroup); its
+#: k, v boxes are ``bwd_key_block_rows`` (dK/dV) and ``bwd_kv_box_rows`` (dQ).
 BWD_TILE_ROWS = 64
+#: The largest head_dim at which each of the two consumer warpgroups of the
+#: tensor-core backward's dK/dV kernel owns 64 of its block's keys
+#: (``kOwnKeysMaxD``); above it the two split the steps of a 64-key block.
+BWD_OWN_KEYS_MAX_D = 128
 #: The tensor-core backward's row-stats scratch is padded to a multiple of
 #: its query tile (``kStatsPad`` in the kernel), one bulk copy a tile.
 BWD_STATS_PAD = 64
@@ -136,10 +140,21 @@ def bwd_route(dtype: torch.dtype, head_dim: int) -> str:
 
 def bwd_kv_box_rows(head_dim: int) -> int:
     """Keys per TMA box of k, v in the tensor-core backward's dQ kernel (one
-    K/V ring stage, ``Tile::kBK``): 64, or 32 at head_dim 256, where the
-    score fragments of 64 keys beside the dQ accumulator would not fit in
-    registers.  Its dK/dV kernel reads q, dO, k and v in 64-row boxes."""
-    return 32 if head_dim == 256 else 64
+    K/V ring stage, ``Tile::kBK``): 128 up to head_dim 64, 64 at 128 and 32
+    at 256, as many keys as the score fragments beside the dQ accumulator
+    leave registers for.  Its dK/dV kernel reads k, v in
+    ``bwd_key_block_rows`` boxes, q and dO in ``BWD_TILE_ROWS``."""
+    return {128: 64, 256: 32}.get(head_dim, 128)
+
+
+def bwd_key_block_rows(head_dim: int) -> int:
+    """Keys per block, and per TMA box of k, v, in the tensor-core backward's
+    dK/dV kernel (``Tile::kBlockKeys``): 128, two warpgroups of 64 that each
+    do every product for their own keys, or 64 above ``BWD_OWN_KEYS_MAX_D``
+    (head_dim 256), where the dK and dV accumulators of one warpgroup would
+    not fit in its registers and the two warpgroups split the work.  A fixed
+    rule by head_dim."""
+    return 128 if head_dim <= BWD_OWN_KEYS_MAX_D else 64
 
 
 def kv_box_rows(head_dim: int) -> int:
@@ -359,6 +374,9 @@ def flash_attention_bwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     if -(-sk // 64) > 65535:
         raise ValueError(f"flash_attention backward kernel grid too large for Sk={sk}")
     out, dout, m, l = (t.contiguous() for t in (out, dout, m, l))
+    if kernel == TENSOR_CORE_BWD:
+        # the prologue reads out and dout 16 bytes a lane
+        out, dout = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (out, dout))
     dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=dev)
     dk = torch.empty((b, sk, kvh, d), dtype=k.dtype, device=dev)
     dv = torch.empty((b, sk, kvh, d), dtype=v.dtype, device=dev)
@@ -369,9 +387,9 @@ def flash_attention_bwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     options = (float(scale), int(causal), -1 if window is None else int(window),
                int(softcap is not None), float(softcap or 0.0))
     if kernel == TENSOR_CORE_BWD:
-        rows = bwd_kv_box_rows(d)
-        maps = [tma_map_args(t, BWD_TILE_ROWS) for t in (q, dout, k, v)]
-        maps += [tma_map_args(k, rows), tma_map_args(v, rows)]
+        maps = [tma_map_args(t, rows) for t, rows in
+                ((q, BWD_TILE_ROWS), (dout, BWD_TILE_ROWS), (k, bwd_key_block_rows(d)),
+                 (v, bwd_key_block_rows(d)), (k, bwd_kv_box_rows(d)), (v, bwd_kv_box_rows(d)))]
         fn = _build.load(kernel).flash_attention_bwd_wgmma_launch
         fn.argtypes, fn.restype = _BWD_WGMMA_ARGTYPES, ctypes.c_int
     else:

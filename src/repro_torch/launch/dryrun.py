@@ -126,15 +126,11 @@ def fake_group(world: int):
         dist.destroy_process_group()
 
 
-def _axes(entry) -> Tuple[str, ...]:
-    return (entry,) if isinstance(entry, str) else tuple(entry or ())
-
-
 def shard_shape(shape, spec, rules: shd.ShardingRules) -> Tuple[int, ...]:
     """One rank's piece of a leaf of ``shape`` whose spec is ``spec``."""
     out = list(shape)
     for i, entry in enumerate(spec):
-        for a in _axes(entry):
+        for a in shd.entry_axes(entry):
             out[i] //= rules.mesh_axis_size(a) if rules.mesh is not None else 1
     return tuple(out)
 

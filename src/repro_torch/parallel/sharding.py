@@ -44,6 +44,7 @@ runs on one device while a split is slower (``simulate_fleet_stream``).
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
@@ -206,21 +207,61 @@ def param_specs(layout: Any, rules: Optional[ShardingRules] = None) -> Any:
     return _layout_map(lambda d: rules.resolve(d.axes, d.shape), layout)
 
 
-def leaf_placements(spec: Spec, mesh: Any) -> tuple:
-    """One ``Shard(dim)`` / ``Replicate()`` per mesh dimension.
+def entry_axes(entry: MeshAxes) -> Tuple[str, ...]:
+    """The mesh axes of one spec entry, in the entry's order."""
+    return (entry,) if isinstance(entry, str) else tuple(entry or ())
 
-    Raises where a tuple entry's axes are not in the mesh's dimension
-    order (multi-pod FSDP's ("data", "pod")): no executed path builds
-    such a spec."""
+
+def shard_index(spec: Spec, shape: Sequence[int], sizes: Mapping[str, int],
+                coords: Mapping[str, int]) -> Tuple[slice, ...]:
+    """The slice of a whole tensor of ``shape`` that the rank at mesh
+    coordinates ``coords`` holds under ``spec``, as JAX's
+    ``NamedSharding.devices_indices_map`` gives it: a dimension on the axes
+    (a1, …, ak) is cut into their product of equal chunks, and the rank
+    holds chunk c1·n2·…·nk + … + ck, the first axis of the entry the major
+    one whatever the mesh's order (the rank at (pod p, data d) of a
+    ("data", "pod") entry holds chunk d·n_pod + p)."""
+    out = []
+    for n, entry in zip(shape, tuple(spec) + (None,) * (len(shape) - len(spec))):
+        chunks, k = 1, 0
+        for a in entry_axes(entry):
+            chunks, k = chunks * sizes[a], k * sizes[a] + coords[a]
+        out.append(slice(k * (n // chunks), (k + 1) * (n // chunks)))
+    return tuple(out)
+
+
+def _strided_shard(dim: int, split_factor: int):
+    """DTensor's placement for a dimension that a later mesh dimension
+    splits first (``_StridedShard``, the FSDP2 + TP layout)."""
+    from torch.distributed.tensor.placement_types import _StridedShard
+    return _StridedShard(dim, split_factor=split_factor)
+
+
+def leaf_placements(spec: Spec, mesh: Any) -> tuple:
+    """One placement per mesh dimension: ``Shard(dim)``, ``Replicate()``,
+    or, for a two-axis entry against the mesh's order (multi-pod FSDP's
+    ("data", "pod") on a (pod, data, model) mesh: data splits first),
+    ``_StridedShard(dim, split_factor=n_data)`` on the earlier mesh
+    dimension beside ``Shard(dim)`` on the later one, DTensor's
+    right-to-left sharding.
+
+    Raises where an entry of three or more axes is not in the mesh's
+    dimension order: DTensor has no placement for that."""
     names = axis_names(mesh)
+    sizes = axis_sizes(mesh)
     out: List[Any] = [Replicate()] * len(names)
     for dim, entry in enumerate(spec):
-        axes = (entry,) if isinstance(entry, str) else tuple(entry or ())
-        order = [names.index(a) for a in axes]
-        if order != sorted(order):
-            raise ValueError(f"spec entry {entry} is not in the mesh's dimension order {names}")
-        for i in order:
-            out[i] = Shard(dim)
+        order = [names.index(a) for a in entry_axes(entry)]
+        if order == sorted(order):
+            for i in order:
+                out[i] = Shard(dim)
+        elif len(order) == 2:
+            later, earlier = order
+            out[earlier] = _strided_shard(dim, sizes[names[later]])
+            out[later] = Shard(dim)
+        else:
+            raise ValueError(f"spec entry {entry} is not in the mesh's dimension order "
+                             f"{names}, and has more than two axes")
     return tuple(out)
 
 
@@ -287,28 +328,93 @@ def reduce_scatter_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     return out.movedim(0, dim).contiguous()
 
 
+def _permute_pieces(x: torch.Tensor, dim: int, grid: Sequence[int],
+                    perm: Sequence[int]) -> torch.Tensor:
+    """``x`` whose ``dim`` holds prod(grid) equal pieces laid out as an array
+    of shape ``grid`` (row-major), with that array's axes permuted by
+    ``perm``: piece (i_perm[0], …) of the result is piece (i_0, …) of x."""
+    if list(perm) == sorted(perm):
+        return x
+    shape = x.shape
+    n = len(grid)
+    y = x.reshape(*shape[:dim], *grid, shape[dim] // math.prod(grid), *shape[dim + 1:])
+    y = y.permute(*range(dim), *(dim + p for p in perm), *range(dim + n, y.dim()))
+    return y.reshape(shape)
+
+
+@dataclasses.dataclass(frozen=True)
+class _EntryGroup:
+    """The process group over the mesh axes of one spec entry, its ranks in
+    the mesh's order (a multi-axis entry's group is the flattened sub-mesh
+    of its axes, pod-major for pod and data), and how the pieces of a
+    gather over it (one a rank, in rank order) are re-ordered into the
+    entry's chunk order: ``grid`` the piece array's shape in rank order,
+    ``perm`` its axes in the entry's order."""
+
+    group: Any
+    grid: Tuple[int, ...]
+    perm: Tuple[int, ...]
+
+    def to_chunks(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        return _permute_pieces(x, dim, self.grid, self.perm)
+
+    def to_ranks(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        grid = tuple(self.grid[p] for p in self.perm)
+        inverse = tuple(self.perm.index(i) for i in range(len(self.perm)))
+        return _permute_pieces(x, dim, grid, inverse)
+
+
+def _flat_group(mesh: DeviceMesh, axes: Tuple[str, ...]):
+    """The process group of the sub-mesh of ``axes`` (in the mesh's order)
+    flattened into one dimension, made once a mesh (a sub-mesh is cut with
+    tensor ops on the mesh's ranks, so a dry run makes it before its fake
+    tensors)."""
+    cache = mesh.__dict__.setdefault("_flat_groups", {})
+    if axes not in cache:
+        cache[axes] = mesh[axes]._flatten("_".join(axes)).get_group()
+    return cache[axes]
+
+
+def entry_group(mesh: DeviceMesh, entry: MeshAxes) -> _EntryGroup:
+    """The collective group of a spec entry on ``mesh`` (see ``_EntryGroup``)."""
+    names = axis_names(mesh)
+    axes = entry_axes(entry)
+    by_mesh = sorted(range(len(axes)), key=lambda i: names.index(axes[i]))
+    grid = tuple(mesh.size(names.index(axes[i])) for i in by_mesh)
+    perm = tuple(by_mesh.index(i) for i in range(len(axes)))
+    if len(axes) == 1:
+        group = mesh.get_group(names.index(axes[0]))
+    else:
+        group = _flat_group(mesh, tuple(axes[i] for i in by_mesh))
+    return _EntryGroup(group, grid, perm)
+
+
 class _GatherShards(torch.autograd.Function):
-    """All-gather along ``dim`` forward; its adjoint, a reduce-scatter of
-    the full gradient, backward (each rank's loss holds its own rows, so
-    the sum over ranks is the gradient of the global loss)."""
+    """All-gather along ``dim`` over an entry's group, the pieces put into
+    the entry's chunk order, forward; its adjoint backward: the full
+    gradient's chunks put into the group's rank order, then reduce-scattered
+    (each rank's loss holds its own rows, so the sum over ranks is the
+    gradient of the global loss)."""
 
     @staticmethod
-    def forward(ctx, x, dim, group):
-        ctx.dim, ctx.group = dim, group
-        return all_gather_dim(x, dim, group)
+    def forward(ctx, x, dim, eg):
+        ctx.dim, ctx.eg = dim, eg
+        return eg.to_chunks(all_gather_dim(x, dim, eg.group), dim)
 
     @staticmethod
     def backward(ctx, g):
-        return reduce_scatter_dim(g, ctx.dim, ctx.group), None, None
+        return reduce_scatter_dim(ctx.eg.to_ranks(g, ctx.dim), ctx.dim, ctx.eg.group), None, None
 
 
 @dataclasses.dataclass(frozen=True)
 class NamedSharding:
     """A leaf's placement on a ``DeviceMesh``: its resolved ``spec``.
 
-    ``shard`` cuts a whole tensor to this rank's piece; ``gather`` rebuilds
-    the whole tensor from the pieces (a collective over the sharded mesh
-    dimensions).  A spec of ``None`` entries keeps the leaf whole."""
+    ``shard`` cuts a whole tensor to this rank's piece (``shard_index``, as
+    JAX places it, an entry's axes in any order); ``gather`` rebuilds the
+    whole tensor from the pieces (one collective a sharded dimension, over
+    the group of its entry's axes).  A spec of ``None`` entries keeps the
+    leaf whole."""
 
     mesh: Any
     spec: Spec
@@ -318,20 +424,22 @@ class NamedSharding:
         return leaf_placements(self.spec, self.mesh)
 
     def _split(self):
-        """``(mesh dim index, tensor dim)`` of each sharded mesh dimension,
-        in mesh order."""
-        return [(i, p.dim) for i, p in enumerate(self.placements) if isinstance(p, Shard)]
+        """``(tensor dim, entry)`` of each dimension split over more than one
+        rank."""
+        sizes = axis_sizes(self.mesh)
+        return [(dim, e) for dim, e in enumerate(self.spec)
+                if math.prod(sizes[a] for a in entry_axes(e)) > 1]
 
     def shard(self, x: torch.Tensor) -> torch.Tensor:
-        for i, dim in self._split():
-            n = self.mesh.size(i)
-            if n > 1:
-                x = x.chunk(n, dim)[self.mesh.get_local_rank(i)].clone()
-        return x
+        names = axis_names(self.mesh)
+        coords = {a: self.mesh.get_local_rank(i) for i, a in enumerate(names)}
+        index = shard_index(self.spec, x.shape, axis_sizes(self.mesh), coords)
+        return x[index].clone() if self._split() else x
 
     def gather(self, x: torch.Tensor) -> torch.Tensor:
-        for i, dim in reversed(self._split()):
-            x = all_gather_dim(x, dim, self.mesh.get_group(i))
+        for dim, entry in reversed(self._split()):
+            eg = entry_group(self.mesh, entry)
+            x = eg.to_chunks(all_gather_dim(x, dim, eg.group), dim)
         return x
 
 
@@ -360,11 +468,7 @@ def data_group(rules: Optional[ShardingRules] = None):
     if sizes["data"] * sizes.get("pod", 1) == 1:
         return None
     if "pod" in sizes:
-        # made once a mesh: a sub-mesh is cut with tensor ops on the mesh's ranks
-        mesh = rules.mesh
-        if getattr(mesh, "_pod_data_group", None) is None:
-            mesh._pod_data_group = mesh["pod", "data"]._flatten("pod_data").get_group()
-        return mesh._pod_data_group
+        return _flat_group(rules.mesh, ("pod", "data"))
     return rules.mesh.get_group("data")
 
 
@@ -398,9 +502,8 @@ def gather_params(tree: Any, specs: Any, rules: Optional[ShardingRules] = None) 
 
     def one(x, spec):
         _executed(spec, mesh, "a parameter")
-        for i, dim in reversed(NamedSharding(mesh, spec)._split()):
-            if axis_names(mesh)[i] in ("data", "pod"):
-                x = _GatherShards.apply(x, dim, mesh.get_group(i))
+        for dim, entry in reversed(NamedSharding(mesh, spec)._split()):
+            x = _GatherShards.apply(x, dim, entry_group(mesh, entry))
         return x
 
     return _zip_map(one, tree, specs)

@@ -9,7 +9,9 @@ import forces 512 host devices on every later JAX test of the process.
   rules on the same meshes, leaf by leaf, for all ten archs at full width;
 * REDUCED train, prefill and decode cells on an 8-rank fake group come
   out ``ok`` (hubert's prefill through ``transformer.forward``), and a
-  multi-pod FSDP cell reports the port's exception;
+  full-width multi-pod FSDP cell, whose leaves sit on ("data", "pod") against
+  the mesh's order, comes out ``ok`` with the reference's state bytes per
+  device, leaf by leaf;
 * the CLI's JSONL renders through ``scripts/roofline_table.py``;
 * a ``gpu_serving`` row equals the reference's ``compare_techniques`` on
   the same roofline terms within 0.006;
@@ -156,9 +158,37 @@ def test_reduced_cells_on_eight_fake_ranks_come_out_ok(arch, shape):
 
 
 def test_a_multi_pod_fsdp_cell_reports_the_ports_exception():
+    """Once refused by the port (its ("data", "pod") FSDP leaves against the
+    mesh's (pod, data) order), gemma3-27b's multi-pod decode cell now reckons:
+    ``ok``, with params and cache bytes per device equal to the reference's
+    rules on the same mesh, leaf by leaf, and all-gathers of the FSDP
+    leaves."""
+    from repro_torch.models import common, transformer
+
     r = dryrun.run_cell("gemma3-27b", "decode_32k", True, device="cpu")
-    assert r["status"] == "error" and "not in the mesh's dimension order" in r["error"]
+    assert r["status"] == "ok", r.get("traceback")
     assert not torch.distributed.is_initialized()
+    _, mesh_shape, axes = dryrun.MESHES[True]
+    sizes = dict(zip(axes, mesh_shape))
+    jcfg, cfg, shape = jax_config("gemma3-27b"), get_config("gemma3-27b"), SHAPES["decode_32k"]
+    kw = dict(fsdp=jcfg.fsdp, split_kv=r["split_kv"], seq_shard=False)
+    mesh = shd.ShapeMesh(sizes)
+    jrules, rules = jshd.default_rules(mesh, **kw), shd.default_rules(mesh, **kw)
+    layout = transformer.model_layout(cfg)
+    specs = [s for _, s in common.tree_leaves(shd.param_specs(layout, rules))]
+    assert jcfg.fsdp and ("data", "pod") in [e for spec in specs for e in spec]
+    want = _ref_shards(jtf.model_layout(jcfg), jrules, sizes)
+    paths = [p for p, _ in common.tree_leaves(layout)]
+    assert list(dryrun.leaf_shards(layout, rules).values()) == want
+    params = sum(float(np.prod(w, dtype=np.float64)) * dryrun.serving_dtype(cfg, p).itemsize
+                 for w, p in zip(want, paths))
+    assert r["memory"]["params_bytes_per_device"] == params
+    cwant = _ref_shards(jtf.cache_layout(jcfg, shape.global_batch, shape.seq_len), jrules,
+                        sizes)
+    cache = getattr(torch, jcfg.dtype).itemsize * sum(float(np.prod(w, dtype=np.float64))
+                                                      for w in cwant)
+    assert r["memory"]["cache_bytes_per_device"] == cache
+    assert r["collectives"]["all-gather"] > 0
 
 
 def test_microbatch_is_cut_to_what_the_rows_split():

@@ -8,7 +8,9 @@ CPU can check is their arithmetic, modelled here from the constants of their
 sources: a prologue (Δ = rowsum(dO·O) and the row's log-sum-exp), a dK/dV
 pass with one block per (batch, KV head, key tile) that walks the G query
 heads and the query tiles of the key tile's band in a fixed order and sums
-dK and dV in the block, and a dQ pass that walks the forward's band of key
+dK and dV in the block (in the bf16 kernel at head_dim up to
+``kOwnKeysMaxD``, two warpgroups of 64 keys in a 128-key block, each walking
+the block's whole band), and a dQ pass that walks the forward's band of key
 tiles per query tile; P and dS are rounded to the operand dtype before their
 products, masks are aligned at 0 and ragged rows and keys are masked in P
 and dS.  The model is held against ``backward.flash_attention_bwd`` (2e-5 in
@@ -16,7 +18,10 @@ float32; in bf16 2e-2 relative and 2e-2 of the tensor's largest magnitude,
 the tolerances of ``tests/test_torch_flash_backward.py``) and against
 ``jax.vjp`` of the JAX package's ``full_attention`` on numpy-seeded inputs.
 The band tests show that each (query, key) pair the plain version keeps is
-visited exactly once in each pass, at tile edges and ragged ends.
+visited exactly once in each pass, at tile edges and ragged ends, and that
+every tile a warpgroup computes without the mask (the bf16 kernels' ``edge``
+rules) holds only kept pairs, so that the tiles of a block's band that hold
+no kept pair of one warpgroup's keys or rows take the masked body.
 """
 
 import math
@@ -56,21 +61,26 @@ def _const(source: str, name: str) -> int:
 class Tiles:
     """The tile sizes of one route at head_dim ``d``, from its source:
     ``keys`` / ``bq`` of the dK/dV pass (keys a block, query rows a walked
-    tile), ``rows`` / ``bk`` of the dQ pass (query rows a block, keys a
-    walked tile) and ``wg_rows``, the rows of one independent band inside a
-    dQ block (a consumer warpgroup's)."""
+    tile), ``wg_keys``, the keys a dK/dV warpgroup owns (all the block's
+    where the warpgroups split the work), ``rows`` / ``bk`` of the dQ pass
+    (query rows a block, keys a walked tile) and ``wg_rows``, the rows of one
+    warpgroup inside a dQ block.  Every warpgroup walks its block's whole
+    band."""
 
     def __init__(self, dtype: str, d: int):
         if dtype == "bfloat16":
             s = TC_SOURCE
-            self.keys, self.bq = _const(s, "kKeys"), _const(s, "kQueryTile")
+            own = d <= _const(s, "kOwnKeysMaxD")
+            self.keys = _const(s, "kKeys") if own else _const(s, "kKeysSplit")
+            self.wg_keys = _const(s, "kKeysPerWarpgroup") if own else self.keys
+            self.bq = _const(s, "kQueryTile")
             self.wg_rows = _const(s, "kRowsPerWarpgroup")
-            self.rows = self.wg_rows * (2 if d >= 128 else 3)
-            self.bk = _const(s, "kKeyTile256") if d == 256 else _const(s, "kKeyTile")
+            self.rows = self.wg_rows * _const(s, "kDqWarpgroups")
+            self.bk = _const(s, {256: "kKeyTile256", 128: "kKeyTile128"}.get(d, "kKeyTile"))
         else:
             s = CC_SOURCE
             other = _const(s, "kOther256") if d > 128 else _const(s, "kOther")
-            self.keys = self.rows = self.wg_rows = _const(s, "kOwn")
+            self.keys = self.wg_keys = self.rows = self.wg_rows = _const(s, "kOwn")
             self.bq = self.bk = other
 
 
@@ -85,19 +95,30 @@ def key_band(k0, keys, sq, causal, window, bq):
     return range(t_lo, t_hi)
 
 
-def query_band(q0, rows, qa, sq, sk, causal, window, bk):
-    """The key tiles that the dQ rows [qa, qa + 64) of the block [q0, q0 +
-    rows) compute: the forward's band of the block, [lo, hi), cut to the
-    warpgroup's own (the tensor-core kernel's lo_w, hi_w; the CUDA-core
-    kernel has one 64-row band a block, qa = q0)."""
+def kv_edge(ka, wg_keys, q0, bq, sq, sk, causal, window):
+    """Whether a bf16 dK/dV warpgroup with keys [ka, ka + wg_keys) takes the
+    masked body for the query tile [q0, q0 + bq) (the kernels' ``edge``)."""
+    return ((causal and q0 < ka + wg_keys - 1)
+            or (window is not None and q0 + bq - 1 - ka >= window)
+            or q0 + bq > sq or ka + wg_keys > sk)
+
+
+def q_edge(qa, wg_rows, k0, bk, sk, causal, window):
+    """Whether a bf16 dQ warpgroup with rows [qa, qa + wg_rows) takes the
+    masked body for the key tile [k0, k0 + bk) (the kernel's ``edge``; rows
+    past Sq need none: their dO rows are TMA's zeros, so their dS is 0, and
+    they are not stored)."""
+    return ((causal and k0 + bk - 1 > qa)
+            or (window is not None and qa + wg_rows - 1 - k0 >= window) or k0 + bk > sk)
+
+
+def query_band(q0, rows, sq, sk, causal, window, bk):
+    """The key tiles that each warpgroup of the dQ block [q0, q0 + rows)
+    walks: the forward's band of the block, [lo, hi) (the kernels' lo, hi)."""
     nk = -(-sk // bk)
     hi = min((min(q0 + rows, sq) - 1) // bk + 1, nk) if causal else nk
     lo = max(q0 - window + 1, 0) // bk if window is not None else 0
-    lo_w = max(lo, max(qa - window + 1, 0) // bk if window is not None else 0)
-    if qa >= sq:
-        return range(lo_w, lo_w)
-    hi_w = min(hi, (min(qa + 64, sq) - 1) // bk + 1 if causal else nk)
-    return range(lo_w, hi_w)
+    return range(lo, hi)
 
 
 def _keep(qpos, kpos, sq, sk, causal, window):
@@ -159,14 +180,16 @@ def two_pass(q, k, v, out, m, l, dout, *, causal, window, softcap, scale):
     dq = torch.zeros((b, sq, h, d))
     dk = torch.zeros((b, sk, kvh, d))
     dv = torch.zeros((b, sk, kvh, d))
-    # pass 1: dK, dV of each key tile, summed in the block over the G heads and the band
+    # pass 1: dK, dV of each warpgroup's keys of a key block, summed over the G heads and
+    # the block's band
     for bi in range(b):
         for kh in range(kvh):
-            for k0 in range(0, sk, t.keys):
-                kt, vt = rows_of(kf[bi, :, kh], k0, t.keys, sk), rows_of(vf[bi, :, kh], k0,
-                                                                           t.keys, sk)
-                kpos = torch.arange(k0, k0 + t.keys)
-                acc_k, acc_v = torch.zeros(t.keys, d), torch.zeros(t.keys, d)
+            for k0, ka in ((k0, ka) for k0 in range(0, sk, t.keys)
+                           for ka in range(k0, k0 + t.keys, t.wg_keys)):
+                kt = rows_of(kf[bi, :, kh], ka, t.wg_keys, sk)
+                vt = rows_of(vf[bi, :, kh], ka, t.wg_keys, sk)
+                kpos = torch.arange(ka, ka + t.wg_keys)
+                acc_k, acc_v = torch.zeros(t.wg_keys, d), torch.zeros(t.wg_keys, d)
                 for gi in range(g):
                     hi = kh * g + gi
                     for qt_i in key_band(k0, t.keys, sq, causal, window, t.bq):
@@ -179,9 +202,10 @@ def two_pass(q, k, v, out, m, l, dout, *, causal, window, softcap, scale):
                         p, ds = scores(qt, kt, qpos, kpos, lse_r, dl_r, ot @ vt.T)
                         acc_v += rnd(p).T @ ot
                         acc_k += rnd(ds).T @ qt
-                n = min(t.keys, sk - k0)
-                dk[bi, k0:k0 + n, kh] = acc_k[:n] * (1.0 if bf16 else scale)
-                dv[bi, k0:k0 + n, kh] = acc_v[:n]
+                n = min(t.wg_keys, sk - ka)
+                if n > 0:
+                    dk[bi, ka:ka + n, kh] = acc_k[:n] * (1.0 if bf16 else scale)
+                    dv[bi, ka:ka + n, kh] = acc_v[:n]
     # pass 2: dQ of each query tile over the forward's band of key tiles
     for bi in range(b):
         for hi in range(h):
@@ -194,7 +218,7 @@ def two_pass(q, k, v, out, m, l, dout, *, causal, window, softcap, scale):
                     dl_r = rows_of(delta[bi, hi][:, None], qa, t.wg_rows, sq)[:, 0]
                     qpos = torch.arange(qa, qa + t.wg_rows)
                     acc = torch.zeros(t.wg_rows, d)
-                    for j in query_band(q0, t.rows, qa, sq, sk, causal, window, t.bk):
+                    for j in query_band(q0, t.rows, sq, sk, causal, window, t.bk):
                         kt = rows_of(kf[bi, :, kh], j * t.bk, t.bk, sk)
                         vt = rows_of(vf[bi, :, kh], j * t.bk, t.bk, sk)
                         _, ds = scores(qt, kt, qpos, torch.arange(j * t.bk, (j + 1) * t.bk),
@@ -293,8 +317,10 @@ BAND_MASKS = [(True, None), (True, 1), (True, 16), (True, 64), (True, 65), (True
 def test_bands_visit_each_kept_pair_once(route, causal, window):
     """Over every S of BAND_SHAPES (tile edges and ragged ends), each (query,
     key) pair that the plain version keeps lies in exactly one tile that the
-    dK/dV pass computes for it, and in exactly one that the dQ pass
-    computes; no pass computes a tile twice."""
+    dK/dV pass computes for it (a warpgroup's keys, of a 128-key block where
+    the warpgroups own their keys, against a query tile of its block's
+    band), and in exactly one that the dQ pass computes; no pass computes a
+    tile twice."""
     t = Tiles(*route)
     for s in BAND_SHAPES:
         qpos, kpos = torch.arange(s)[:, None], torch.arange(s)[None, :]
@@ -303,13 +329,14 @@ def test_bands_visit_each_kept_pair_once(route, causal, window):
         for k0 in range(0, s, t.keys):
             tiles = list(key_band(k0, t.keys, s, causal, window, t.bq))
             assert len(set(tiles)) == len(tiles)
-            for qt in tiles:
-                seen[qt * t.bq:(qt + 1) * t.bq, k0:k0 + t.keys] += 1
+            for ka in range(k0, k0 + t.keys, t.wg_keys):
+                for qt in tiles:
+                    seen[qt * t.bq:(qt + 1) * t.bq, ka:ka + t.wg_keys] += 1
         assert torch.equal(seen * keep, keep), (s, "dK/dV")
         seen.zero_()
         for q0 in range(0, s, t.rows):
             for qa in range(q0, q0 + t.rows, t.wg_rows):
-                tiles = list(query_band(q0, t.rows, qa, s, s, causal, window, t.bk))
+                tiles = list(query_band(q0, t.rows, s, s, causal, window, t.bk))
                 assert len(set(tiles)) == len(tiles)
                 for j in tiles:
                     seen[qa:qa + t.wg_rows, j * t.bk:(j + 1) * t.bk] += 1
@@ -333,14 +360,15 @@ def test_key_side_band_is_kv_extent_reversed(causal, window):
 
 def _tc_smem(d: int) -> tuple:
     """Shared bytes of the tensor-core dK/dV and dQ kernels at head_dim d,
-    from the constants of their source (``Tile<D>``)."""
+    from the constants of their source (``Tile<D>``): the split dK/dV kernel
+    (above ``kOwnKeysMaxD``) keeps a shared fp32 P tile, the own-keys one
+    none."""
     s = TC_SOURCE
     stages = _const(s, "kStages256") if d == 256 else _const(s, "kStages")
-    keys, bq = _const(s, "kKeys"), _const(s, "kQueryTile")
-    kv = 2 * keys * d * 2 + 2 * stages * bq * d * 2 + keys * bq * 4 + 2 * stages * bq * 4
-    wg = 2 if d >= 128 else 3
-    bk = _const(s, "kKeyTile256") if d == 256 else _const(s, "kKeyTile")
-    dq = 2 * wg * _const(s, "kRowsPerWarpgroup") * d * 2 + 2 * stages * bk * d * 2
+    t = Tiles("bfloat16", d)
+    p_tile = 0 if d <= _const(s, "kOwnKeysMaxD") else t.keys * t.bq * 4
+    kv = 2 * t.keys * d * 2 + 2 * stages * t.bq * d * 2 + p_tile + 2 * stages * t.bq * 4
+    dq = 2 * t.rows * d * 2 + 2 * stages * t.bk * d * 2
     return kv + 128 + 1024, dq + 128 + 1024
 
 
@@ -368,14 +396,22 @@ def test_shared_memory_within_budget(d):
 
 
 def test_design_constants_match_the_wrapper():
-    """The wrapper's tile rows and stats padding are the kernel's."""
+    """The wrapper's tile rows, key-block rows, route by head_dim and stats
+    padding are the kernel's: 128-key blocks of two 64-key warpgroups (wgmma's
+    M) up to ``kOwnKeysMaxD``, 64-key blocks above it."""
     s = TC_SOURCE
-    assert _const(s, "kKeys") == _const(s, "kQueryTile") == ops.BWD_TILE_ROWS
-    assert _const(s, "kRowsPerWarpgroup") == ops.BWD_TILE_ROWS
+    assert _const(s, "kQueryTile") == _const(s, "kRowsPerWarpgroup") == ops.BWD_TILE_ROWS
+    assert _const(s, "kKeysPerWarpgroup") == _const(s, "kKeysSplit") == 64
+    assert _const(s, "kKeys") == 2 * _const(s, "kKeysPerWarpgroup") == 128
+    assert _const(s, "kOwnKeysMaxD") == ops.BWD_OWN_KEYS_MAX_D
     assert _const(s, "kStatsPad") == ops.BWD_STATS_PAD == _const(s, "kQueryTile")
     for d in ops.TC_HEAD_DIMS:
-        assert ops.bwd_kv_box_rows(d) == Tiles("bfloat16", d).bk
-        assert ops.bwd_kv_box_rows(d) % 8 == 0 and ops.bwd_kv_box_rows(d) <= 256
+        t = Tiles("bfloat16", d)
+        assert ops.bwd_key_block_rows(d) == t.keys == (128 if d <= ops.BWD_OWN_KEYS_MAX_D
+                                                       else 64)
+        assert ops.bwd_kv_box_rows(d) == t.bk
+        for rows in (ops.bwd_kv_box_rows(d), ops.bwd_key_block_rows(d)):
+            assert rows % 8 == 0 and rows <= 256
     assert _const(CC_SOURCE, "kThreads") == 16 * (_const(CC_SOURCE, "kOwn")
                                                   // _const(CC_SOURCE, "kTR"))
     for source in (TC_SOURCE, CC_SOURCE):
@@ -411,6 +447,57 @@ def test_bwd_kernel_wrapper_refuses_cpu_and_bad_inputs():
         flash_attention_bwd_kernel(q.half(), k.half(), v.half(), out, m, l, do, **kw)
     with pytest.raises(ValueError, match="Sq == Sk"):
         flash_attention_bwd_kernel(q, k[:, :16], v[:, :16], out, m, l, do, **kw)
+
+
+@pytest.mark.parametrize("d", ops.TC_HEAD_DIMS)
+def test_prologue_lanes_cover_each_row_once(d):
+    """The prologue's D/8 lanes a row each read one 16-byte chunk of 8 bf16
+    values, the chunks cover the row once, a row's lanes are aligned
+    neighbours inside one warp (so its xor shuffles stay among them), and a
+    block's threads hold a whole number of rows."""
+    threads = _const(TC_SOURCE, "kPrologueThreads")
+    lanes = d // 8
+    assert 32 % lanes == 0 and threads % 32 == 0 and threads % lanes == 0
+    chunks = sorted(8 * part + i for part in range(lanes) for i in range(8))
+    assert chunks == list(range(d))
+    offsets = [lanes >> k for k in range(1, 6) if lanes >> k]   # the shuffles' xor masks
+    for tid in range(threads):
+        first = tid - tid % lanes
+        assert first // 32 == (first + lanes - 1) // 32
+        assert all(first <= tid ^ off < first + lanes for off in offsets)
+
+
+@pytest.mark.parametrize("d", ops.TC_HEAD_DIMS)
+@pytest.mark.parametrize("causal,window", BAND_MASKS)
+def test_tiles_without_a_kept_pair_take_the_masked_body(d, causal, window):
+    """No bf16 warpgroup skips a tile of its block's band: every tile that
+    it computes without the mask (``kv_edge`` / ``q_edge`` False) holds only
+    pairs that the plain version keeps (in dQ, of rows before Sq), so each
+    tile with no kept pair of its keys (dK/dV) or rows (dQ), such as the
+    block's first tile above warpgroup 1's keys under the causal mask, takes
+    the masked body.  Over every S of BAND_SHAPES."""
+    t = Tiles("bfloat16", d)
+    empty = 0
+    for s in BAND_SHAPES + [256]:
+        pos = torch.arange(s + 256)
+        keep = _keep(pos[:, None], pos[None, :], s, s, causal, window)
+        for k0 in range(0, s, t.keys):
+            for ka in range(k0, k0 + t.keys, t.wg_keys):
+                for qt in key_band(k0, t.keys, s, causal, window, t.bq):
+                    q0 = qt * t.bq
+                    tile = keep[q0:q0 + t.bq, ka:ka + t.wg_keys]
+                    if not kv_edge(ka, t.wg_keys, q0, t.bq, s, s, causal, window):
+                        assert bool(tile.all()), (s, ka, q0)
+                    empty += not bool(tile.any())
+        for q0 in range(0, s, t.rows):
+            for qa in range(q0, q0 + t.rows, t.wg_rows):
+                for j in query_band(q0, t.rows, s, s, causal, window, t.bk):
+                    tile = keep[qa:min(qa + t.wg_rows, s), j * t.bk:(j + 1) * t.bk]
+                    if not q_edge(qa, t.wg_rows, j * t.bk, t.bk, s, causal, window):
+                        assert bool(tile.all()), (s, qa, j)
+                    empty += qa < s and not bool(tile.any())
+    if causal:
+        assert empty > 0
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -10,7 +10,13 @@
   twice, FSDP, sequence and split-KV switches, multi-pod batch axes;
 * ``placements`` and ``NamedSharding`` on a 2 × 1 gloo ``DeviceMesh`` (two
   processes over a ``FileStore``), and ``shard``'s raise where a mesh axis
-  other than data would split an activation.
+  other than data would split an activation;
+* multi-pod FSDP's ("data", "pod") entry, against the mesh's order:
+  ``shard_index`` equal to JAX's ``NamedSharding.devices_indices_map`` on a
+  (2, 4, 1) mesh of 8 host devices (a subprocess), and on a 4-rank gloo
+  mesh (pod 2 × data 2) ``NamedSharding.shard`` / ``gather`` and
+  ``gather_params`` with its reduce-scatter backward equal to the whole
+  tensor and its gradient.
 """
 
 import itertools
@@ -127,11 +133,110 @@ def test_shard_is_the_identity_but_raises_past_the_data_axis():
 
 
 def test_leaf_placements_refuse_a_tuple_out_of_mesh_order():
+    """A two-axis entry against the mesh's order is DTensor's right-to-left
+    sharding (``_StridedShard`` on the earlier mesh dimension); one of three
+    axes out of order has no placement and is refused."""
+    from torch.distributed.tensor.placement_types import _StridedShard
+
     mesh = shd.ShapeMesh({"pod": 2, "data": 16, "model": 16})
     assert shd.leaf_placements((("pod", "data"), "model"), mesh) == (
         shd.Shard(0), shd.Shard(0), shd.Shard(1))
+    got = shd.leaf_placements((("data", "pod"), None), mesh)
+    assert isinstance(got[0], _StridedShard) and got[0].dim == 0
+    assert got[0].split_factor == 16 and got[1:] == (shd.Shard(0), shd.Replicate())
     with pytest.raises(ValueError, match="not in the mesh's dimension order"):
-        shd.leaf_placements((("data", "pod"), None), mesh)
+        shd.leaf_placements((("model", "data", "pod"),), mesh)
+
+
+_JAX_INDEX_MAP = """
+import json, jax, numpy as np
+from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+devices = np.array(jax.devices()[:8]).reshape(2, 4, 1)
+mesh = Mesh(devices, ("pod", "data", "model"))
+out = {}
+for name, spec in {"data_pod": P(("data", "pod"), None), "pod_data": P(("pod", "data")),
+                   "data": P("data", None), "pod_data_model": P(None, ("data", "pod"))}.items():
+    shape = (16, 8) if name != "pod_data" else (24,)
+    idx = NamedSharding(mesh, spec).devices_indices_map(shape)
+    rows = []
+    for (p, d, m), dev in np.ndenumerate(devices):
+        rows.append([[p, d, m], [[s.start or 0, s.stop if s.stop is not None else n]
+                                 for s, n in zip(idx[dev], shape)]])
+    out[name] = rows
+print(json.dumps(out))
+"""
+
+
+def test_shard_index_is_jaxs_devices_indices_map(tmp_path):
+    """``shard_index`` of ("data", "pod"), ("pod", "data") and single-axis
+    entries equals JAX's ``NamedSharding.devices_indices_map`` on a
+    (pod 2, data 4, model 1) mesh of 8 host devices, device by device (the
+    rank at (pod p, data d) of a ("data", "pod") entry holds chunk d·2 + p)."""
+    import os
+    import subprocess
+    import sys
+
+    env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=8",
+               JAX_PLATFORMS="cpu")
+    run = subprocess.run([sys.executable, "-c", _JAX_INDEX_MAP], capture_output=True,
+                         text=True, env=env, timeout=300)
+    assert run.returncode == 0, run.stderr[-2000:]
+    import json
+    want = json.loads(run.stdout.strip().splitlines()[-1])
+    sizes = {"pod": 2, "data": 4, "model": 1}
+    specs = {"data_pod": (("data", "pod"), None), "pod_data": (("pod", "data"),),
+             "data": ("data", None), "pod_data_model": (None, ("data", "pod"))}
+    for name, spec in specs.items():
+        shape = (16, 8) if name != "pod_data" else (24,)
+        for (p, d, m), bounds in want[name]:
+            got = shd.shard_index(spec, shape, sizes, {"pod": p, "data": d, "model": m})
+            assert [[s.start, s.stop] for s in got] == bounds, (name, p, d)
+    # the ("data", "pod") case the multi-pod FSDP rule builds: chunk d·2 + p
+    for p in range(2):
+        for d in range(4):
+            got = shd.shard_index((("data", "pod"),), (16,), sizes, {"pod": p, "data": d,
+                                                                     "model": 0})
+            assert got[0] == slice(2 * (2 * d + p), 2 * (2 * d + p) + 2)
+
+
+def _multi_pod_rank(rank, store):
+    dist.init_process_group("gloo", store=dist.FileStore(store, 4), rank=rank, world_size=4)
+    try:
+        from repro_torch.launch.mesh import make_mesh
+        mesh = make_mesh((2, 2, 1), ("pod", "data", "model"))
+        coords = {"pod": rank // 2, "data": rank % 2, "model": 0}
+        rules = shd.default_rules(mesh, fsdp=True)
+        spec = rules.resolve(("embed", None), (8, 3))
+        assert spec == (("data", "pod"), None)
+        whole = torch.arange(24.0).reshape(8, 3)
+        ns = shd.NamedSharding(mesh, spec)
+        piece = ns.shard(whole)
+        chunk = 2 * coords["data"] + coords["pod"]
+        assert torch.equal(piece, whole[2 * chunk:2 * chunk + 2])
+        assert torch.equal(ns.gather(piece), whole)
+        # gather_params forward and its reduce-scatter backward: each rank's loss weighs
+        # the gathered leaf by its own w_r, so the leaf's gradient is Σ_r w_r, cut to
+        # this rank's chunk
+        weights = [torch.arange(24.0).reshape(8, 3) * (r + 1) - 5.0 for r in range(4)]
+        x = piece.clone().requires_grad_()
+        with shd.use_rules(rules):
+            full = shd.gather_params({"w": x}, {"w": spec})["w"]
+        assert torch.equal(full.detach(), whole)
+        (full * weights[rank]).sum().backward()
+        assert torch.equal(x.grad, sum(weights)[2 * chunk:2 * chunk + 2])
+        # ("pod", "data") in the mesh's order: chunk p·2 + d, gathered the same way
+        ns2 = shd.NamedSharding(mesh, (("pod", "data"), None))
+        piece2 = ns2.shard(whole)
+        chunk2 = 2 * coords["pod"] + coords["data"]
+        assert torch.equal(piece2, whole[2 * chunk2:2 * chunk2 + 2])
+        assert torch.equal(ns2.gather(piece2), whole)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_multi_pod_fsdp_gathers_and_reduce_scatters_on_four_gloo_ranks(tmp_path):
+    mp.start_processes(_multi_pod_rank, args=(str(tmp_path / "store"),), nprocs=4,
+                       start_method="spawn")
 
 
 def _placements_rank(rank, store):
