@@ -35,8 +35,9 @@ printing its seconds:
    busy time per step of the loop (``torch.profiler``);
 5. flash kernels — ``flash_attention`` against its plain version on the
    card, every case in both dtypes, each on the kernel ``ops.route`` gives
-   it: float32 on the CUDA-core kernel (2e-5), bfloat16 on the tensor-core
-   kernel (2e-2) (the cases of ``tests/test_kernels_flash.py``, two ragged
+   it: float32 on the float32 kernel (``ops.CUDA_CORE``: split TF32 on the
+   tensor cores up to head_dim 128, fp32 FMAs above; 2e-5, and a second
+   launch bit-equal), bfloat16 on the tensor-core kernel (2e-2) (the cases of ``tests/test_kernels_flash.py``, two ragged
    lengths, head_dim 16, the serving shape, head_dim 256 and 128 with GQA
    8/4, a window and softcap 50, a ragged S and a non-causal call, and k, v
    as strided halves of one fused projection; internvl2's GQA 14/2 (G = 7)
@@ -46,22 +47,29 @@ printing its seconds:
    SASS must hold HGMMA and UTMALDG, also in each head_dim-256
    instantiation, whose ptxas report must show no spill bytes; its ptxas
    report and shared memory per head_dim (within the card's opt-in limit)
-   are printed; at the serving shape (B = 4, S = 2048, 32 query / 8 KV
+   are printed; the float32 kernel's ptxas report (no spill bytes, no
+   serialized wgmma), its SASS (TF32 HGMMA, LDGSTS, MUFU.EX2) and shared
+   memory per head_dim; at the serving shape (B = 4, S = 2048, 32 query / 8 KV
    heads, D = 64, causal) each kernel's time in its dtype (bf16, float32)
    beside its plain version's, ``scaled_dot_product_attention``'s and its
-   bound; at gemma2-2b's prefill (B = 2, S = 8160, 8/4 heads of 256,
+   bound (float32: 3 x the products at the TF32 rate, split TF32, and the
+   fp32-FMA bound beside it); at gemma2-2b's prefill (B = 2, S = 8160, 8/4 heads of 256,
    softcap 50) the tensor-core kernel's global layer and local layer
    (window 4096) and at gemma3-27b's (32/16 heads of 128, window 1024) its
    local layer, each beside its plain version's time and the bound of its
    band (no library call takes a softcap or that window; gemma2's global
    layer is also timed without the softcap, on the kernel and on
-   ``scaled_dot_product_attention``, for reference), and the CUDA-core
-   kernel at gemma2's local layer in float32 (B = 1, S = 4160);
+   ``scaled_dot_product_attention``, for reference), and the float32
+   kernel at gemma2's local layer (B = 1, S = 4160; head_dim 256 on the fp32
+   FMAs, both bounds printed);
 5b. flash backward — both backward kernels' ptxas reports (no spill bytes
    in any instantiation; the tensor-core library's wgmma serialized by
-   ptxas only in its D = 128 dK/dV kernel, for want of registers) and
-   shared memory per head_dim, HGMMA, UTMALDG and
-   MUFU.EX2 in the tensor-core backward's SASS; every case of phase 5 in
+   ptxas only in its D = 128 dK/dV kernel, for want of registers, the
+   float32 library's nowhere) and shared memory per head_dim, HGMMA, UTMALDG
+   and MUFU.EX2 in the tensor-core backward's SASS, TF32 HGMMA and LDGSTS in
+   the float32 one's; the tensor-core backward launched as a fresh thread's
+   first CUDA work (autograd's case) bit-equal to a launch on the main
+   thread; every case of phase 5 in
    both dtypes (strided k, v, the padded heads of 80, the softcap cases,
    the serving shape) through ``FlashAttention`` on the card: one launch
    of the backward kernel ``ops.bwd_route`` names, dq, dk, dv within 2e-2
@@ -73,8 +81,9 @@ printing its seconds:
    three kernels' times beside those of its first design (recorded at
    f827266); the kernel alone at qwen3-moe's D = 128, G = 16 layer and gemma2's
    softcapped D = 256 global layer beside their bounds and the first
-   design's times; the CUDA-core
-   backward at llama's shape in float32;
+   design's times; the float32 backward (split TF32 up to head_dim 64) at
+   llama's shape beside both bounds, its three kernels' times from a
+   profile, the plain backward and SDPA's float32 backward;
 6. serving path — ``python -m repro_torch.launch.serve --no-reduced`` on
    ``cuda``; ``ServeEngine`` on full-width llama3.2-1b (random weights from
    a seed, bf16 activations) at B = 4, a 2048-token prompt and 32 new
@@ -314,6 +323,9 @@ from repro_torch.analysis.roofline import HW_H100  # noqa: E402
 # cores (the roofline module's HW_H100), non-tensor-core fp32.
 HBM_BYTES_PER_S = HW_H100.hbm_bw
 FP32_OPS_PER_S = 67e12
+# Dense TF32 on the tensor cores.  The float32 attention kernels run each product as split
+# TF32, three TF32 products (tensor_core.cuh), so their bound is 3 x ops at this rate.
+TF32_OPS_PER_S = 494.7e12
 BF16_OPS_PER_S = HW_H100.peak_flops
 POWER_RTOL = 1e-5
 # Table II's sweep on finer voltage grids: 61 x 91 and 301 x 451 points.
@@ -382,6 +394,9 @@ FLASH_BWD_SHAPES = {"qwen3_moe": (2, 4096, 4, 16, 128, True, None, None),
 # a call at llama's shape and of its three kernels a launch there (torch.profiler), and ms
 # a call at the shapes above.  Printed beside this run's times; another run on another
 # card, so not compared by a check.
+# B2's float32 backward as fp32 FMAs on the CUDA cores (the design of 6fdb809), at llama's
+# shape on an H100 80GB HBM3 at 700.00 W
+B2_F32_BWD_BEFORE_MS = 10.8211
 B2_BWD_FIRST_MS = {"llama": 1.2331, "qwen3_moe": 5.5204, "gemma2_global": 6.5426}
 B2_BWD_FIRST_KERNELS_MS = {"dkdv": 0.896, "dq": 0.245, "prologue": 0.084}
 # The local:global family's prefill attention, bf16, B = 2, a prompt of 8160 (past
@@ -1047,13 +1062,17 @@ def _attention_flops(q, causal: bool, dv=None) -> int:
     return 2 * b * h * (d + (d if dv is None else dv)) * s * s
 
 
-def _flash_bound(q, k, v, out, window=None, causal=True) -> tuple[float, str]:
+def _flash_bound(q, k, v, out, window=None, causal=True,
+                 split_tf32=False) -> tuple[float, str]:
     """Least time on an H100 for attention: q, k, v and out moved once
-    over HBM vs its FLOPs at the dtype's peak."""
+    over HBM vs its FLOPs at the dtype's peak (float32: fp32 FMAs, or with
+    ``split_tf32`` three TF32 products each on the tensor cores)."""
     n_bytes = sum(t.numel() * t.element_size() for t in (q, k, v, out))
     flops = (_causal_flops(q, window, v.shape[-1]) if causal
              else _attention_flops(q, False, v.shape[-1]))
     peak = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else FP32_OPS_PER_S
+    if split_tf32:
+        flops, peak = 3 * flops, TF32_OPS_PER_S
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
@@ -1141,6 +1160,10 @@ def _flash_case_check(name, q, k, v, dtype, causal, window, cap,
     err = (out.float() - ref.float()).abs().max().item()
     check(err <= FLASH_TOL[dtype], f"{kernel} {name} {dtype}: max|Δ| {err} "
           f"> {FLASH_TOL[dtype]}")
+    if dtype == torch.float32 and not padded:  # no atomics: a second launch, the same bits
+        check(torch.equal(out, flash_attention(q, k, v, causal=causal, window=window,
+                                               softcap=cap)),
+              f"{kernel} {name}: two launches differ")
     print(f"[flash] {name} {str(dtype)[6:]} on {kernel}"
           f"{f' padded to D = {attn_mod._flash_head_dim(d)}' if padded else ''}: max|Δ| vs "
           f"plain {err:.3g} (tol {FLASH_TOL[dtype]})")
@@ -1158,6 +1181,13 @@ def phase_flash_kernels(dev) -> list:
     from repro_torch.kernels.flash_attention import ops
 
     _flash_build_report(_build.library_path(ops.TENSOR_CORE))
+    _flash_f32_build_report(ops.CUDA_CORE, "flash")
+    limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    smem = {d: _build.load(ops.CUDA_CORE).flash_attention_smem_bytes(d)
+            for d in (16, 40, 64, 100, 128, 256)}
+    check(all(0 < x <= limit for x in smem.values()), f"{ops.CUDA_CORE}: shared memory {smem}")
+    print(f"[flash] {ops.CUDA_CORE} dynamic shared memory by head_dim: {smem} bytes (split TF32 "
+          f"up to 128, the CUDA cores above; the card's opt-in limit {limit})")
     gen = torch.Generator(device=dev).manual_seed(0)
     max_err = {ops.TENSOR_CORE: 0.0, ops.CUDA_CORE: 0.0}
     cases = [(c, dt) for c in FLASH_CASES for dt in (torch.float32, torch.bfloat16)]
@@ -1211,7 +1241,8 @@ def phase_flash_kernels(dev) -> list:
         lib_ms = device_time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True), n)
         sdpa_err = (sdpa.transpose(1, 2).float() - out.float()).abs().max().item()
-        bound_ms, bound_by = _flash_bound(q, k, v, out)
+        bound_ms, bound_by = _flash_bound(q, k, v, out, split_tf32=dtype == torch.float32)
+        fma_ms = _flash_bound(q, k, v, out)[0]
         stats_ms = device_time_ms(lambda: ops.flash_attention_fwd(q, k, v), n)
         ms_again = device_time_ms(lambda: flash_attention(q, k, v), n)
         print(f"[flash] {kernel} at the serving shape with the row-stats store (training's "
@@ -1224,11 +1255,15 @@ def phase_flash_kernels(dev) -> list:
               f"scaled_dot_product_attention), plain {plain_ms:.4f} ms, "
               f"scaled_dot_product_attention {lib_ms:.4f} ms (max|Δ| vs kernel "
               f"{sdpa_err:.3g}), bound {bound_ms:.4f} ms ({bound_by} at "
-              f"{(BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S) / 1e12:g} "
-              f"TFLOP/s)")
+              + (f"{BF16_OPS_PER_S / 1e12:g} TFLOP/s)" if dtype == torch.bfloat16 else
+                 f"3 x the products at {TF32_OPS_PER_S / 1e12:g} TF32 TFLOP/s, split TF32; "
+                 f"{ms / fma_ms:.2f}x the fp32-FMA bound {fma_ms:.4f} ms at "
+                 f"{FP32_OPS_PER_S / 1e12:g} TFLOP/s)"))
         records.append(_record(kernel, kernel, "src/repro/kernels/flash_attention/kernel.py:38",
                                max_err[kernel], ms, plain_ms, bound_ms, bound_by, lib_ms))
         records[-1]["stats_ms"] = stats_ms
+        if dtype == torch.float32:
+            records[-1]["fma_bound_ms"] = fma_ms
     records[0]["gemma_shapes"] = _gemma_flash_times(GEMMA_FLASH_SHAPES, torch.bfloat16,
                                                     gen, dev)
     records[1]["gemma_shapes"] = _gemma_flash_times(GEMMA_FLASH_F32_SHAPES, torch.float32,
@@ -1305,6 +1340,11 @@ def _gemma_flash_times(shapes: dict, dtype, gen, dev) -> dict:
         plain_ms = device_time_ms(
             lambda: flash_attention_ref(q, k, v, window=window, softcap=cap), 3)
         bound_ms, bound_by = _flash_bound(q, k, v, got, window)
+        if dtype == torch.float32:   # head_dim 256 keeps the fp32 FMAs; the split bound beside
+            note_bound = (f"; split-TF32 bound {_flash_bound(q, k, v, got, window, split_tf32=True)[0]:.4f} "
+                          f"ms (head_dim {q.shape[-1]} runs on the fp32 FMAs)")
+        else:
+            note_bound = ""
         best = min(library, key=library.get)
         rec = {"shape": list(case), "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                "bound_by": bound_by, "library_ms": library[best], "library": best,
@@ -1323,7 +1363,7 @@ def _gemma_flash_times(shapes: dict, dtype, gen, dev) -> dict:
               f"causal window {window} softcap {cap}: kernel {ms:.4f} ms ({tflops:.2f} TFLOP/s, "
               f"{ms / bound_ms:.2f}x its bound, {ms / library[best]:.2f}x {best}), plain "
               f"{plain_ms:.4f} ms, {best} {library[best]:.4f} ms, bound {bound_ms:.4f} ms "
-              f"({bound_by}), max|Δ| vs plain {err:.3g}{note}")
+              f"({bound_by}){note_bound}, max|Δ| vs plain {err:.3g}{note}")
         out[name] = rec
         del q, k, v, got
         torch.cuda.empty_cache()
@@ -1337,8 +1377,9 @@ def _ptxas_entries(lib) -> list:
     rows, entry = [], ""
     for line in (lib.parent / "build.log").read_text().splitlines():
         if "Compiling entry function" in line:
-            m = re.search(r"(prologue_kernel|dkdv_kernel|dkdv_split_kernel|dq_kernel)"
-                          r"((?:I|L[ib]\d+E)*)", line)
+            m = re.search(r"(dkdv_split_kernel|dq_split_kernel|split_kernel|prologue_kernel|"
+                          r"flash_attention_kernel|dkdv_kernel|dq_kernel)((?:I|f|L[ib]\d+E)*)",
+                          line)
             entry = (f"{m[1]}<{','.join(re.findall(r'L[ib](\d+)E', m[2]))}>" if m
                      else line.strip())
         elif "spill" in line:
@@ -1354,12 +1395,35 @@ def _wgmma_serialized(lib) -> list:
     out = []
     for line in (lib.parent / "build.log").read_text().splitlines():
         if "wgmma.mma_async instructions are serialized" in line:
-            m = re.search(r"(prologue_kernel|dkdv_split_kernel|dkdv_kernel|dq_kernel)"
-                          r"((?:I|L[ib]\d+E)*)", line)
+            m = re.search(r"(dkdv_split_kernel|dq_split_kernel|split_kernel|prologue_kernel|"
+                          r"dkdv_kernel|dq_kernel)((?:I|L[ib]\d+E)*)", line)
             name = f"{m[1]}<{','.join(re.findall(r'L[ib](\d+)E', m[2]))}>" if m else "?"
             why = re.split(r" (?:in|for) the function", line.split("serialized due to ")[-1])[0]
             out.append((name, why))
     return out
+
+
+def _flash_f32_build_report(name: str, tag: str) -> None:
+    """A float32 kernel library's build (``flash_attention`` or
+    ``flash_attention_bwd``): every instantiation's ptxas line, no spill
+    bytes in any, no wgmma that ptxas serializes, and TF32 tensor-core
+    products (HGMMA ... TF32) and cp.async copies (LDGSTS) in its SASS."""
+    from repro_torch.kernels import _build
+
+    lib = _build.library_path(name)
+    entries = _ptxas_entries(lib)
+    for entry, regs, spills in entries:
+        print(f"[{tag}] {name} {entry}: {regs}; {spills} bytes spill")
+    spilled = [(entry, n) for entry, _, n in entries if n]
+    check(entries and not spilled, f"{name}: instantiations that spill (entry, bytes): "
+          f"{spilled} of {len(entries)}")
+    notes = _wgmma_serialized(lib)
+    check(not notes, f"{name}: ptxas serializes wgmma: {notes}")
+    sass = _sass(lib)
+    tf32 = len(re.findall(r"\bHGMMA\.\S*TF32", sass))
+    counts = f"HGMMA .. TF32 x{tf32}, {_sass_check(sass, name, ('LDGSTS', 'MUFU.EX2'))}"
+    check(tf32 > 0, f"{name}: no TF32 tensor-core product (HGMMA ... TF32) in its SASS")
+    print(f"[{tag}] {name} SASS: {counts}")
 
 
 def _flash_bwd_build_report() -> None:
@@ -1384,7 +1448,7 @@ def _flash_bwd_build_report() -> None:
         spilled = [(entry, n) for entry, _, n in entries if n]
         check(not spilled, f"{name}: instantiations that spill (entry, bytes): {spilled}")
         lib_fn = getattr(_build.load(name), f"{name}_smem_bytes")
-        dims = ops.TC_HEAD_DIMS if name == ops.TENSOR_CORE_BWD else (16, 64, 128, 256)
+        dims = ops.TC_HEAD_DIMS if name == ops.TENSOR_CORE_BWD else (16, 40, 64, 128, 256)
         sizes = {d: (lib_fn(d, 0), lib_fn(d, 1)) for d in dims}
         check(all(0 < x <= limit for pair in sizes.values() for x in pair),
               f"{name}: shared memory {sizes}, limit {limit}")
@@ -1398,6 +1462,7 @@ def _flash_bwd_build_report() -> None:
     sass = _sass(_build.library_path(ops.TENSOR_CORE_BWD))
     print(f"[flash-bwd] {ops.TENSOR_CORE_BWD} SASS: "
           f"{_sass_check(sass, ops.TENSOR_CORE_BWD, ('HGMMA', 'UTMALDG', 'MUFU.EX2'))}")
+    _flash_f32_build_report(ops.CUDA_CORE_BWD, "flash-bwd")
 
 
 def _flash_bwd_tol(dtype, max_g: float) -> float:
@@ -1448,15 +1513,19 @@ def _flash_bwd_case(name, q, k, v, causal, window, cap, scale=None) -> float:
     return worst, worst_abs
 
 
-def _flash_bwd_bound(q, k, v, out, causal=True, window=None) -> tuple[float, str]:
+def _flash_bwd_bound(q, k, v, out, causal=True, window=None,
+                     split_tf32=False) -> tuple[float, str]:
     """Least time on an H100 for the attention backward: q, k, v, out, dout
     and the row stats read and dq, dk, dv written once over HBM, vs 2.5 x
-    the forward's FLOPs (S, dP, dV, dK, dQ) at the dtype's peak."""
+    the forward's FLOPs (S, dP, dV, dK, dQ) at the dtype's peak (float32:
+    fp32 FMAs, or with ``split_tf32`` three TF32 products each)."""
     b, s, h, _ = q.shape
     n_bytes = (2 * sum(t.numel() * t.element_size() for t in (q, k, v))
                + 2 * out.numel() * out.element_size() + 2 * b * h * s * 4)
     flops = 2.5 * (_causal_flops(q, window) if causal else _attention_flops(q, False))
     peak = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else FP32_OPS_PER_S
+    if split_tf32:
+        flops, peak = 3 * flops, TF32_OPS_PER_S
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
@@ -1485,12 +1554,15 @@ def _flash_bwd_time(case, dtype, gen, dev, plain: bool) -> dict:
     check(max(errs) <= 1.0, f"{case}: backward errors {errs} of the tolerance")
     del ref, grads
     torch.cuda.empty_cache()
-    ms = device_time_ms(fn, 20 if dtype == torch.bfloat16 else 3)
-    bound_ms, bound_by = _flash_bwd_bound(q, k, v, out, causal, window)
+    ms = device_time_ms(fn, 20 if dtype == torch.bfloat16 else 5)
+    bound_ms, bound_by = _flash_bwd_bound(q, k, v, out, causal, window,
+                                          split_tf32=dtype == torch.float32)
     rec = {"shape": list(case), "ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
            "err_share_of_tol": max(errs),
            "fwd_gflop": (_causal_flops(q, window) if causal
                          else _attention_flops(q, False)) / 1e9}
+    if dtype == torch.float32:
+        rec["fma_bound_ms"] = _flash_bwd_bound(q, k, v, out, causal, window)[0]
     if plain:
         rec["plain_ms"] = device_time_ms(lambda: flash_attention_bwd(
             q, k, v, out, m, l, dout, q_chunk=1024, kv_chunk=1024, **kw), 1)
@@ -1501,11 +1573,11 @@ def _flash_bwd_time(case, dtype, gen, dev, plain: bool) -> dict:
             sdpa_out, (qt, kt, vt), dout_t, retain_graph=True), 20 if dtype == torch.bfloat16
             else 3)
         del qt, kt, vt, sdpa_out, dout_t
-    if dtype == torch.bfloat16 and plain:
+    if plain:
         # each of the three kernels' median ms a launch, from a profile of 5 calls
         parts = {}
         for e in _device_kernels(lambda: [fn() for _ in range(5)]):
-            hit = re.search(r"(prologue|dkdv(?:_split)?|dq)_kernel", e.name)
+            hit = re.search(r"(prologue|dkdv(?:_split)?|dq(?:_split)?)_kernel", e.name)
             if hit:
                 parts.setdefault(hit[1], []).append(e.time_range.elapsed_us() / 1e3)
         rec["kernels_ms"] = {name: float(np.median(v)) for name, v in parts.items()}
@@ -1537,6 +1609,45 @@ def _fwd_bwd_turns(dev, seed: int) -> dict:
     return turns
 
 
+def _fresh_thread_backward(gen, dev) -> None:
+    """The tensor-core backward launched as the first CUDA work of a new
+    thread (as autograd's device thread launches it, its allocations served
+    from PyTorch's cache) agrees bit for bit with a launch on this thread: the
+    launch makes the thread's context current before it encodes its tensor
+    maps (without that libcuda refuses them there, CUresult 201)."""
+    import threading
+
+    from repro_torch.kernels.flash_attention import ops
+
+    case = (1, 256, 2, 2, 64, True, None, None)
+    q, k, v = _flash_inputs(case, torch.bfloat16, gen, dev)
+    kw = dict(causal=True, window=None, softcap=None, scale=64 ** -0.5)
+    dout = torch.randn(q.shape, generator=gen, device=dev).to(torch.bfloat16)
+    out, m, l = ops.flash_attention_fwd(q, k, v, **kw)
+    here = ops.flash_attention_bwd_kernel(q, k, v, out, m, l, dout, **kw)
+    torch.cuda.synchronize()
+    del here   # its blocks go back to the cache, so the thread's allocations need no call
+    result = {}
+
+    def work():
+        try:
+            result["grads"] = ops.flash_attention_bwd_kernel(q, k, v, out, m, l, dout, **kw)
+            torch.cuda.synchronize()
+        except RuntimeError as e:  # reported on the main thread
+            result["error"] = e
+
+    thread = threading.Thread(target=work)
+    thread.start()
+    thread.join(timeout=120)
+    check(not thread.is_alive() and "error" not in result,
+          f"the backward on a fresh thread: {result.get('error', 'did not finish')}")
+    again = ops.flash_attention_bwd_kernel(q, k, v, out, m, l, dout, **kw)
+    check(all(torch.equal(a, b) for a, b in zip(result["grads"], again)),
+          "the fresh thread's backward differs from this thread's")
+    print(f"[flash-bwd] {ops.TENSOR_CORE_BWD} as a fresh thread's first CUDA work: bit-equal "
+          "to a launch on the main thread")
+
+
 def phase_flash_backward(dev) -> list:
     """5b. Both backward kernels against the plain backward on every phase-5
     case in both dtypes (strided k, v, the padded heads of 80 as the models
@@ -1550,6 +1661,7 @@ def phase_flash_backward(dev) -> list:
 
     _flash_bwd_build_report()
     gen = torch.Generator(device=dev).manual_seed(7)
+    _fresh_thread_backward(gen, dev)
     worst = {ops.TENSOR_CORE_BWD: [0.0, 0.0], ops.CUDA_CORE_BWD: [0.0, 0.0]}
     dtypes = (torch.float32, torch.bfloat16)
 
@@ -1622,13 +1734,19 @@ def phase_flash_backward(dev) -> list:
     f32 = _flash_bwd_time(SERVING_SHAPE, torch.float32, gen, dev, plain=True)
     print(f"[flash-bwd] {ops.CUDA_CORE_BWD} at the serving shape in float32: kernel "
           f"{f32['ms']:.4f} ms ({f32['ms'] / f32['bound_ms']:.2f}x its bound "
-          f"{f32['bound_ms']:.4f} ms, {f32['bound_by']} at {FP32_OPS_PER_S / 1e12:g} TFLOP/s), "
+          f"{f32['bound_ms']:.4f} ms, {f32['bound_by']}: 3 x the products at "
+          f"{TF32_OPS_PER_S / 1e12:g} TF32 TFLOP/s, split TF32; {f32['ms'] / f32['fma_bound_ms']:.2f}x "
+          f"the fp32-FMA bound {f32['fma_bound_ms']:.4f} ms at {FP32_OPS_PER_S / 1e12:g} TFLOP/s), "
           f"plain backward {f32['plain_ms']:.4f} ms, SDPA's float32 backward "
-          f"(torch.autograd.grad) {f32['library_ms']:.4f} ms")
+          f"(torch.autograd.grad) {f32['library_ms']:.4f} ms ({f32['library_ms'] / f32['ms']:.2f}x "
+          f"the kernel's time); by kernel, median ms a launch (torch.profiler): "
+          f"{f32['kernels_ms']}; the CUDA-core design (6fdb809) took {B2_F32_BWD_BEFORE_MS} "
+          f"ms (H100 80GB HBM3 at 700.00 W)")
     cc = _record(ops.CUDA_CORE_BWD, ops.CUDA_CORE_BWD, tc["replaces"],
                  worst[ops.CUDA_CORE_BWD][1], f32["ms"], f32["plain_ms"], f32["bound_ms"],
                  f32["bound_by"], f32["library_ms"])
-    cc["err_share_of_tol"] = worst[ops.CUDA_CORE_BWD][0]
+    cc.update(err_share_of_tol=worst[ops.CUDA_CORE_BWD][0], fma_bound_ms=f32["fma_bound_ms"],
+              kernels_ms_at_llama=f32["kernels_ms"])
     return [tc, cc]
 
 

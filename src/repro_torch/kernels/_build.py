@@ -10,7 +10,8 @@ The library goes into ``src/repro_torch/kernels/.build/<name>-<hash>/``
 (listed in ``.gitignore``; :func:`set_build_dir` moves it, as
 ``core.aot.enable_compilation_cache`` does), keyed by a hash of the
 source and the flags, so an edited source rebuilds and an unchanged one
-is built once per build directory.  The
+is built once per build directory; the key also hashes the headers a
+source includes by a quoted path (``csrc/tensor_core.cuh``).  The
 build's ``ptxas`` report (registers, shared memory, spills) is kept
 beside the library as ``build.log``.  No ``--use_fast_math``: the
 kernels must round like the plain PyTorch versions.  No source links
@@ -24,6 +25,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -46,6 +48,7 @@ SOURCES: Dict[str, str] = {
     "ssm_scan_bwd": "ssm_scan/csrc/selective_scan_bwd.cu",
 }
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 _LOADED: Dict[str, ctypes.CDLL] = {}
 #: Kernel name → seconds of the ``nvcc`` run that built it in this process.
 _BUILT: Dict[str, float] = {}
@@ -72,11 +75,30 @@ def _nvcc() -> str:
                        "CUDA toolkit")
 
 
+def source_files(name: str) -> Tuple[Path, ...]:
+    """``name``'s source and every header it includes by a quoted path
+    (``#include "x.cuh"``, relative to the including file), recursively,
+    each once, in the order first met."""
+    seen: Dict[Path, None] = {}
+    todo = [KERNELS_DIR / SOURCES[name]]
+    while todo:
+        path = todo.pop(0).resolve()
+        if path in seen:
+            continue
+        seen[path] = None
+        todo += [path.parent / inc for inc in _INCLUDE.findall(path.read_text())]
+    return tuple(seen)
+
+
 def library_path(name: str) -> Path:
-    """Where ``name``'s library lives for the current source and flags."""
-    src = (KERNELS_DIR / SOURCES[name]).read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{key}" / f"lib{name}.so"
+    """Where ``name``'s library lives for the current sources and flags: the
+    key hashes the source, the headers it includes and the flags, so an
+    edited header rebuilds every library that includes it."""
+    digest = hashlib.sha256()
+    for path in source_files(name):
+        digest.update(path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}" / f"lib{name}.so"
 
 
 def build(names: Sequence[str] = tuple(SOURCES)) -> Dict[str, Path]:

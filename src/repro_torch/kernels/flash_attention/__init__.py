@@ -14,11 +14,15 @@ one by dtype and head_dim, a fixed rule:
       exponentials need about as long on the special-function units).
       p is rounded to bf16 before PV, as the TPU kernel does; within
       2e-2 of the plain version;
-  csrc/flash_attention.cu — float32, head_dim up to 256: one block per
-      (query head, batch, 64-row query tile), both products as fp32 FMAs
-      on the CUDA cores
-      from shared memory (1.03 ms at their 67 TFLOP/s peak for the same
-      work), because TF32 would miss the fp32 tolerance; within 2e-5;
+  csrc/flash_attention.cu — float32, head_dim up to 256: up to 128 both
+      products on wgmma as split TF32 (each operand hi + lo, three TF32
+      products a product, fp32 sums: float32's accuracy, where one TF32
+      pass would miss 2e-5), one block per (query head, batch, query tile)
+      of one or two consumer warpgroups fed by a producer warpgroup that
+      copies raw K, V tiles by cp.async and splits them into a ring
+      (0.42 ms at llama's shape at the TF32 peak for the three products);
+      above 128 fp32 FMAs on the CUDA cores (the split tiles do not fit);
+      within 2e-5;
   ops.py — ``flash_attention``: the kernels for CUDA tensors, the plain
       version for CPU tensors, input checks, the TMA map arguments
       (``tma_map_args``) and launch counts, in total and per kernel; under
@@ -33,7 +37,9 @@ one by dtype and head_dim, a fixed rule:
       kernel (the forward's band per query tile), every product on wgmma,
       no atomics, so two launches give the same bits;
   csrc/flash_attention_bwd.cu — the float32 backward: the same two passes
-      as fp32 FMAs on the CUDA cores;
+      as split TF32 on wgmma up to head_dim 64 (two consumer warpgroups
+      taking alternate items, a producer splitting the walked tiles natural
+      and transposed), as fp32 FMAs on the CUDA cores above;
   ref.py — ``attention_ref`` / ``flash_attention_ref``: the plain version,
       with the same stats on request;
   backward.py — ``flash_attention_bwd``: the JAX package's ``_fa_bwd`` in

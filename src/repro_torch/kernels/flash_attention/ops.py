@@ -12,8 +12,11 @@ fixed rule on dtype and head_dim (``route``):
   raises ``ValueError`` where TMA cannot take the view (base address not
   16-byte aligned, a stride not a multiple of 16 bytes);
 * float32 with head_dim up to ``MAX_HEAD_DIM`` → ``flash_attention``
-  (``csrc/flash_attention.cu``): fp32 FMAs on the CUDA cores, so float32
-  stays float32 (TF32 would miss 2e-5).
+  (``csrc/flash_attention.cu``): float32, split TF32 on the tensor cores
+  (each operand hi + lo, three TF32 products a product, float32's
+  accuracy; one TF32 pass would miss 2e-5) up to head_dim 128, fp32 FMAs
+  on the CUDA cores above (the source picks by head_dim; ``CUDA_CORE``
+  keeps its name).
 
 A bfloat16 head_dim outside ``TC_HEAD_DIMS`` or a float32 one above
 ``MAX_HEAD_DIM`` raises on a CUDA tensor; the plain version takes any
@@ -34,7 +37,8 @@ the forward's:
   (``csrc/flash_attention_bwd_wgmma.cu``): dK/dV and dQ in two passes on
   wgmma, fed by TMA, no atomics;
 * float32 → ``flash_attention_bwd`` (``csrc/flash_attention_bwd.cu``): the
-  same two passes as fp32 FMAs on the CUDA cores.
+  same two passes, float32, split TF32 on the tensor cores up to head_dim
+  64, fp32 FMAs on the CUDA cores above.
 
 CPU tensors run ``backward.flash_attention_bwd``, the JAX package's
 ``_fa_bwd`` in plain PyTorch over ``q_chunk`` × ``kv_chunk`` blocks.
@@ -67,8 +71,9 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.backward import flash_attention_bwd
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
-#: Largest head_dim the kernels take (the CUDA-core kernel's 16 output
-#: columns a thread; the tensor-core kernel's four 64-column TMA boxes).
+#: Largest head_dim the kernels take (the float32 kernel's 16 output columns
+#: a thread on the CUDA cores above head_dim 128; the tensor-core kernel's
+#: four 64-column TMA boxes).
 MAX_HEAD_DIM = 256
 #: bfloat16 head_dims of the tensor-core kernel: a multiple of wgmma's
 #: depth of 16 whose swizzled TMA box row (D·2 bytes, at most 128) tiles D.
@@ -114,12 +119,14 @@ _BWD_WGMMA_ARGTYPES = ([ctypes.c_void_p] * 12 + [_MapArg] * 6 + [ctypes.c_int] *
 
 def route(dtype: torch.dtype, head_dim: int) -> str:
     """The kernel that serves CUDA inputs of ``dtype`` and ``head_dim``:
-    ``TENSOR_CORE`` for bfloat16, ``CUDA_CORE`` for float32.  A fixed rule,
-    not a fallback: a head_dim the dtype's kernel cannot take raises
+    ``TENSOR_CORE`` for bfloat16, ``CUDA_CORE`` for float32 (the float32
+    kernel: split TF32 on the tensor cores up to head_dim 128, fp32 FMAs on
+    the CUDA cores above, by its source's fixed rule).  A fixed rule, not a
+    fallback: a head_dim the dtype's kernel cannot take raises
     ``ValueError``."""
     if dtype == torch.float32:
         if not 1 <= head_dim <= MAX_HEAD_DIM:
-            raise ValueError(f"flash_attention: the float32 CUDA-core kernel takes "
+            raise ValueError(f"flash_attention: the float32 kernel takes "
                              f"head_dim <= {MAX_HEAD_DIM}, got {head_dim}")
         return CUDA_CORE
     if dtype != torch.bfloat16:

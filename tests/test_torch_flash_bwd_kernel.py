@@ -77,6 +77,14 @@ class Tiles:
             self.wg_rows = _const(s, "kRowsPerWarpgroup")
             self.rows = self.wg_rows * _const(s, "kDqWarpgroups")
             self.bk = _const(s, {256: "kKeyTile256", 128: "kKeyTile128"}.get(d, "kKeyTile"))
+        elif d <= _const(CC_SOURCE, "kSplitMaxD"):
+            # the split-TF32 kernels: each of the consumer warpgroups walks the whole
+            # block (they take alternate items of its band)
+            s = CC_SOURCE
+            self.keys = self.wg_keys = _const(s, "kSplitKeys")
+            self.bq = _const(s, "kSplitQueryTile")
+            self.rows = self.wg_rows = _const(s, "kSplitRows")
+            self.bk = _const(s, "kSplitKeyTile")
         else:
             s = CC_SOURCE
             other = _const(s, "kOther256") if d > 128 else _const(s, "kOther")
@@ -312,7 +320,8 @@ BAND_MASKS = [(True, None), (True, 1), (True, 16), (True, 64), (True, 65), (True
 
 
 @pytest.mark.parametrize("route", [("bfloat16", 64), ("bfloat16", 128), ("bfloat16", 256),
-                                   ("float32", 64), ("float32", 256)])
+                                   ("float32", 32), ("float32", 64), ("float32", 128),
+                                   ("float32", 256)])
 @pytest.mark.parametrize("causal,window", BAND_MASKS)
 def test_bands_visit_each_kept_pair_once(route, causal, window):
     """Over every S of BAND_SHAPES (tile edges and ragged ends), each (query,
@@ -372,8 +381,28 @@ def _tc_smem(d: int) -> tuple:
     return kv + 128 + 1024, dq + 128 + 1024
 
 
+def _split_smem(d: int) -> tuple:
+    """Shared bytes of the float32 split-TF32 dK/dV and dQ kernels at head_dim
+    d (padded to DP = 32 or 64), from the constants of their source
+    (``SplitKv`` / ``SplitQ``): the own hi / lo tiles, the two rings' stages
+    (A natural, B transposed), the raw buffers (dK/dV's with the rows' m, l,
+    Δ), dK/dV's stats stages, 64 bytes of mbarriers and 1024 of alignment."""
+    s = CC_SOURCE
+    dp = 32 if d <= 32 else 64
+    stages, bufs = _const(s, "kSplitStages"), _const(s, "kRawBuffers")
+    bq, bk = _const(s, "kSplitQueryTile"), _const(s, "kSplitKeyTile")
+    tile, stats = bq * dp * 4, 3 * bq * 4
+    kv = (4 * _const(s, "kSplitKeys") * dp * 4 + stages * 8 * tile + bufs * (2 * tile + stats)
+          + stages * stats + 64 + 1024)
+    tile = bk * dp * 4
+    dq = 4 * _const(s, "kSplitRows") * dp * 4 + stages * 6 * tile + bufs * 2 * tile + 64 + 1024
+    return kv, dq
+
+
 def _cc_smem(d: int) -> tuple:
     s = CC_SOURCE
+    if d <= _const(s, "kSplitMaxD"):
+        return _split_smem(d)
     own, pad = _const(s, "kOwn"), _const(s, "kPad")
     bo = _const(s, "kOther256") if d > 128 else _const(s, "kOther")
     dkdv = 2 * own * (d + 1) + 2 * bo * (d + 1) + 2 * own * (bo + pad) + 3 * bo
@@ -386,7 +415,8 @@ def test_shared_memory_within_budget(d):
     """Every instantiation's shared memory, computed from the design
     constants, fits the 232,448 bytes a block can have (both sources state
     that budget); at D = 256 the tensor-core kernels take two ring stages
-    and 32-key dQ tiles, the CUDA-core ones 32-row walked tiles."""
+    and 32-key dQ tiles, the CUDA-core ones 32-row walked tiles; up to the
+    float32 kernels' kSplitMaxD the split-TF32 kernels' rings and raw buffers."""
     for source in (TC_SOURCE, CC_SOURCE):
         assert _const(source, "kSmemBudget") == 232448
     sizes = _tc_smem(d) + _cc_smem(d)
@@ -414,8 +444,9 @@ def test_design_constants_match_the_wrapper():
             assert rows % 8 == 0 and rows <= 256
     assert _const(CC_SOURCE, "kThreads") == 16 * (_const(CC_SOURCE, "kOwn")
                                                   // _const(CC_SOURCE, "kTR"))
-    for source in (TC_SOURCE, CC_SOURCE):
-        assert "atomicAdd" not in source and "red.global" not in source
+    for source in (TC_SOURCE, CC_SOURCE, (CSRC / "tensor_core.cuh").read_text()):
+        # (the instruction red.global, not cp.async's ".shared.global")
+        assert "atomicAdd" not in source and not re.search(r"(?<![a-z])red\.global", source)
         assert "atom." not in source
 
 
@@ -516,3 +547,27 @@ def test_function_backward_on_cpu_is_the_plain_backward(dtype):
     for t, w in zip(ins, want):
         assert torch.equal(t.grad, w)
     assert (flash_attention.bwd_launches, flash_attention.bwd_kernel_launches) == before
+
+
+@pytest.mark.parametrize("d", [1, 5, 24, 32, 33, 40, 64])
+def test_float32_split_instantiations_within_budget(d):
+    """The float32 backward's split-TF32 instantiations (DP = 32 and 64, every
+    head_dim up to kSplitMaxD zero-padded into one of them) fit the 232,448
+    bytes a block can have, from the constants of their source; tiles are
+    whole 32-float boxes and 8-row swizzle atoms, and the register split of
+    the producer and the consumer warpgroups fits what the launch allocates."""
+    s = CC_SOURCE
+    assert d <= _const(s, "kSplitMaxD")
+    kv, dq = _split_smem(d)
+    assert 0 < kv <= _const(s, "kSmemBudget") and 0 < dq <= _const(s, "kSmemBudget")
+    for name in ("kSplitKeys", "kSplitRows"):
+        assert _const(s, name) == 64                       # wgmma's M
+    for name in ("kSplitQueryTile", "kSplitKeyTile"):
+        assert _const(s, name) % 32 == 0                   # a transposed tile's boxes
+    consumers, producers = _const(s, "kSplitConsumers"), _const(s, "kSplitProducers")
+    threads = 128 * (consumers + producers)
+    per_thread = 65536 // threads // 8 * 8
+    assert (128 * producers * _const(s, "kProducerRegs")
+            + 128 * consumers * _const(s, "kConsumerRegs") <= threads * per_thread)
+    # the producers' threads share every split tile whole float4s at a time
+    assert (_const(s, "kSplitQueryTile") * 32 // 4) % (128 * producers) == 0
