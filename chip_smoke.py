@@ -41,13 +41,20 @@ printing its seconds:
    lengths, head_dim 16, the serving shape, head_dim 256 and 128 with GQA
    8/4, a window and softcap 50, a ragged S and a non-causal call, and k, v
    as strided halves of one fused projection; internvl2's GQA 14/2 (G = 7)
-   and a non-causal D = 128 call at ragged lengths; the models' padded
-   prefill, heads of 80 with zero columns to 128, against the plain version
-   on the unpadded tensors, causal and not); the tensor-core kernel's
-   SASS must hold HGMMA and UTMALDG, also in each head_dim-256
-   instantiation, whose ptxas report must show no spill bytes; its ptxas
-   report and shared memory per head_dim (within the card's opt-in limit)
-   are printed; the float32 kernel's ptxas report (no spill bytes, no
+   and a non-causal D = 128 call at ragged lengths; the models' prefill
+   call at heads of 80, bf16 on the (80, 80) tile and float32 with zero
+   columns to 128, against the plain version on the unpadded tensors,
+   causal and not); the native-width tiles of the tensor-core kernel,
+   (80, 80) and (192, 128) (q, k of D beside v of Dv), on causal,
+   non-causal (also Sk != Sq), windowed, softcapped (nonlinear range) and
+   G > 1 cases at ragged lengths and on k, v as strided views of one
+   projection, each case's two launches bit-equal, with the row-stats
+   store against the plain m and l; the tensor-core kernel's
+   SASS must hold HGMMA and UTMALDG, also in each head_dim-256 and
+   native-width instantiation, whose ptxas reports must show no spill
+   bytes (and no serialized wgmma in the native-width ones); its ptxas
+   report and shared memory per (D, Dv) pair (within the card's opt-in
+   limit) are printed; the float32 kernel's ptxas report (no spill bytes, no
    serialized wgmma), its SASS (TF32 HGMMA, LDGSTS, MUFU.EX2) and shared
    memory per head_dim; at the serving shape (B = 4, S = 2048, 32 query / 8 KV
    heads, D = 64, causal) each kernel's time in its dtype (bf16, float32)
@@ -184,15 +191,16 @@ printing its seconds:
    deepseek-v2-236b`` on ``cuda`` (REDUCED: neither fits one card at full
    depth); the tensor-core kernel at both models' prefill layers (qwen3: B = 2,
    S = 4096, 64/4 heads of 128; deepseek's MLA: 128 heads, q, k of 192 and v of
-   128 padded to 256) beside its plain version, ``scaled_dot_product_attention``
-   (for deepseek on the unpadded tensors) and the bound; ``ServeEngine`` on
+   128 on the (192, 128) tile, beside the same call padded to 256, the earlier
+   route, in turns) beside its plain version, ``scaled_dot_product_attention``
+   and the bound; ``ServeEngine`` on
    full-width qwen3-moe-235b-a22b cut to 8 layers and deepseek-v2-236b cut to 6
    (its dense layer and 5 MoE layers), bf16 weights drawn from a seed, at B = 2, a
    4096-token prompt (two dispatch groups), 32 new tokens, capacity 4128: the
-   times of phase 6, one tensor-core flash launch a layer (D = 128 / 256), peak
-   device memory, each MoE layer's ``moe_dropped`` in the prefill, every flash
-   call of one prefill against the plain version on the model's q, k, v (and
-   deepseek's padded call against the unpadded plain attention); one qwen3 MoE
+   times of phase 6, one tensor-core flash launch a layer (on the (128, 128) /
+   (192, 128) tile, counted by tile), peak device memory, each MoE layer's
+   ``moe_dropped`` in the prefill, every flash call of one prefill against the
+   plain version on the model's q, k, v; one qwen3 MoE
    layer on one 4096-token group against the reference's one-hot einsum
    formulation (``xe`` bit-equal, y within 2e-2, both timed); the first layers in
    float32 on ``cuda`` and on the CPU (qwen3: 1 layer, a 512-token prompt;
@@ -200,22 +208,23 @@ printing its seconds:
 17. hybrid and frontends serving — ``launch.serve --arch zamba2-2.7b`` and
    ``--arch internvl2-1b`` on ``cuda`` (REDUCED), ``--arch hubert-xlarge``
    refused (encoder-only); the tensor-core kernel at the three new prefill
-   layers (B = 4, S = 2048: zamba2's shared block, 32/32 heads of 80 padded
-   to 128, causal; hubert's encoder, 16/16 of 80 padded, non-causal;
+   layers (B = 4, S = 2048: zamba2's shared block, 32/32 heads of 80 on the
+   (80, 80) tile, causal; hubert's encoder, 16/16 of 80, non-causal; each
+   beside the same call padded to 128, the earlier route, in turns;
    internvl2's 14/2 of 64) beside its plain version,
-   ``scaled_dot_product_attention`` on the unpadded tensors and the bound of
-   the useful work; ``ServeEngine`` on full-width zamba2-2.7b (all 54
+   ``scaled_dot_product_attention`` and the bound of the useful work;
+   ``ServeEngine`` on full-width zamba2-2.7b (all 54
    layers: 54 Mamba-2 layers and the shared block once in each of 9
    periods, 2,422,907,840 float32 parameters from a seed) at B = 4, a
    2048-token prompt and 32 new tokens: the times of phase 6, 9 tensor-core
-   flash launches a ``generate`` at D = 128, peak device memory, the SSD's
+   flash launches a ``generate`` on the (80, 80) tile, peak device memory, the SSD's
    share of prefill device time (``torch.profiler``), every flash call of
    one prefill against the plain version; full-width internvl2-1b (24
    layers): a timed prefill with 256 patch positions, its flash calls
    against the plain version, and a ``generate`` on tokens with 24 launches
    at D = 64; full-width hubert-xlarge (48 layers): one bf16
    ``transformer.forward`` on ``features`` at B = 4, S = 2048, timed, 48
-   non-causal launches at D = 128, every flash call against the plain
+   non-causal launches on the (80, 80) tile, every flash call against the plain
    version; float32 on ``cuda`` and on the CPU: zamba2's first period (6
    Mamba-2 layers and the shared block) at a 512-token prompt and 3 decode
    steps, internvl2's first 2 layers with patches, hubert's first 2 on
@@ -276,7 +285,8 @@ printing its seconds:
    ``restore_latest(..., shardings=...)`` of its params, all bit-equal;
 21. dry run — ``python -m repro_torch.launch.dryrun --arch llama3.2-1b
    --single-pod`` on the card's host (a ``fake`` process group of 256
-   ranks, fake ``cuda`` tensors), its lines printed; its ``train_4k``
+   ranks, fake ``cuda`` tensors; started after phase 2 in a process of its
+   own, it runs beside phases 3-20), its lines printed; its ``train_4k``
    cell again on fake ``cpu`` tensors, in this process: FLOPs, bytes,
    collective bytes and peak equal; the two
    ``gpu_serving/llama3.2-1b/*`` rows through ``compare_techniques`` on
@@ -292,7 +302,8 @@ printing its seconds:
 Phase 5 also times each flash kernel with its row-stats store (the
 training forward's) beside the store-less launch that serving makes.
 Peak rates come from ``repro_torch.analysis.roofline.HW_H100``.
-It ends with a ``{"kernels": [...]}`` line, the card's name and power
+It ends with a ``{"kernels": [...]}`` line (the tensor-core kernel's
+native-width tiles with entries of their own), the card's name and power
 limit, and ``{"ok": true, "device": {...}}`` as the last line.  Without a
 CUDA device, or outside a checkout of this repository, it exits non-zero
 and prints no result.  It imports neither jax nor the JAX package.
@@ -366,10 +377,31 @@ FLASH_CASES = [
     (2, 301, 2, 7, 64, True, None, None),
     (2, 450, 4, 1, 128, False, None, None),
 ]
-# The models' padded prefill (``attention._padded_flash``): heads of 80 with zero
-# columns to 128, against the plain version on the unpadded tensors:
-# (B, S, KV, G, D, causal)
+# The models' prefill call (``attention._padded_flash``) at heads of 80: in bf16 at their
+# own width on the (80, 80) tile, in float32 with zero columns to 128; against the plain
+# version on the unpadded tensors: (B, S, KV, G, D, causal)
 FLASH_PADDED_CASES = [(2, 333, 4, 1, 80, True), (1, 500, 4, 1, 80, False)]
+# B2's native-width tiles, bf16, q and k of D beside v of Dv: heads of 80 (zamba2's shared
+# block, hubert) and MLA's 192 / 128 (deepseek-v2).  (B, Sq, Sk, KV, G, D, Dv, causal,
+# window, softcap, q's scale): ragged lengths, non-causal with Sk != Sq, G > 1, a window,
+# the softcap in its nonlinear range
+FLASH_NATIVE_CASES = [
+    (2, 333, 333, 4, 1, 80, 80, True, None, None, 1.0),
+    (1, 500, 500, 4, 1, 80, 80, False, None, None, 1.0),
+    (2, 450, 200, 2, 2, 80, 80, False, None, None, 1.0),
+    (2, 301, 301, 2, 7, 80, 80, True, 128, None, 1.0),
+    (1, 640, 640, 4, 2, 80, 80, True, 128, 5.0, 4.0),
+    (2, 77, 77, 2, 2, 80, 80, True, 16, None, 1.0),
+    (1, 1000, 1000, 2, 4, 192, 128, True, None, None, 1.0),
+    (2, 333, 333, 4, 1, 192, 128, False, None, None, 1.0),
+    (1, 300, 700, 4, 1, 192, 128, False, None, None, 1.0),
+    (1, 700, 700, 4, 2, 192, 128, True, 200, None, 1.0),
+    (1, 640, 640, 4, 2, 192, 128, True, 128, 5.0, 4.0),
+]
+# k and v as strided views of one buffer: the halves of a [B, S, 2, KV, 80] projection,
+# and the column slices of a [B, S, KV, 192 + 128] one: (B, S, KV, G, D, Dv, window)
+FLASH_NATIVE_STRIDED = [(2, 520, 4, 2, 80, 80, 64), (1, 600, 4, 2, 192, 128, 100)]
+FLASH_NATIVE_PAIRS = ((80, 80), (192, 128))
 # The softcap in its nonlinear range: q scaled so that the scores reach past the cap,
 # where the capped and the uncapped function differ by far more than the bf16
 # tolerance (phase 5 checks that they do): (B, S, KV, G, D, window, softcap, q's scale)
@@ -477,7 +509,8 @@ MOE_CAPACITY = MOE_PROMPT + MOE_NEW
 # Float32 card vs CPU: (layers, prompt): qwen3's first layer on one 512-token group
 # (capacity 40); deepseek's dense layer and its first MoE layer.
 MOE_F32 = {"qwen3-moe-235b-a22b": (1, 512), "deepseek-v2-236b": (2, 128)}
-# B2 at the two models' prefill layers, bf16: (B, S, KV, G, D of q and k, D of v, causal)
+# B2 at the two models' prefill layers, bf16: (B, S, KV, G, D of q and k, D of v, causal);
+# deepseek's MLA layer on the (192, 128) tile, beside the same call padded to 256
 MOE_FLASH_SHAPES = {"qwen3_moe": (2, 4096, 4, 16, 128, 128, True),
                     "deepseek_v2_mla": (2, 4096, 128, 1, 192, 128, True)}
 # Phase 17: the hybrid and frontend families at full width and depth, bf16, B = 4 and a
@@ -485,7 +518,7 @@ MOE_FLASH_SHAPES = {"qwen3_moe": (2, 4096, 4, 16, 128, 128, True),
 HYBRID_BATCH, HYBRID_PROMPT, HYBRID_NEW = 4, 2048, 32
 HYBRID_PATCHES = 256              # internvl2's frontend_len: patch positions of a prompt
 # B2 at the three new prefill layers, bf16: (B, S, KV, G, D of q and k, D of v, causal);
-# heads of 80 are padded to 128 as the models pad them
+# heads of 80 on the (80, 80) tile, beside the same call padded to 128
 HYBRID_FLASH_SHAPES = {"zamba2_shared": (4, 2048, 32, 1, 80, 80, True),
                        "internvl2": (4, 2048, 2, 7, 64, 64, True),
                        "hubert": (4, 2048, 16, 1, 80, 80, False)}
@@ -506,8 +539,11 @@ BENCH_CHUNK = 512           # benchmarks/run.py's chunk at 1024 steps
 # (the checks are unchanged): phase 11's stream (once 16384 steps, then 8192), phase 4's
 # warm runs (once 5, then 3), the profile windows (once 64 steps, then 32), phase 10's and 13's
 # CLI runs (once at their 4096- and 2048-step defaults, phase 13's then at 512), phase
-# 9's CPU twin (once all 56 rows) and zamba2's second median prefill in phase 17.
-LONG_STEPS, LONG_CHUNK, LONG_SCENARIO = (2048, 4096), 2048, "node_failure"
+# 9's CPU twin (once all 56 rows), zamba2's second median prefill in phase 17, and phase
+# 11's two runs (once 2048 and 4096 steps in 2048-step chunks; one chunk against two
+# still).  Phase 21's dry-run CLI, a process of its own that launches nothing on the
+# card, runs beside phases 3–20.
+LONG_STEPS, LONG_CHUNK, LONG_SCENARIO = (1024, 2048), 1024, "node_failure"
 WARM_RUNS = 1               # warm and staged 2048-step Table II calls timed in phase 4
 PEAK_SLACK_BYTES = 1 << 20
 PROFILE_STEPS = 16
@@ -1096,67 +1132,88 @@ def _sass_check(sass: str, what: str, ops=("HGMMA", "UTMALDG")) -> str:
 
 def _flash_build_report(lib) -> None:
     """The tensor-core kernel's build: HGMMA and UTMALDG in its SASS, and in
-    that of each head_dim-256 instantiation; the ptxas report, with no spill
-    bytes in the head_dim-256 instantiations; shared memory per head_dim
-    within the card's opt-in limit."""
+    that of each head_dim-256 and native-width ((80, 80), (192, 128))
+    instantiation; the ptxas report, with no spill bytes in those
+    instantiations and no wgmma that ptxas serializes in the native-width
+    ones (C7515 / C7520); shared memory per (D, Dv) pair within the card's
+    opt-in limit."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import ops
 
     sass = _sass(lib)
     print(f"[flash] {ops.TENSOR_CORE} SASS: {_sass_check(sass, lib.name)}")
-    tile256 = [part for part in sass.split("Function : ")[1:]
-               if "ILi256E" in part.split("\n", 1)[0]]
-    check(len(tile256) == 2, f"{len(tile256)} Tile<256> instantiations in the SASS, want 2")
-    for part in tile256:
-        name = f"Tile<256> {'with' if 'Lb1E' in part[:200] else 'without'} softcap"
-        _sass_check(part, name)
-        counts = {op: len(re.findall(rf"\b{re.escape(op)}\b", part))
-                  for op in ("HGMMA", "UTMALDG", "MUFU.EX2", "MUFU.TANH")}
-        print(f"[flash] {name} SASS: " + ", ".join(f"{op} x{n}" for op, n in counts.items()))
+    parts = sass.split("Function : ")[1:]
+    watched = {"ILi256ELi256E": "Tile<256, 256>", "ILi80ELi80E": "Tile<80, 80>",
+               "ILi192ELi128E": "Tile<192, 128>"}
+    for key, tile in watched.items():
+        found = [part for part in parts if key in part.split("\n", 1)[0]]
+        check(len(found) == 2, f"{len(found)} {tile} instantiations in the SASS, want 2")
+        for part in found:
+            name = f"{tile} {'with' if 'Lb1E' in part[:200] else 'without'} softcap"
+            _sass_check(part, name)
+            counts = {op: len(re.findall(rf"\b{re.escape(op)}\b", part))
+                      for op in ("HGMMA", "UTMALDG", "MUFU.EX2", "MUFU.TANH")}
+            print(f"[flash] {name} SASS: " + ", ".join(f"{op} x{n}" for op, n in counts.items()))
     entry = ""
-    for line in (lib.parent / "build.log").read_text().splitlines():
+    log = (lib.parent / "build.log").read_text()
+    for line in log.splitlines():
         if "Compiling entry function" in line:
-            m = re.search(r"kernelILi(\d+)ELb(\d)E", line)
-            entry = f"D={m[1]}{' softcap' if m[2] == '1' else ''}" if m else ""
+            m = re.search(r"kernelILi(\d+)ELi(\d+)ELb(\d)E", line)
+            entry = f"D={m[1]} Dv={m[2]}{' softcap' if m[3] == '1' else ''}" if m else ""
         elif "registers" in line or "spill" in line:
             print(f"[flash] {ops.TENSOR_CORE} {entry} ptxas: {line.strip()[:110]}")
             spills = [int(n) for n in re.findall(r"(\d+) bytes spill", line)]
-            check(not (entry.startswith("D=256") and any(spills)),
-                  f"the Tile<256> kernel spills: {line.strip()}")
+            watched_entry = entry.startswith(("D=256 ", "D=80 ", "D=192 "))
+            check(not (watched_entry and any(spills)), f"{entry} spills: {line.strip()}")
+    notes = [line.strip() for line in log.splitlines() if "serialized" in line]
+    for note in notes:
+        print(f"[flash] {ops.TENSOR_CORE} ptxas note: {note[:200]}")
+    check(not [n for n in notes if "ILi80ELi80E" in n or "ILi192ELi128E" in n],
+          "ptxas serializes the wgmma of a native-width tile")
     limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
-    for d in ops.TC_HEAD_DIMS:
-        smem = _build.load(ops.TENSOR_CORE).flash_attention_wgmma_smem_bytes(d)
-        check(0 < smem <= limit, f"D={d}: {smem} bytes of shared memory, limit {limit}")
-        print(f"[flash] {ops.TENSOR_CORE} D={d}: dynamic shared memory {smem} bytes "
-              f"(the card's opt-in limit {limit})")
+    for pair in ops.TC_HEAD_DIM_PAIRS:
+        smem = [_build.load(ops.TENSOR_CORE).flash_attention_wgmma_smem_bytes(*pair, cap)
+                for cap in (0, 1)]
+        check(all(0 < x <= limit for x in smem),
+              f"{pair}: {smem} bytes of shared memory, limit {limit}")
+        print(f"[flash] {ops.TENSOR_CORE} (D, Dv) = {pair}: dynamic shared memory {smem[0]} "
+              f"bytes, {smem[1]} with the softcap (the card's opt-in limit {limit})")
 
 
 def _flash_case_check(name, q, k, v, dtype, causal, window, cap,
                       padded=False) -> tuple[str, float]:
     """One call of the op against the plain version: it must launch the
-    kernel ``ops.route`` names, once, and agree within FLASH_TOL.  With
-    ``padded`` the call is the models' ``attention._padded_flash`` (q, k, v
-    with zero columns to the next tensor-core head_dim, the scale of the
-    unpadded one, the output cut back), held to the plain version on the
-    unpadded tensors."""
+    kernel ``ops.route`` names, once (a tensor-core launch on the tile of
+    the widths the op got), and agree within FLASH_TOL.  With ``padded``
+    the call is the models' ``attention._padded_flash`` (in bf16 inference
+    q, k, v at their own widths; otherwise zero columns to the next
+    tensor-core head_dim at the scale of the unpadded one, the output cut
+    back), held to the plain version on the unpadded tensors."""
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.models import attention as attn_mod
 
-    d = q.shape[-1]
-    kernel = ops.route(dtype, attn_mod._flash_head_dim(d) if padded else d)
+    d, dv = q.shape[-1], v.shape[-1]
+    native = not padded or attn_mod._native_widths([q], [k], v)
+    widths = (d, dv) if native else (attn_mod._flash_head_dim(max(d, dv)),) * 2
+    kernel = ops.route(dtype, *widths)
     before = dict(flash_attention.kernel_launches)
+    tiles = dict(flash_attention.tile_launches)
     if padded:
         out = attn_mod._padded_flash([q], [k], v, causal=causal, window=window, softcap=cap,
                                      scale=d ** -0.5)
     else:
         out = flash_attention(q, k, v, causal=causal, window=window, softcap=cap)
-    ref = flash_attention_ref(q, k, v, causal=causal, window=window, softcap=cap)
+    ref = flash_attention_ref(q, k, v, causal=causal, window=window, softcap=cap,
+                              scale=d ** -0.5)
     torch.cuda.synchronize()
     served = {n: flash_attention.kernel_launches[n] - before[n] for n in before}
     check(served == {n: int(n == kernel) for n in served},
           f"{name} {dtype}: launched {served}, want one {kernel}")
-    check(out.dtype == dtype and out.shape == q.shape, f"{name}: bad output")
+    on_tile = {p: flash_attention.tile_launches[p] - tiles[p] for p in tiles}
+    want_tiles = {p: int(kernel == ops.TENSOR_CORE and p == widths) for p in tiles}
+    check(on_tile == want_tiles, f"{name} {dtype}: tile launches {on_tile}, want {widths}")
+    check(out.dtype == dtype and out.shape == q.shape[:3] + (dv,), f"{name}: bad output")
     err = (out.float() - ref.float()).abs().max().item()
     check(err <= FLASH_TOL[dtype], f"{kernel} {name} {dtype}: max|Δ| {err} "
           f"> {FLASH_TOL[dtype]}")
@@ -1164,10 +1221,72 @@ def _flash_case_check(name, q, k, v, dtype, causal, window, cap,
         check(torch.equal(out, flash_attention(q, k, v, causal=causal, window=window,
                                                softcap=cap)),
               f"{kernel} {name}: two launches differ")
-    print(f"[flash] {name} {str(dtype)[6:]} on {kernel}"
-          f"{f' padded to D = {attn_mod._flash_head_dim(d)}' if padded else ''}: max|Δ| vs "
-          f"plain {err:.3g} (tol {FLASH_TOL[dtype]})")
+    how = f" padded to D = {widths[0]}" if padded and not native else (
+        f" at (D, Dv) = {widths}" if widths not in ((16, 16), (32, 32), (64, 64), (128, 128),
+                                                    (256, 256)) else "")
+    print(f"[flash] {name} {str(dtype)[6:]} on {kernel}{how}: max|Δ| vs plain {err:.3g} "
+          f"(tol {FLASH_TOL[dtype]})")
     return kernel, err
+
+
+def _flash_native_cases(gen, dev) -> dict:
+    """The native-width tiles against the plain version (``FLASH_NATIVE_CASES``
+    and k, v as strided views, ``FLASH_NATIVE_STRIDED``), each case's output
+    of two launches bit-equal; the row-stats store (the training forward's)
+    against the plain version's m and l; returns the worst max|Δ| by pair."""
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+    from repro_torch.kernels.flash_attention import ops
+
+    bf = torch.bfloat16
+    worst = dict.fromkeys(FLASH_NATIVE_PAIRS, 0.0)
+
+    def run(name, q, k, v, causal, window, cap):
+        kernel, err = _flash_case_check(name, q, k, v, bf, causal, window, cap)
+        again = flash_attention(q, k, v, causal=causal, window=window, softcap=cap)
+        check(torch.equal(again, flash_attention(q, k, v, causal=causal, window=window,
+                                                 softcap=cap)),
+              f"{name}: two launches of the native-width tile differ")
+        pair = (q.shape[-1], v.shape[-1])
+        worst[pair] = max(worst[pair], err)
+        return again
+
+    for b, sq, sk, kv, g, d, dv, causal, window, cap, q_scale in FLASH_NATIVE_CASES:
+        q = (torch.randn(b, sq, kv * g, d, generator=gen, device=dev) * q_scale).to(bf)
+        k = torch.randn(b, sk, kv, d, generator=gen, device=dev).to(bf)
+        v = torch.randn(b, sk, kv, dv, generator=gen, device=dev).to(bf)
+        out = run(f"native {(b, sq, sk, kv, g, d, dv)}", q, k, v, causal, window, cap)
+        if cap is not None:
+            effect = (out.float() - flash_attention_ref(q, k, v, causal=causal,
+                                                        window=window).float()).abs().max().item()
+            check(effect >= SOFTCAP_EFFECT_MIN, f"softcap {cap} moves the output by only {effect}")
+            print(f"[flash]   softcap {cap} moves the output by up to {effect:.3g}")
+    for b, s, kv, g, d, dv, window in FLASH_NATIVE_STRIDED:
+        q = torch.randn(b, s, kv * g, d, generator=gen, device=dev).to(bf)
+        if d == dv:
+            packed = torch.randn(b, s, 2, kv, d, generator=gen, device=dev).to(bf)
+            k, v, what = packed[:, :, 0], packed[:, :, 1], f"[{b}, {s}, 2, {kv}, {d}]"
+        else:
+            packed = torch.randn(b, s, kv, d + dv, generator=gen, device=dev).to(bf)
+            k, v, what = packed[..., :d], packed[..., d:], f"[{b}, {s}, {kv}, {d} + {dv}]"
+        run(f"strided k, v of {what}", q, k, v, True, window, None)
+        # the row-stats store: m within 1e-5·|m| plus the fp32 dot product's rounding bound,
+        # l within TRAIN_L_RTOL relative (phase 18's tolerances)
+        o, m, l = ops.flash_attention_fwd(q, k, v, window=window)
+        ro, rm, rl = flash_attention_ref(q, k, v, window=window, return_stats=True)
+        qn = q.float().norm(dim=-1).transpose(1, 2)
+        kn = k.float().norm(dim=-1).amax(1).repeat_interleave(g, 1)[..., None]
+        m_tol = TRAIN_M_RTOL * rm.abs() + 2 * d * 2.0 ** -24 * d ** -0.5 * qn * kn
+        m_err, l_err = ((m - rm).abs() / m_tol).max().item(), ((l - rl).abs() / rl).max().item()
+        o_err = (o.float() - ro.float()).abs().max().item()
+        check(m_err <= 1.0 and l_err <= TRAIN_L_RTOL and o_err <= FLASH_TOL[bf],
+              f"(D, Dv) = {(d, dv)} stats: m {m_err} of its tolerance, l {l_err}, out {o_err}")
+        print(f"[flash] (D, Dv) = {(d, dv)} with the row-stats store: out max|Δ| {o_err:.3g}, m "
+              f"at most {m_err:.3g} of its tolerance, l max relative {l_err:.3g} (tol "
+              f"{TRAIN_L_RTOL})")
+    for pair, err in worst.items():
+        print(f"[flash] {ops.TENSOR_CORE} (D, Dv) = {pair}: worst max|Δ| vs plain {err:.3g} over "
+              f"its cases (tol {FLASH_TOL[bf]}), every case's two launches bit-equal")
+    return worst
 
 
 def phase_flash_kernels(dev) -> list:
@@ -1206,9 +1325,11 @@ def phase_flash_kernels(dev) -> list:
     for b, s, kv, g, d, causal in FLASH_PADDED_CASES:
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = _flash_inputs((b, s, kv, g, d), dtype, gen, dev)
-            kernel, err = _flash_case_check(f"padded {(b, s, kv, g, d, causal)}", q, k, v,
-                                            dtype, causal, None, None, padded=True)
+            kernel, err = _flash_case_check(f"the models' call {(b, s, kv, g, d, causal)}", q,
+                                            k, v, dtype, causal, None, None, padded=True)
             max_err[kernel] = max(max_err[kernel], err)
+    native_err = _flash_native_cases(gen, dev)
+    max_err[ops.TENSOR_CORE] = max(max_err[ops.TENSOR_CORE], *native_err.values())
     for b, s, kv, g, d, window, cap, q_scale in FLASH_SOFTCAP_CASES:
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = _flash_inputs((b, s, kv, g, d), dtype, gen, dev)
@@ -1264,6 +1385,7 @@ def phase_flash_kernels(dev) -> list:
         records[-1]["stats_ms"] = stats_ms
         if dtype == torch.float32:
             records[-1]["fma_bound_ms"] = fma_ms
+    records[0]["native_err"] = {f"{d},{dv}": err for (d, dv), err in native_err.items()}
     records[0]["gemma_shapes"] = _gemma_flash_times(GEMMA_FLASH_SHAPES, torch.bfloat16,
                                                     gen, dev)
     records[1]["gemma_shapes"] = _gemma_flash_times(GEMMA_FLASH_F32_SHAPES, torch.float32,
@@ -1824,12 +1946,15 @@ def phase_generate(cfg, params, dev, op, tag: str, b: int = SERVE_BATCH,
     op.launches = 0
     by_kernel = getattr(op, "kernel_launches", {})
     by_kernel.update(dict.fromkeys(by_kernel, 0))
+    tiles = getattr(op, "tile_launches", {})
+    tiles.update(dict.fromkeys(tiles, 0))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     toks = engine.generate(prompts, n_new)
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
     launches, by_kernel = op.launches, dict(by_kernel)
+    phase_generate.tiles = _tiles(tiles)   # the tensor-core launches by tile, read here
     want = cfg.n_layers if per_generate is None else per_generate
     check(launches == want, f"one generate launched {name} {launches} times, want {want}")
     check(tuple(toks.shape) == (b, n_new) and int(toks.min()) >= 0
@@ -1842,7 +1967,8 @@ def phase_generate(cfg, params, dev, op, tag: str, b: int = SERVE_BATCH,
     print(f"{tag} ServeEngine.generate B={b} prompt={s} new={n_new} (bf16): "
           f"{gen_s:.4f} s, {b * n_new / gen_s:.1f} tokens/s; prefill {prefill_s * 1e3:.2f} ms "
           f"(median of 3), decode {decode_s * 1e3:.3f} ms per token; {name} "
-          f"launches per generate {launches}{f' {by_kernel}' if by_kernel else ''}; "
+          f"launches per generate {launches}{f' {by_kernel}' if by_kernel else ''}"
+          f"{f', by (D, Dv) tile {phase_generate.tiles}' if phase_generate.tiles else ''}; "
           f"sample {toks[0, :8].tolist()}")
 
     # where the device time of one prefill goes, and how busy a decode step keeps it
@@ -2575,9 +2701,10 @@ def phase_campaign(dev) -> dict:
 
 
 def phase_long_stream(dev) -> None:
-    """One scenario's campaign at LONG_STEPS (2048 and 4096) steps in
-    LONG_CHUNK-step chunks: the peak device memory must not grow with the
-    trace, and the longer run's cells match a CPU run."""
+    """One scenario's campaign at LONG_STEPS (1024 and 2048) steps in
+    LONG_CHUNK-step chunks (one chunk, then two): the peak device memory
+    must not grow with the trace, and the longer run's cells match a CPU
+    run."""
     from repro_torch.core import controller as ctl
     from repro_torch.core import scenarios as scn
     from repro_torch.core.accelerators import ACCELERATORS
@@ -3173,16 +3300,38 @@ def _plain_attention(q, k, v, heads: int = 16, q_chunk=None, kv_chunk=None,
     return out
 
 
+def _prefill_widths(cfg) -> tuple:
+    """(D, Dv) at which a bf16 prefill of ``cfg`` reaches the flash op: q, k
+    and v at their own widths where the tensor-core forward has the pair
+    (``attention._native_widths``), else padded as ``_padded_flash`` pads."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models import attention as attn_mod
+
+    a = cfg.attention
+    dqk, dv = ((a.qk_nope_dim + a.qk_rope_dim, a.v_head_dim) if a.kind == "mla"
+               else (a.head_dim, a.head_dim))
+    if (dqk, dv) in ops.TC_HEAD_DIM_PAIRS:
+        return dqk, dv
+    return (attn_mod._flash_head_dim(max(dqk, dv)),) * 2
+
+
+def _tiles(counts: dict) -> dict:
+    """Tensor-core launches by (D, Dv) tile, the tiles that launched, as
+    "D,Dv" keys."""
+    return {f"{d},{dv}": n for (d, dv), n in counts.items() if n}
+
+
 def _padded_flash_times(shapes: dict, seed: int, dev, tag: str) -> dict:
     """The tensor-core kernel at models' prefill layers, bf16: its time on
-    q, k, v padded as the model pads them (``attention._padded_flash``: zero
-    columns to the next tensor-core head_dim; MLA's q, k of 192 and v of 128
-    to 256, heads of 80 to 128, at their unpadded scale), and the model's
-    whole call with its copies, beside the plain version,
-    ``scaled_dot_product_attention`` and the bound, all three of the
+    q, k, v at their own widths (MLA's q, k of 192 and v of 128, heads of 80,
+    on their native tiles), beside the same function padded as the models
+    pad in float32 and under grad (``attention._padded_flash``: zero
+    columns to the next tensor-core head_dim, at the unpadded scale; the
+    earlier route), the model's whole call, the plain version,
+    ``scaled_dot_product_attention`` and the bound, the last three of the
     unpadded function (the bound on its useful work); the plain version
     runs a batch row and 16 heads at a time (``_plain_attention``), and the
-    kernel and SDPA are each held to it first."""
+    kernel, the padded kernel and SDPA are each held to it first."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import flash_attention
@@ -3196,14 +3345,20 @@ def _padded_flash_times(shapes: dict, seed: int, dev, tag: str) -> dict:
         v = torch.randn(b, s, kv, dv, generator=gen, device=dev).to(torch.bfloat16)
         scale = dqk ** -0.5
         hd = attn_mod._flash_head_dim(max(dqk, dv))
+        padded = hd != dqk or hd != dv
         pq, pk, pv = (F.pad(t, (0, hd - t.shape[-1])) for t in (q, k, v))
-        kernel = lambda: flash_attention(pq, pk, pv, causal=causal, scale=scale)  # noqa: E731
+        kernel = lambda: flash_attention(q, k, v, causal=causal, scale=scale)  # noqa: E731
+        pad_kernel = lambda: flash_attention(pq, pk, pv, causal=causal,  # noqa: E731
+                                             scale=scale)[..., :dv]
         model = lambda: attn_mod._padded_flash([q], [k], v, causal=causal,  # noqa: E731
                                                scale=scale)
-        got = model()
+        got = kernel()
         ref = _plain_attention(q, k, v, causal=causal, scale=scale)
         err = (got.float() - ref).abs().max().item()
         check(err <= FLASH_TOL[torch.bfloat16], f"{name}: max|Δ| vs plain {err}")
+        check(torch.equal(model(), got), f"{name}: the model's call is not the kernel's")
+        pad_err = (pad_kernel().float() - ref).abs().max().item() if padded else err
+        check(pad_err <= FLASH_TOL[torch.bfloat16], f"{name}: padded max|Δ| vs plain {pad_err}")
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
             qt, kt, vt, is_causal=causal, scale=scale, enable_gqa=g > 1)
@@ -3211,25 +3366,35 @@ def _padded_flash_times(shapes: dict, seed: int, dev, tag: str) -> dict:
         check(lib_err <= FLASH_TOL[torch.bfloat16], f"{name}: SDPA max|Δ| vs plain {lib_err}")
         del ref
         torch.cuda.empty_cache()
-        ms = device_time_ms(kernel, 10)
-        model_ms = device_time_ms(model, 10) if hd != max(dqk, dv) else ms
-        lib_ms = device_time_ms(sdpa, 10)
+        # in turns: kernel, padded, model, SDPA, then again in the reverse order
+        calls = {"kernel": kernel, "padded": pad_kernel, "model": model, "sdpa": sdpa}
+        if not padded:
+            del calls["padded"]
+        times = {n: [] for n in calls}
+        for order in (list(calls), list(calls)[::-1]):
+            for n in order:
+                times[n].append(device_time_ms(calls[n], 10))
+        ms, model_ms, lib_ms = (min(times[n]) for n in ("kernel", "model", "sdpa"))
+        pad_ms = min(times["padded"]) if padded else ms
         plain_ms = device_time_ms(lambda: _plain_attention(q, k, v, causal=causal,
                                                            scale=scale), 3)
         flops = _attention_flops(q, causal, dv)
         bound_ms, bound_by = _flash_bound(q, k, v, got, causal=causal)
-        pad = (f", padded to D = {hd} ({2 * hd / (dqk + dv):.2f}x the work; the model's call "
-               f"with its copies {model_ms:.4f} ms)" if hd != max(dqk, dv) else "")
+        pad = (f"; the same call padded to D = {hd} (the earlier route, {2 * hd / (dqk + dv):.2f}"
+               f"x the work) {pad_ms:.4f} ms, {pad_ms / ms:.2f}x the native kernel"
+               if padded else "")
         print(f"{tag} flash {name} q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)} bf16 "
-              f"{'causal' if causal else 'non-causal'}{pad}: kernel {ms:.4f} ms "
-              f"({flops / (ms * 1e-3) / 1e12:.2f} useful TFLOP/s, {ms / bound_ms:.2f}x its bound, "
-              f"{ms / lib_ms:.2f}x scaled_dot_product_attention), plain {plain_ms:.4f} ms, "
+              f"{'causal' if causal else 'non-causal'}, the faster of two turns: kernel at (D, "
+              f"Dv) = ({dqk}, {dv}) {ms:.4f} ms ({flops / (ms * 1e-3) / 1e12:.2f} useful TFLOP/s, "
+              f"{ms / bound_ms:.2f}x its bound, {ms / lib_ms:.2f}x scaled_dot_product_attention)"
+              f"{pad}; the model's call {model_ms:.4f} ms; plain {plain_ms:.4f} ms, "
               f"scaled_dot_product_attention {lib_ms:.4f} ms (max|Δ| vs plain {lib_err:.3g}), "
               f"bound {bound_ms:.4f} ms ({bound_by}, {flops / 1e9:.1f} GFLOP), max|Δ| vs plain "
-              f"{err:.3g}")
+              f"{err:.3g}{f' (padded {pad_err:.3g})' if padded else ''}")
         out[name] = {"shape": [b, s, kv, g, dqk, dv, causal], "padded_head_dim": hd, "ms": ms,
-                     "model_ms": model_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by, "library_ms": lib_ms, "max_abs_err": err}
+                     "padded_ms": pad_ms, "model_ms": model_ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+                     "max_abs_err": err}
         del q, k, v, pq, pk, pv, got, qt, kt, vt
         torch.cuda.empty_cache()
     return out
@@ -3424,9 +3589,9 @@ def phase_moe_serving(dev) -> tuple:
               f"{time.perf_counter() - t0:.2f} s")
         dims, real = [], attn_mod.flash_attention
 
-        def spy(q, *args, **kw):
-            dims.append(q.shape[-1])
-            return real(q, *args, **kw)
+        def spy(q, k, v, **kw):
+            dims.append((q.shape[-1], v.shape[-1]))
+            return real(q, k, v, **kw)
 
         attn_mod.flash_attention = spy
         try:
@@ -3438,16 +3603,17 @@ def phase_moe_serving(dev) -> tuple:
         del cache
         want = {ops.TENSOR_CORE: n_layers, ops.CUDA_CORE: 0}
         check(by_kernel == want, f"one bf16 generate launched {by_kernel}, want {want}")
-        head_dim = dims[0]
-        check(set(dims) == {attn_mod._flash_head_dim(
-            a.qk_nope_dim + a.qk_rope_dim) if a.kind == "mla" else a.head_dim},
-            f"flash head_dims {sorted(set(dims))}")
-        print(f"[moe] {arch} flash launches per generate: {by_kernel} at D = {head_dim}; peak "
-              f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (bf16 "
-              f"weights, activations, the decode cache)")
+        widths = _prefill_widths(cfg)
+        tiles = phase_generate.tiles
+        check(set(dims) == {widths} and tiles == {f"{widths[0]},{widths[1]}": n_layers},
+              f"flash (D, Dv) {sorted(set(dims))}, tiles {tiles}; want {widths} x{n_layers}")
+        print(f"[moe] {arch} flash launches per generate: {by_kernel} at (D, Dv) = {widths} "
+              f"(tiles {tiles}); peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (bf16 weights, activations, "
+              f"the decode cache)")
         dropped = _moe_prefill_check(cfg, params, dev)
-        out[arch] = {"tensor_core": by_kernel[ops.TENSOR_CORE], "head_dim": head_dim,
-                     "layers": n_layers, "prefill_moe_dropped": dropped}
+        out[arch] = {"tensor_core": by_kernel[ops.TENSOR_CORE], "head_dim": list(widths),
+                     "tiles": tiles, "layers": n_layers, "prefill_moe_dropped": dropped}
         if arch == "qwen3-moe-235b-a22b":
             out[arch]["one_layer"] = _moe_layer_check(cfg, params, dev)
 
@@ -3468,9 +3634,9 @@ def phase_moe_serving(dev) -> tuple:
 def _model_flash_check(cfg, run, n_calls: int, tag: str) -> None:
     """Every flash call of one bf16 prefill or forward (``run()``) against
     the plain version on the q, k, v the model gave it, and, where the model
-    padded them (MLA's 192 / 128, heads of 80), cut back against the plain
-    version on the unpadded tensors; ``n_calls`` calls, each at the padded
-    head_dim and with the config's causality."""
+    padded them, cut back against the plain version on the unpadded
+    tensors; ``n_calls`` calls, each at ``_prefill_widths`` (MLA's 192 / 128
+    and heads of 80 at their own widths) and with the config's causality."""
     from repro_torch.models import attention as attn_mod
 
     a = cfg.attention
@@ -3480,7 +3646,7 @@ def _model_flash_check(cfg, run, n_calls: int, tag: str) -> None:
 
     def held(q, k, v, **kw):
         out = real(q, k, v, **kw)
-        calls.append((q.shape[-1], kw["causal"]))
+        calls.append((q.shape[-1], v.shape[-1], kw["causal"]))
         errs.append((out.float() - _plain_attention(q, k, v, **kw)).abs().max().item())
         if q.shape[-1] != dqk or v.shape[-1] != dv:
             ref = _plain_attention(q[..., :dqk], k[..., :dqk], v[..., :dv], **kw)
@@ -3494,7 +3660,7 @@ def _model_flash_check(cfg, run, n_calls: int, tag: str) -> None:
     finally:
         attn_mod.flash_attention = real
     tol = FLASH_TOL[torch.bfloat16]
-    want = (attn_mod._flash_head_dim(max(dqk, dv)), cfg.causal)
+    want = (*_prefill_widths(cfg), cfg.causal)
     check(len(calls) == n_calls and set(calls) == {want},
           f"{cfg.name}: flash calls {sorted(set(calls))} x{len(calls)}, want {n_calls} of {want}")
     check(max(errs) <= tol, f"{cfg.name}: the kernel at the model's inputs, max|Δ| vs plain "
@@ -3505,7 +3671,7 @@ def _model_flash_check(cfg, run, n_calls: int, tag: str) -> None:
               f"attention, max|Δ| by call {unpadded}")
         note = (f"; cut to {dv} columns vs the plain version on the unpadded q, k ({dqk}) and "
                 f"v ({dv}): {max(unpadded):.3g}")
-    print(f"{tag} {cfg.name} bf16, every flash call ({n_calls}, D = {want[0]}, "
+    print(f"{tag} {cfg.name} bf16, every flash call ({n_calls}, (D, Dv) = {want[:2]}, "
           f"{'causal' if cfg.causal else 'non-causal'}) vs the plain version on the model's q, "
           f"k, v: max|Δ| {max(errs):.3g} (tol {tol}, calls {min(errs):.3g}-{max(errs):.3g}){note}")
 
@@ -3618,9 +3784,9 @@ def _zamba2_cell(dev) -> dict:
     n_shared = cfg.n_layers // cfg.shared_attn_every
     dims, real = [], attn_mod.flash_attention
 
-    def spy(q, *args, **kw):
-        dims.append(q.shape[-1])
-        return real(q, *args, **kw)
+    def spy(q, k, v, **kw):
+        dims.append((q.shape[-1], v.shape[-1]))
+        return real(q, k, v, **kw)
 
     attn_mod.flash_attention = spy
     try:
@@ -3631,14 +3797,16 @@ def _zamba2_cell(dev) -> dict:
         attn_mod.flash_attention = real
     want = {ops.TENSOR_CORE: n_shared, ops.CUDA_CORE: 0}
     check(by_kernel == want, f"one bf16 generate launched {by_kernel}, want {want}")
-    hd = attn_mod._flash_head_dim(cfg.attention.head_dim)
-    check(set(dims) == {hd}, f"flash head_dims {sorted(set(dims))}, want {hd}")
+    hd = _prefill_widths(cfg)
+    tiles = phase_generate.tiles
+    check(set(dims) == {hd} and tiles == {f"{hd[0]},{hd[1]}": n_shared},
+          f"flash (D, Dv) {sorted(set(dims))}, tiles {tiles}; want {hd} x{n_shared}")
     layout = dict(common.tree_leaves(transformer.cache_layout(
         cfg, HYBRID_BATCH, HYBRID_PROMPT + HYBRID_NEW)))
     leaves = dict(common.tree_leaves(cache))
     check({p: tuple(t.shape) for p, t in leaves.items()} == {p: d.shape for p, d in layout.items()},
           "the decode cache is not the layout's")
-    print(f"[hybrid] zamba2 flash launches per generate: {by_kernel} at D = {hd} (heads of "
+    print(f"[hybrid] zamba2 flash launches per generate: {by_kernel} at (D, Dv) = {hd} (heads of "
           f"{cfg.attention.head_dim}); decode cache: shared k {tuple(cache['shared']['k'].shape)}, Mamba-2 state "
           f"{tuple(cache['slots'][0]['h'].shape)} {cache['slots'][0]['h'].dtype}, "
           f"{sum(t.numel() * t.element_size() for t in leaves.values())} bytes; peak device "
@@ -3682,7 +3850,8 @@ def _zamba2_cell(dev) -> dict:
               f"{f32}, want the shared block's 1 on the CUDA-core kernel")
         print(f"[hybrid] zamba2 float32 check {label}: the first period ({layers} Mamba-2 "
               f"layers and the shared block), prompt {prompt}; flash launches {f32}")
-    return {"tensor_core": by_kernel[ops.TENSOR_CORE], "head_dim": hd, "layers": cfg.n_layers}
+    return {"tensor_core": by_kernel[ops.TENSOR_CORE], "head_dim": list(hd), "tiles": tiles,
+            "layers": cfg.n_layers}
 
 
 def _internvl2_cell(dev) -> dict:
@@ -3733,7 +3902,7 @@ def _internvl2_cell(dev) -> dict:
     del cache
     want = {ops.TENSOR_CORE: cfg.n_layers, ops.CUDA_CORE: 0}
     check(by_kernel == want, f"one bf16 generate launched {by_kernel}, want {want}")
-    hd, a = attn_mod._flash_head_dim(cfg.attention.head_dim), cfg.attention
+    hd, a = _prefill_widths(cfg)[0], cfg.attention
     check(set(dims) == {hd}, f"flash head_dims {sorted(set(dims))}, want {hd}")
     print(f"[hybrid] internvl2 flash launches per generate: {by_kernel} at D = {hd}, G = "
           f"{a.n_heads // a.n_kv_heads}; peak "
@@ -3774,20 +3943,24 @@ def _hubert_cell(dev) -> dict:
         run()                                             # warm
         flash_attention.launches = 0
         flash_attention.kernel_launches.update(dict.fromkeys(flash_attention.kernel_launches, 0))
+        flash_attention.tile_launches.update(dict.fromkeys(flash_attention.tile_launches, 0))
         logits = run()
         torch.cuda.synchronize()
         by_kernel, total = dict(flash_attention.kernel_launches), flash_attention.launches
+        tiles = _tiles(flash_attention.tile_launches)
         fwd_s = _median_s(run, 3)
     want = {ops.TENSOR_CORE: cfg.n_layers, ops.CUDA_CORE: 0}
-    check(by_kernel == want and total == cfg.n_layers,
-          f"one hubert forward launched {by_kernel}, want {want}")
+    hd = _prefill_widths(cfg)
+    check(by_kernel == want and total == cfg.n_layers
+          and tiles == {f"{hd[0]},{hd[1]}": cfg.n_layers},
+          f"one hubert forward launched {by_kernel}, tiles {tiles}, want {want} at {hd}")
     check(tuple(logits.shape) == (HYBRID_BATCH, HYBRID_PROMPT, cfg.padded_vocab)
           and bool(torch.isfinite(logits[..., :cfg.vocab_size]).all()), "bad hubert logits")
     frames = HYBRID_BATCH * HYBRID_PROMPT
     print(f"[hybrid] hubert transformer.forward on features B={HYBRID_BATCH} S={HYBRID_PROMPT} "
           f"(bf16, {cfg.n_layers} layers): {fwd_s * 1e3:.2f} ms (median of 3), "
-          f"{frames / fwd_s:.0f} frames/s; flash launches {by_kernel}, non-causal at D = "
-          f"{attn_mod._flash_head_dim(cfg.attention.head_dim)}; "
+          f"{frames / fwd_s:.0f} frames/s; flash launches {by_kernel}, non-causal at (D, Dv) = "
+          f"{hd} (tiles {tiles}); "
           f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     with torch.inference_mode():
         pre = _device_kernels(run)
@@ -3811,7 +3984,7 @@ def _hubert_cell(dev) -> dict:
     check(f32 == {ops.CUDA_CORE: layers, ops.TENSOR_CORE: 0},
           f"the float32 check launched {f32}, want {layers} on the CUDA-core kernel")
     return {"tensor_core": by_kernel[ops.TENSOR_CORE],
-            "head_dim": attn_mod._flash_head_dim(cfg.attention.head_dim), "layers": cfg.n_layers,
+            "head_dim": list(hd), "tiles": tiles, "layers": cfg.n_layers,
             "causal": False}
 
 
@@ -4690,21 +4863,33 @@ def phase_multi_device(dev, campaign: dict, train: dict) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _dryrun_cli() -> list:
-    """``python -m repro_torch.launch.dryrun --arch DRYRUN_ARCH --single-pod``
-    in a process of its own; its records."""
+def _dryrun_cli_start() -> tuple:
+    """Start ``python -m repro_torch.launch.dryrun --arch DRYRUN_ARCH
+    --single-pod`` in a process of its own (it reckons on fake tensors and
+    launches nothing on the card, so it can run beside other phases), its
+    output to files beside its records; returns (process, records path,
+    stdout and stderr paths, start time)."""
     out = os.path.join(ROOT, "chiprun_out", "dryrun_smoke.jsonl")
     os.makedirs(os.path.dirname(out), exist_ok=True)
     if os.path.exists(out):
         os.remove(out)
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    t0 = time.perf_counter()
-    run = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-                          DRYRUN_ARCH, "--single-pod", "--out", out], cwd=ROOT, env=env,
-                         capture_output=True, text=True, timeout=600)
-    check(run.returncode == 0, f"launch.dryrun exited {run.returncode}:\n{run.stdout[-2000:]}"
-          f"\n{run.stderr[-2000:]}")
-    for line in run.stdout.splitlines():
+    logs = (out.replace(".jsonl", ".out"), out.replace(".jsonl", ".err"))
+    with open(logs[0], "w") as so, open(logs[1], "w") as se:
+        proc = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                                 DRYRUN_ARCH, "--single-pod", "--out", out], cwd=ROOT, env=env,
+                                stdout=so, stderr=se, text=True)
+    return proc, out, logs, time.perf_counter()
+
+
+def _dryrun_cli(started=None) -> list:
+    """The records of the dry run's CLI started by ``_dryrun_cli_start``
+    (started here when ``started`` is None), once it has ended."""
+    proc, out, logs, t0 = started or _dryrun_cli_start()
+    rc = proc.wait(timeout=600)
+    stdout, stderr = (open(path).read() for path in logs)
+    check(rc == 0, f"launch.dryrun exited {rc}:\n{stdout[-2000:]}\n{stderr[-2000:]}")
+    for line in stdout.splitlines():
         if line.strip():
             print(f"[dryrun] {line}")
     with open(out) as fh:
@@ -4714,8 +4899,9 @@ def _dryrun_cli() -> list:
         r = by_shape[shape]
         check(r["status"] == "ok" and r["device"] == "cuda" and r["chips"] == 256,
               f"dry run {DRYRUN_ARCH} {shape}: {r.get('status')} {r.get('error', '')}")
-    print(f"[dryrun] the CLI on fake cuda tensors in a 256-rank fake group: "
-          f"{time.perf_counter() - t0:.2f} s")
+    print(f"[dryrun] the CLI on fake cuda tensors in a 256-rank fake group, read "
+          f"{time.perf_counter() - t0:.2f} s after its start"
+          f"{' (it ran beside phases 3-20)' if started else ''}")
     return records
 
 
@@ -4817,8 +5003,9 @@ def _counted_step(dev, cfg, tag: str) -> dict:
             "t_step_ms": roof.t_step * 1e3, "step_ms": plain_s * 1e3}
 
 
-def phase_dryrun(dev) -> dict:
-    """The dry run's CLI on the card's host, its reckoning independent of
+def phase_dryrun(dev, started=None) -> dict:
+    """The dry run's CLI on the card's host (``started`` by
+    ``_dryrun_cli_start``, or started here), its reckoning independent of
     the fake tensors' device, the serving rows on the card and the CPU, and
     two training steps on the card counted against their reckoning."""
     import dataclasses as dc
@@ -4826,7 +5013,7 @@ def phase_dryrun(dev) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.launch import dryrun
 
-    records = _dryrun_cli()
+    records = _dryrun_cli(started)
     by_shape = {r["shape"]: r for r in records}
     t0 = time.perf_counter()
     cpu = dryrun.run_cell(DRYRUN_ARCH, "train_4k", False, device="cpu")
@@ -4854,6 +5041,32 @@ def phase_dryrun(dev) -> dict:
     return {"llama": llama, "mamba": mamba}
 
 
+def _native_tile_records(tc: dict) -> list:
+    """The ``{"kernels": [...]}`` entries of the tensor-core kernel's native-
+    width tiles: (192, 128) at deepseek-v2's MLA layer (phase 16), (80, 80)
+    at zamba2's shared block (phase 17); launches are the tile's in the
+    main paths that run it (deepseek's ``generate``; zamba2's ``generate``
+    and hubert's forward), each counted from 0 around that run."""
+    from repro_torch.kernels.flash_attention import ops
+
+    moe, hybrid = tc["launches_moe"], tc["launches_hybrid"]
+    out = []
+    for pair, shape, launches in (
+            ("192,128", tc["moe_shapes"]["deepseek_v2_mla"],
+             moe["deepseek-v2-236b"]["tiles"].get("192,128", 0)),
+            ("80,80", tc["hybrid_shapes"]["zamba2_shared"],
+             hybrid["zamba2-2.7b"]["tiles"].get("80,80", 0)
+             + hybrid["hubert-xlarge"]["tiles"].get("80,80", 0))):
+        check(launches > 0, f"the ({pair}) tile launched no time on its main path")
+        rec = _record(f"{ops.TENSOR_CORE}<{pair}>", ops.TENSOR_CORE,
+                      "src/repro/kernels/flash_attention/kernel.py:38", tc["native_err"][pair],
+                      shape["ms"], shape["plain_ms"], shape["bound_ms"], shape["bound_by"],
+                      shape["library_ms"])
+        rec["launches"], rec["padded_ms"] = launches, shape["padded_ms"]
+        out.append(rec)
+    return out
+
+
 def _timed(label: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -4870,6 +5083,17 @@ def main() -> int:
     t0 = time.perf_counter()
     smi, name = _timed("1 device", phase_device)
     _timed("2 build", phase_build)
+    dry = _dryrun_cli_start()          # phase 21's CLI, beside phases 3-20
+    try:
+        return _phases(dev, t0, smi, name, dry)
+    finally:
+        if dry[0].poll() is None:
+            dry[0].kill()
+            dry[0].wait()
+
+
+def _phases(dev, t0: float, smi: str, name: str, dry) -> int:
+    """Phases 3-21 and the closing lines (``main``)."""
     argmin = _timed("3 kernels", phase_kernels, dev)
     argmin["launches"] = _timed("4 main path", phase_main_path, dev)
     flash = _timed("5 flash kernels", phase_flash_kernels, dev)
@@ -4903,8 +5127,9 @@ def main() -> int:
     flash[0]["launches_llama405b"], flash[0]["llama405b_shapes"] = _timed(
         "19 llama3-405b serving", phase_llama405b_serving, dev)
     _timed("20 multi-device path", phase_multi_device, dev, campaign, train)
-    _timed("21 dry run", phase_dryrun, dev)
-    records = [argmin, *flash, *flash_bwd, scan, scan_bwd]
+    _timed("21 dry run", phase_dryrun, dev, dry)
+    native = _native_tile_records(flash[0])
+    records = [argmin, *flash, *native, *flash_bwd, scan, scan_bwd]
     print(f"[time] all phases: {time.perf_counter() - t0:.2f} s")
     print("kernels: " + ", ".join(r["name"] for r in records))
     print(json.dumps({"kernels": records}))

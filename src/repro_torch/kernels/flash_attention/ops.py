@@ -6,24 +6,29 @@ tensors launch one of two kernels (built on first use by
 ``kernels._build``) on the current stream, without synchronizing, by a
 fixed rule on dtype and head_dim (``route``):
 
-* bfloat16 with head_dim in ``TC_HEAD_DIMS`` → ``flash_attention_wgmma``
-  (``csrc/flash_attention_wgmma.cu``): wgmma on the tensor cores, fed by
-  TMA.  ``tma_map_args`` computes each input's tensor-map arguments and
-  raises ``ValueError`` where TMA cannot take the view (base address not
-  16-byte aligned, a stride not a multiple of 16 bytes);
-* float32 with head_dim up to ``MAX_HEAD_DIM`` → ``flash_attention``
+* bfloat16 with (q, k head_dim, v head_dim) in ``TC_HEAD_DIM_PAIRS`` →
+  ``flash_attention_wgmma`` (``csrc/flash_attention_wgmma.cu``): wgmma on
+  the tensor cores, fed by TMA, one tile a pair (``Tile<D, Dv, kCap>``), v as
+  narrow as the Pallas kernel takes it (MLA's 192 / 128).
+  ``tma_map_args`` computes each input's tensor-map arguments and raises
+  ``ValueError`` where TMA cannot take the view (base address not 16-byte
+  aligned, a stride not a multiple of 16 bytes);
+* float32 with one head_dim up to ``MAX_HEAD_DIM`` for q, k and v →
+  ``flash_attention``
   (``csrc/flash_attention.cu``): float32, split TF32 on the tensor cores
   (each operand hi + lo, three TF32 products a product, float32's
   accuracy; one TF32 pass would miss 2e-5) up to head_dim 128, fp32 FMAs
   on the CUDA cores above (the source picks by head_dim; ``CUDA_CORE``
   keeps its name).
 
-A bfloat16 head_dim outside ``TC_HEAD_DIMS`` or a float32 one above
-``MAX_HEAD_DIM`` raises on a CUDA tensor; the plain version takes any
-head_dim.  There is no fallback between the kernels or to the plain
-version.
-``flash_attention.launches`` counts all kernel launches and
-``flash_attention.kernel_launches`` the launches of each kernel.
+A bfloat16 pair outside ``TC_HEAD_DIM_PAIRS``, a float32 head_dim above
+``MAX_HEAD_DIM`` or a float32 v narrower than q, k raises on a CUDA
+tensor; the plain version takes any widths.  There is no fallback
+between the kernels or to the plain version.
+``flash_attention.launches`` counts all kernel launches,
+``flash_attention.kernel_launches`` the launches of each kernel and
+``flash_attention.tile_launches`` the tensor-core kernel's by its
+(D, Dv) pair.
 
 Training: when grad is enabled and q, k or v requires grad, the op runs
 as :class:`FlashAttention`, a ``torch.autograd.Function`` on every device.
@@ -31,7 +36,9 @@ Its forward is the same kernel (or plain version) asked also for the row
 stats m and l, and saves (q, k, v, out, m, l).  Its backward follows the
 device in the same way: CUDA tensors launch the backward kernel that
 ``bwd_route`` names (``flash_attention_bwd_kernel``), by the same rule as
-the forward's:
+the forward's, at one head_dim for q, k and v (``TC_HEAD_DIMS`` in
+bfloat16; a grad-requiring call at another pair raises on a CUDA tensor
+before its forward launches):
 
 * bfloat16 → ``flash_attention_bwd_wgmma``
   (``csrc/flash_attention_bwd_wgmma.cu``): dK/dV and dQ in two passes on
@@ -75,9 +82,18 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 #: a thread on the CUDA cores above head_dim 128; the tensor-core kernel's
 #: four 64-column TMA boxes).
 MAX_HEAD_DIM = 256
-#: bfloat16 head_dims of the tensor-core kernel: a multiple of wgmma's
-#: depth of 16 whose swizzled TMA box row (D·2 bytes, at most 128) tiles D.
+#: bfloat16 head_dims of both tensor-core kernels, forward and backward, at
+#: one width for q, k and v: a multiple of wgmma's depth of 16 whose
+#: swizzled TMA box row (D·2 bytes, at most 128) tiles D.  The models pad
+#: other widths to the least of these where they need the backward.
 TC_HEAD_DIMS = (16, 32, 64, 128, 256)
+#: (q, k head_dim, v head_dim) pairs of the tensor-core forward, one tile
+#: each: ``TC_HEAD_DIMS`` at one width, heads of 80 (zamba2's shared block,
+#: hubert) and MLA's 192 / 128 (deepseek-v2).
+TC_HEAD_DIM_PAIRS = ((16, 16), (32, 32), (64, 64), (80, 80), (128, 128), (192, 128),
+                     (256, 256))
+#: Widths of a q, k or v that the tensor-core forward's TMA boxes take.
+TMA_WIDTHS = tuple(sorted({w for pair in TC_HEAD_DIM_PAIRS for w in pair}))
 #: The two kernels, by their ``_build.SOURCES`` names.
 TENSOR_CORE, CUDA_CORE = "flash_attention_wgmma", "flash_attention"
 #: Query rows per TMA box of q in the tensor-core kernel (a consumer
@@ -89,7 +105,7 @@ _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 
              + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                 ctypes.c_float, ctypes.c_void_p])
 _MapArg = ctypes.c_ulonglong * 12
-_WGMMA_ARGTYPES = ([ctypes.c_void_p] * 6 + [_MapArg] * 3 + [ctypes.c_int] * 6
+_WGMMA_ARGTYPES = ([ctypes.c_void_p] * 6 + [_MapArg] * 3 + [ctypes.c_int] * 7
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                       ctypes.c_float, ctypes.c_void_p])
 #: Error codes the tensor-core launch adds to CUDA's.
@@ -117,32 +133,45 @@ _BWD_WGMMA_ARGTYPES = ([ctypes.c_void_p] * 12 + [_MapArg] * 6 + [ctypes.c_int] *
                           ctypes.c_float, ctypes.c_void_p])
 
 
-def route(dtype: torch.dtype, head_dim: int) -> str:
-    """The kernel that serves CUDA inputs of ``dtype`` and ``head_dim``:
-    ``TENSOR_CORE`` for bfloat16, ``CUDA_CORE`` for float32 (the float32
-    kernel: split TF32 on the tensor cores up to head_dim 128, fp32 FMAs on
-    the CUDA cores above, by its source's fixed rule).  A fixed rule, not a
-    fallback: a head_dim the dtype's kernel cannot take raises
+def route(dtype: torch.dtype, head_dim: int, v_head_dim: Optional[int] = None) -> str:
+    """The kernel that serves CUDA inputs of ``dtype`` with q, k of
+    ``head_dim`` and v of ``v_head_dim`` (``head_dim`` when None):
+    ``TENSOR_CORE`` for bfloat16 at a pair of ``TC_HEAD_DIM_PAIRS``,
+    ``CUDA_CORE`` for float32 at one head_dim up to ``MAX_HEAD_DIM`` (the
+    float32 kernel: split TF32 on the tensor cores up to head_dim 128, fp32
+    FMAs on the CUDA cores above, by its source's fixed rule).  A fixed
+    table, not a fallback: a pair the dtype's kernel has no tile for raises
     ``ValueError``."""
+    dv = head_dim if v_head_dim is None else v_head_dim
     if dtype == torch.float32:
-        if not 1 <= head_dim <= MAX_HEAD_DIM:
-            raise ValueError(f"flash_attention: the float32 kernel takes "
-                             f"head_dim <= {MAX_HEAD_DIM}, got {head_dim}")
+        if not 1 <= head_dim <= MAX_HEAD_DIM or dv != head_dim:
+            raise ValueError(f"flash_attention: the float32 kernel takes one "
+                             f"head_dim <= {MAX_HEAD_DIM} for q, k and v, got "
+                             f"{head_dim} and v {dv}")
         return CUDA_CORE
     if dtype != torch.bfloat16:
         raise TypeError(f"flash_attention kernels take float32 or bfloat16, got {dtype}")
-    if head_dim not in TC_HEAD_DIMS:
+    if (head_dim, dv) not in TC_HEAD_DIM_PAIRS:
         raise ValueError(f"flash_attention: the bfloat16 tensor-core kernel takes head_dim "
-                         f"in {TC_HEAD_DIMS}, got {head_dim}")
+                         f"(q, k) and v head_dim in the pairs {TC_HEAD_DIM_PAIRS}, got "
+                         f"({head_dim}, {dv})")
     return TENSOR_CORE
 
 
-def bwd_route(dtype: torch.dtype, head_dim: int) -> str:
-    """The backward kernel that serves CUDA inputs of ``dtype`` and
-    ``head_dim``: the one beside the forward kernel ``route`` names
-    (``TENSOR_CORE_BWD`` for bfloat16, ``CUDA_CORE_BWD`` for float32); raises
-    as ``route`` does."""
-    return _BWD[route(dtype, head_dim)]
+def bwd_route(dtype: torch.dtype, head_dim: int, v_head_dim: Optional[int] = None) -> str:
+    """The backward kernel that serves CUDA inputs of ``dtype`` with q, k of
+    ``head_dim`` and v of ``v_head_dim`` (``head_dim`` when None): the one
+    beside the forward kernel ``route`` names (``TENSOR_CORE_BWD`` for
+    bfloat16, ``CUDA_CORE_BWD`` for float32), at one head_dim for q, k and
+    v, in bfloat16 one of ``TC_HEAD_DIMS``.  Raises ``ValueError`` for a pair
+    it has no tile for (the forward's (80, 80) and (192, 128) among them),
+    and as ``route`` does."""
+    dv = head_dim if v_head_dim is None else v_head_dim
+    kernel = route(dtype, head_dim, dv)
+    if kernel == TENSOR_CORE and (dv != head_dim or head_dim not in TC_HEAD_DIMS):
+        raise ValueError(f"flash_attention: the bfloat16 backward kernel takes one "
+                         f"head_dim in {TC_HEAD_DIMS} for q, k and v, got ({head_dim}, {dv})")
+    return _BWD[kernel]
 
 
 def bwd_kv_box_rows(head_dim: int) -> int:
@@ -164,11 +193,22 @@ def bwd_key_block_rows(head_dim: int) -> int:
     return 128 if head_dim <= BWD_OWN_KEYS_MAX_D else 64
 
 
-def kv_box_rows(head_dim: int) -> int:
-    """Keys per TMA box of k, v (one KV tile of the tensor-core kernel):
-    128, or 64 at head_dim 128 and 256, where the fragments of 128 keys
-    would not fit in registers (``Tile::kBK`` in the kernel)."""
-    return 64 if head_dim >= 128 else 128
+def kv_box_rows(head_dim: int, v_head_dim: Optional[int] = None) -> int:
+    """Keys per TMA box of k and v (one KV tile of the tensor-core kernel)
+    for q, k of ``head_dim`` (v's width does not change it): 128, or 64 at
+    head_dim 128 and above, where the fragments of 128 keys would not fit
+    in registers, and at the widths that are no power of two (80, 192),
+    whose tiles run three warpgroups (``Tile::kBK`` in the kernel)."""
+    return 64 if head_dim >= 128 or head_dim & (head_dim - 1) else 128
+
+
+def box_columns(width: int) -> int:
+    """Columns of a TMA box of a ``width``-wide bfloat16 operand: one
+    swizzle span, the widest of 128, 64 and 32 bytes that tiles a row's
+    2·width bytes (``box_row_bytes`` in the kernel): 64 at 64, 128, 192
+    and 256, the whole row at 16 and 32, 16 at 80 (five boxes a row)."""
+    row = 2 * width
+    return (128 if row % 128 == 0 else 64 if row % 64 == 0 else 32) // 2
 
 
 class TmaMap(NamedTuple):
@@ -183,14 +223,15 @@ class TmaMap(NamedTuple):
 
 
 def tma_map_args(t: torch.Tensor, rows: int) -> TmaMap:
-    """The tensor map of a bfloat16 [B, S, heads, D] view ``t`` (any
-    strides, head_dim contiguous) with boxes of ``rows`` rows by
-    ``min(D, 64)`` columns (D / 64 boxes a row at D = 128 and 256),
-    swizzled by the box row's bytes.  Raises
-    ``ValueError`` naming the condition TMA needs that ``t`` breaks."""
+    """The tensor map of a bfloat16 [B, S, heads, width] view ``t`` (any
+    strides, the last axis contiguous) with boxes of ``rows`` rows by
+    ``box_columns(width)`` columns (several boxes a row past 64 columns and
+    at 80), swizzled by the box row's bytes.  ``width`` is one of
+    ``TMA_WIDTHS``: q's and k's of a pair, or v's.  Raises ``ValueError``
+    naming the condition TMA needs that ``t`` breaks."""
     b, s, n, d = t.shape
-    if d not in TC_HEAD_DIMS:
-        raise ValueError(f"flash_attention: TMA boxes take head_dim in {TC_HEAD_DIMS}, got {d}")
+    if d not in TMA_WIDTHS:
+        raise ValueError(f"flash_attention: TMA boxes take head_dim in {TMA_WIDTHS}, got {d}")
     if t.stride(-1) != 1:
         raise ValueError("flash_attention: TMA needs the head_dim axis contiguous (stride 1)")
     if t.data_ptr() % 16:
@@ -202,7 +243,7 @@ def tma_map_args(t: torch.Tensor, rows: int) -> TmaMap:
         if st % 16:
             raise ValueError(f"flash_attention: TMA needs strides in multiples of 16 bytes, "
                              f"the {name} stride is {st} bytes")
-    cols = min(d, 64)
+    cols = box_columns(d)
     return TmaMap((d, s, n, b), strides, (cols, rows, 1, 1), cols * size)
 
 
@@ -218,15 +259,17 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention takes float32 or bfloat16 q, k, v of one "
                         f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if q.dim() != 4 or k.dim() != 4 or tuple(v.shape) != tuple(k.shape):
-        raise ValueError(f"flash_attention wants q [B,Sq,H,D] and k, v [B,Sk,KV,D], got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or v.shape[:3] != k.shape[:3]:
+        raise ValueError(f"flash_attention wants q [B,Sq,H,D], k [B,Sk,KV,D] and v "
+                         f"[B,Sk,KV,Dv], got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
     b, sq, h, d = q.shape
     _, sk, kv, _ = k.shape
-    if k.shape[0] != b or k.shape[-1] != d or min(b, sq, sk, kv, d) < 1 or h % kv:
-        raise ValueError(f"flash_attention: q {tuple(q.shape)} and k, v {tuple(k.shape)} "
-                         "need the same batch and head_dim, non-empty axes and "
-                         "H a multiple of KV")
+    dv = v.shape[-1]
+    if k.shape[0] != b or k.shape[-1] != d or min(b, sq, sk, kv, d, dv) < 1 or h % kv:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k {tuple(k.shape)} and v "
+                         f"{tuple(v.shape)} need the same batch, q and k the same "
+                         "head_dim, non-empty axes and H a multiple of KV")
     if causal and sq != sk:
         raise ValueError(f"causal flash_attention needs Sq == Sk (got {sq}, {sk}): the "
                          "kernel aligns the causal mask at 0, the plain version on the right")
@@ -235,7 +278,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     if softcap is not None and not softcap > 0:
         raise ValueError(f"softcap must be None or > 0, got {softcap}")
     if dev.type == "cuda" or op_cost.is_fake(q):
-        route(q.dtype, d)
+        route(q.dtype, d, dv)
         if window is not None and sq != sk:
             raise ValueError(f"a windowed flash_attention kernel needs Sq == Sk (got {sq}, "
                              f"{sk}): it aligns the window at 0, the plain version on the "
@@ -254,20 +297,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     softcap: Optional[float] = None,
                     scale: Optional[float] = None,
                     q_chunk: int = 1024, kv_chunk: int = 1024) -> torch.Tensor:
-    """q: [B,Sq,H,D]; k,v: [B,Sk,KV,D] (GQA: H = KV·G, query head ``h`` reads
-    KV head ``h // G``).  Returns [B,Sq,H,D] in q's dtype.
+    """q: [B,Sq,H,D]; k: [B,Sk,KV,D]; v: [B,Sk,KV,Dv] (GQA: H = KV·G, query
+    head ``h`` reads KV head ``h // G``).  Returns [B,Sq,H,Dv] in q's dtype,
+    as the Pallas kernel does.
 
     ``causal`` needs ``Sq == Sk``, and so does ``window`` on a CUDA tensor
     (the kernels align masks at 0, the plain version on the right);
     ``window`` keeps keys with
     ``qpos − kpos < window``; ``softcap`` caps scores at ``c·tanh(s/c)``;
-    ``scale`` defaults to ``1/sqrt(D)``.  On a CUDA tensor the head_dim
-    axis must be contiguous and the kernels read the other axes through
-    their strides; a bfloat16 view must also be one TMA can take
-    (``tma_map_args``).  When grad is enabled and an input requires grad,
-    the call is differentiable (:class:`FlashAttention`), and its backward
-    works in blocks of ``q_chunk`` query rows by ``kv_chunk`` keys (the
-    model config's).
+    ``scale`` defaults to ``1/sqrt(D)``.  On a CUDA tensor (D, Dv) must be
+    a pair ``route`` takes, the head_dim axes must be contiguous and the
+    kernels read the other axes through their strides; a bfloat16 view
+    must also be one TMA can take (``tma_map_args``).  When grad is enabled
+    and an input requires grad, the call is differentiable
+    (:class:`FlashAttention`; on a CUDA tensor at a pair ``bwd_route``
+    takes), and its backward works in blocks of ``q_chunk`` query rows by
+    ``kv_chunk`` keys (the model config's).
     """
     _check(q, k, v, causal, window, softcap)
     scale = scale if scale is not None else 1.0 / (q.shape[-1] ** 0.5)
@@ -281,7 +326,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: Optional[int] = None,
                         softcap: Optional[float] = None, scale: Optional[float] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The op's forward with the row stats: ``(out, m, l)``, m and l
+    """The op's forward with the row stats: ``(out, m, l)``, out
+    [B,Sq,H,Dv] as ``flash_attention``'s, m and l
     float32 [B,H,Sq] in the natural-log domain of the scaled scores (the
     kernels store them; the plain version computes them).  Not
     differentiable."""
@@ -303,13 +349,16 @@ def kept_scores(sq: int, sk: int, causal: bool, window: Optional[int]) -> int:
 
 def _work(q, k, v, causal, window, tensors, backward: bool, stats: bool = False):
     """``op_cost.kernel``'s work of a forward (or backward) call: products,
-    the bytes of ``tensors`` (each read or written once; with ``stats`` the
-    forward's m and l besides), exponentials."""
+    the bytes of ``tensors`` (each read or written once; a forward's
+    ``[B,Sq,H,Dv]`` output besides, and with ``stats`` its m and l),
+    exponentials."""
     def work():
         b, sq, h, d = q.shape
         kept = b * h * kept_scores(sq, k.shape[1], causal, window)
         flops = 2.0 * (d + v.shape[-1]) * kept
         n_bytes = op_cost.tensor_bytes(*tensors) + (2 * 4 * b * h * sq if stats else 0)
+        if not backward:
+            n_bytes += b * sq * h * v.shape[-1] * q.element_size()
         return (2.5 * flops if backward else flops), n_bytes, float(kept)
     return work
 
@@ -322,6 +371,8 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, softcap, scale, q_chunk, kv_chunk):
+        if q.device.type == "cuda" or op_cost.is_fake(q):
+            bwd_route(q.dtype, q.shape[-1], v.shape[-1])  # raises before the forward runs
         out, m, l = _forward(q, k, v, causal, window, softcap, scale, stats=True)
         ctx.save_for_backward(q, k, v, out, m, l)
         ctx.opts = dict(causal=causal, window=window, softcap=softcap, scale=scale,
@@ -365,7 +416,7 @@ def flash_attention_bwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                          "CPU's backward is backward.flash_attention_bwd")
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
-    kernel = bwd_route(q.dtype, d)
+    kernel = bwd_route(q.dtype, d, v.shape[-1])
     if fake:   # the dry run: the gradients' shapes, nothing launched
         return (torch.empty_like(q, memory_format=torch.contiguous_format),
                 torch.empty_like(k, memory_format=torch.contiguous_format),
@@ -427,12 +478,12 @@ def _forward(q, k, v, causal, window, softcap, scale, stats: bool):
     """``(out, m, l)`` (m, l None without ``stats``) of checked inputs: the
     kernel for CUDA tensors, the plain version for CPU tensors, empty
     outputs for fake tensors; the work reported to ``op_cost``."""
-    b, sq, h, d = q.shape
-    # out is written in q's size
+    b, sq, h, _ = q.shape
+    dv = v.shape[-1]
     with op_cost.kernel("flash_attention_fwd",
-                        _work(q, k, v, causal, window, (q, k, v, q), False, stats)):
+                        _work(q, k, v, causal, window, (q, k, v), False, stats)):
         if op_cost.is_fake(q):
-            out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+            out = torch.empty((b, sq, h, dv), dtype=q.dtype, device=q.device)
             m, l = ((torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
                      for _ in range(2)) if stats else (None, None))
             return out, m, l
@@ -448,18 +499,19 @@ def _launch(q, k, v, causal, window, softcap, scale, stats: bool):
         return res if stats else (res, None, None)
 
     dev = q.device
-    kernel = route(q.dtype, d)
+    dv = v.shape[-1]
+    kernel = route(q.dtype, d, dv)
     options = (float(scale), int(causal), -1 if window is None else int(window),
              int(softcap is not None), float(softcap or 0.0))
     if kernel == TENSOR_CORE:
-        maps = [tma_map_args(q, Q_BOX_ROWS).as_c(), tma_map_args(k, kv_box_rows(d)).as_c(),
-                tma_map_args(v, kv_box_rows(d)).as_c()]
+        maps = [tma_map_args(q, Q_BOX_ROWS).as_c(), tma_map_args(k, kv_box_rows(d, dv)).as_c(),
+                tma_map_args(v, kv_box_rows(d, dv)).as_c()]
         fn = _build.load(TENSOR_CORE).flash_attention_wgmma_launch
         fn.argtypes, fn.restype = _WGMMA_ARGTYPES, ctypes.c_int
     else:
         fn = _build.load(CUDA_CORE).flash_attention_launch
         fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=dev)
+    out = torch.empty((b, sq, h, dv), dtype=q.dtype, device=dev)
     m = l = None
     if stats:
         m = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
@@ -469,7 +521,7 @@ def _launch(q, k, v, causal, window, softcap, scale, stats: bool):
         ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 None if m is None else m.data_ptr(), None if l is None else l.data_ptr())
         if kernel == TENSOR_CORE:
-            rc = fn(*ptrs, *maps, b, sq, k.shape[1], h, k.shape[2], d, *options, stream)
+            rc = fn(*ptrs, *maps, b, sq, k.shape[1], h, k.shape[2], d, dv, *options, stream)
         else:
             rc = fn(*ptrs, b, sq, k.shape[1], h, k.shape[2], d,
                     *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *options, stream)
@@ -482,10 +534,13 @@ def _launch(q, k, v, causal, window, softcap, scale, stats: bool):
         raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {rc}")
     flash_attention.launches += 1
     flash_attention.kernel_launches[kernel] += 1
+    if kernel == TENSOR_CORE:
+        flash_attention.tile_launches[(d, dv)] += 1
     return out, m, l
 
 
 flash_attention.launches = 0
 flash_attention.kernel_launches = {TENSOR_CORE: 0, CUDA_CORE: 0}
+flash_attention.tile_launches = dict.fromkeys(TC_HEAD_DIM_PAIRS, 0)
 flash_attention.bwd_launches = 0
 flash_attention.bwd_kernel_launches = {TENSOR_CORE_BWD: 0, CUDA_CORE_BWD: 0}

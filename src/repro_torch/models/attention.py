@@ -8,16 +8,25 @@ Two compute paths for each kind:
   passes the un-repeated k, v: GQA is folded into the kernel (query head
   ``h`` reads KV head ``h // G``), the causal / window band skips whole
   KV tiles, and the online softmax keeps p in fp32 as the Pallas kernel
-  does.  MLA decompresses per-head k, v.  A head_dim that the
-  tensor-core kernel has no tile for is padded with zero columns to the
-  least one it has (``_flash_head_dim``: GQA's 80 → 128; MLA's q, k of
-  ``qk_nope + qk_rope`` = 192 and v of 128 → 256), with the scale of the
-  unpadded width; zero columns add exactly 0 to every score, and the
-  output is cut back to v's width.  The rule is the same on every device;
-  at a head_dim the kernel has, q, k and v reach the op as they are.  On
-  CPU tensors the op runs its plain version.  (The JAX package's XLA twin ``full_attention``
-  rounds p to the activation dtype before p·v, so in bf16 the two agree
-  to bf16 rounding, not bit for bit.)
+  does.  MLA decompresses per-head k, v and sets ``[q_nope, q_rope]`` and
+  ``[k_nope, k_rope]`` side by side, as the reference concatenates them.
+  Which widths reach the op is a fixed rule on (dtype, grad, widths), the
+  same on every device (``_native_widths``): in bfloat16, with no input
+  requiring grad, q, k of width D and v of Dv reach it unpadded wherever
+  (D, Dv) is a pair of the tensor-core forward (``ops.TC_HEAD_DIM_PAIRS``:
+  heads of 80, MLA's 192 / 128, and 16–256 at one width).  Otherwise —
+  float32 (one CUDA-core kernel width for q, k and v), or a differentiable
+  call (the backward kernels have tiles only at one width in
+  ``ops.TC_HEAD_DIMS``) — q, k and v are padded with zero columns to the
+  least of ``TC_HEAD_DIMS`` that holds the widest (``_flash_head_dim``:
+  80 → 128; 192 and 128 → 256), with the scale of the unpadded width;
+  zero columns add exactly 0 to every score, and the output is cut back
+  to v's width; at a width of ``TC_HEAD_DIMS`` that is the identity.
+  This is a route, not a fallback: a kernel that fails to build or launch
+  raises.  On CPU tensors the op runs its plain version.  (The JAX
+  package's XLA twin ``full_attention`` rounds p to the activation dtype
+  before p·v, so in bf16 the two agree to bf16 rounding, not bit for
+  bit.)
 * decode — plain PyTorch as in the JAX package: ``decode_attention``,
   single-token queries against a padded linear KV cache with position
   tags (a ring buffer for window layers); MLA's absorbed products over
@@ -222,7 +231,8 @@ def _side_by_side(parts, width: int) -> torch.Tensor:
     (k, v as halves of one fused projection) reaches the op unchanged."""
     if len(parts) == 1 and parts[0].shape[-1] == width:
         return parts[0]
-    out = parts[0].new_zeros(parts[0].shape[:-1] + (width,))
+    filled = sum(t.shape[-1] for t in parts) == width
+    out = (parts[0].new_empty if filled else parts[0].new_zeros)(parts[0].shape[:-1] + (width,))
     col = 0
     for t in parts:
         out[..., col:col + t.shape[-1]] = t
@@ -230,13 +240,28 @@ def _side_by_side(parts, width: int) -> torch.Tensor:
     return out
 
 
+def _native_widths(q_parts, k_parts, v: torch.Tensor) -> bool:
+    """Whether the prefill hands the op q, k and v at their own widths (the
+    module docstring's rule): bfloat16, no input requiring grad, and (q·k
+    width, v width) a pair of the tensor-core forward."""
+    parts = (*q_parts, *k_parts, v)
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in parts)
+    dqk = sum(t.shape[-1] for t in q_parts)
+    return (v.dtype == torch.bfloat16 and not grad
+            and (dqk, v.shape[-1]) in ops.TC_HEAD_DIM_PAIRS)
+
+
 def _padded_flash(q_parts, k_parts, v: torch.Tensor, **kw) -> torch.Tensor:
-    """The flash op on q and k (given as lists of column blocks) and v,
-    each padded with zero columns to ``_flash_head_dim`` of the widest;
+    """The flash op on q and k (given as lists of column blocks, set side by
+    side) and v: at their own widths where ``_native_widths`` says so, else
+    each padded with zero columns to ``_flash_head_dim`` of the widest and
     the output cut back to v's width.  The caller passes the scale of the
     unpadded q·k width."""
     dqk = sum(t.shape[-1] for t in q_parts)
     dv = v.shape[-1]
+    if _native_widths(q_parts, k_parts, v):
+        return flash_attention(_side_by_side(q_parts, dqk), _side_by_side(k_parts, dqk), v,
+                               **kw)
     hd = _flash_head_dim(max(dqk, dv))
     o = flash_attention(_side_by_side(q_parts, hd), _side_by_side(k_parts, hd),
                         _side_by_side([v], hd), **kw)
@@ -336,7 +361,8 @@ def mla_apply(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig
     """One MLA attention block (no residual/norm).
 
     Prefill: per-head k, v decompressed from the latent, through the
-    flash op at a padded head_dim (module docstring); ``return_state``
+    flash op at q, k of 192 and v of 128 in bf16 inference, padded to 256
+    in float32 and under grad (module docstring); ``return_state``
     builds the compressed cache ``{c_kv, k_rope}`` sized
     ``cache_capacity``.  Decode: the step's latent and rope key are
     written **in place** at ``cache_pos`` and the query attends over the

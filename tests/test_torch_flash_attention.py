@@ -180,8 +180,9 @@ def test_a_window_needs_aligned_sequences():
 
 PREFILL_CASES = [
     # B, S, KV, G, D, causal: zamba2's shared block (32/32 heads of 80) and hubert's
-    # non-causal encoder (16/16 of 80), both padded to 128, at narrow heads and a ragged
-    # S; internvl2's 14/2 heads of 64 (G = 7, no padding)
+    # non-causal encoder (16/16 of 80), at their own width in bf16 and padded to 128 in
+    # float32, at narrow heads and a ragged S; internvl2's 14/2 heads of 64 (G = 7, no
+    # padding)
     (1, 77, 4, 1, 80, True),
     (2, 40, 2, 1, 80, False),
     (1, 50, 2, 7, 64, True),
@@ -191,9 +192,10 @@ PREFILL_CASES = [
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", PREFILL_CASES)
 def test_padded_prefill_matches_jax(case, dtype):
-    """The models' prefill call (``attention._padded_flash``): q, k, v with
-    zero columns up to the least tensor-core head_dim, the scale of the
-    unpadded D, the output cut back, against the JAX package's
+    """The models' prefill call (``attention._padded_flash``): in bf16 (no
+    grad) q, k, v at their own width, a pair of the tensor-core forward; in
+    float32 with zero columns up to the least tensor-core head_dim, the
+    scale of the unpadded D, the output cut back; against the JAX package's
     ``full_attention`` on the unpadded tensors (k, v GQA-repeated)."""
     from repro_torch.models import attention as tattn
 
@@ -211,7 +213,8 @@ def test_padded_prefill_matches_jax(case, dtype):
         out = tattn._padded_flash([q], [k], v, causal=causal, scale=scale)
     finally:
         tattn.flash_attention = real
-    assert calls == [(tattn._flash_head_dim(D),) * 3] and out.shape == q.shape
+    width = D if dtype == "bfloat16" else tattn._flash_head_dim(D)
+    assert calls == [(width,) * 3] and out.shape == q.shape
     assert tattn._flash_head_dim(D) == (128 if D == 80 else D)
     ref = full_attention(jq, jnp.repeat(jk, G, axis=2), jnp.repeat(jv, G, axis=2),
                          causal=causal, scale=scale, q_chunk=S, kv_chunk=S)

@@ -76,6 +76,17 @@ def test_flash_head_dim_pads_to_a_routable_width():
     assert tattn._flash_head_dim(300) == 300             # past the op: it raises on CUDA
     for d in (16, 24, 100, 192, 256):
         assert ops.route(torch.bfloat16, tattn._flash_head_dim(d)) == ops.TENSOR_CORE
+    # the padding serves float32 and grad; bf16 inference reaches the (192, 128) tile
+    qk, dv = a.qk_nope_dim + a.qk_rope_dim, a.v_head_dim
+    assert ops.route(torch.bfloat16, qk, dv) == ops.TENSOR_CORE
+    parts = lambda dt, w, grad=False: [torch.zeros(1, 2, 1, w, dtype=dt,  # noqa: E731
+                                                   requires_grad=grad)]
+    assert tattn._native_widths(parts(torch.bfloat16, qk), parts(torch.bfloat16, qk),
+                                parts(torch.bfloat16, dv)[0])
+    assert not tattn._native_widths(parts(torch.float32, qk), parts(torch.float32, qk),
+                                    parts(torch.float32, dv)[0])
+    assert not tattn._native_widths(parts(torch.bfloat16, qk, True), parts(torch.bfloat16, qk),
+                                    parts(torch.bfloat16, dv)[0])
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
