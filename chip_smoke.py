@@ -29,10 +29,15 @@ printing its seconds:
    and the params path, and the three ``voltage_opt/*`` rows (µs a call);
 4. main path — ``compare_all_batched`` on ``cuda`` for Table II (five
    accelerators × six techniques, 8 nodes, 25 bins) at 2048 and 1024 steps:
-   the kernel launch count of each run, the per-accelerator gains, the
-   1024-step gains against ``BENCH_fleet.json``, the same calls on the CPU,
-   the warm wall time with the step loop's share of it, and the device's
-   busy time per step of the loop (``torch.profiler``);
+   first a cold and a warm call at 1024 steps, whose fleet programs built
+   (``controller.fleet_trace_counts()``) must be ``fleet/batched_warm``'s
+   ``traces=tables:1/simulate:1``; the kernel launch count of each run, the
+   per-accelerator gains, the 1024-step gains against ``BENCH_fleet.json``,
+   the same calls on the CPU, the warm wall time with the step loop's share
+   of it, the step loop as a replayed CUDA graph against the eager step
+   loop (every field bit-equal, µs per step of each), and the device's busy
+   time and the host's launch calls per step of the loop
+   (``torch.profiler``);
 5. flash kernels — ``flash_attention`` against its plain version on the
    card, every case in both dtypes, each on the kernel ``ops.route`` gives
    it: float32 on the float32 kernel (``ops.CUDA_CORE``: split TF32 on the
@@ -44,7 +49,10 @@ printing its seconds:
    and a non-causal D = 128 call at ragged lengths; the models' prefill
    call at heads of 80, bf16 on the (80, 80) tile and float32 with zero
    columns to 128, against the plain version on the unpadded tensors,
-   causal and not); the native-width tiles of the tensor-core kernel,
+   causal and not; widths of no tile, which the op pads itself
+   (``ops.kernel_widths``), in both dtypes: (96, 96) and MLA's REDUCED
+   (24, 16) and (112, 64), float32 (192, 128)); the native-width tiles of
+   the tensor-core kernel,
    (80, 80) and (192, 128) (q, k of D beside v of Dv), on causal,
    non-causal (also Sk != Sq), windowed, softcapped (nonlinear range) and
    G > 1 cases at ragged lengths and on k, v as strided views of one
@@ -77,9 +85,10 @@ printing its seconds:
    the float32 one's; the tensor-core backward launched as a fresh thread's
    first CUDA work (autograd's case) bit-equal to a launch on the main
    thread; every case of phase 5 in
-   both dtypes (strided k, v, the padded heads of 80, the softcap cases,
-   the serving shape) through ``FlashAttention`` on the card: one launch
-   of the backward kernel ``ops.bwd_route`` names, dq, dk, dv within 2e-2
+   both dtypes (strided k, v, heads of 80 and (D, Dv) = (192, 128), which
+   the op pads to a backward tile itself, the softcap cases, the serving
+   shape) through ``FlashAttention`` on the card: one launch of the
+   backward kernel ``ops.bwd_route`` names, dq, dk, dv within 2e-2
    of max(1, max |g|) (bf16) or 1e-4 of max |g| (float32) of the plain
    backward on the same tensors and forward stats, a second launch bit-
    equal; at llama's shape the tensor-core backward's time beside its
@@ -142,8 +151,11 @@ printing its seconds:
    the kernels per step and the device's busy share; then the
    ``campaign/*``, ``failure/*``, ``replay/*`` and ``scheduler/*`` rows of
    ``BENCH_fleet.json`` at 1024 steps, as ``benchmarks/run.py`` builds them:
-   gains within 0.006, rates within 2/S, fronts and flags equal (the
-   ``*/stream_reuse`` rows count JAX retraces and are skipped);
+   gains within 0.006, rates within 2/S, fronts and flags equal, and the
+   five ``*/stream_reuse*`` rows (the stream programs a same-shaped sweep
+   builds, ``controller.fleet_trace_counts()``) equal; the streaming loop
+   as a replayed CUDA graph against the eager step loop, bit for bit, with
+   each one's µs per step and the host's launch calls per step;
 11. long stream — one scenario × five accelerators × three techniques at
    2048 steps in 1024-step chunks: peak device memory within 1 MiB of the
    same campaign at 1024 steps, every cell within 1e-5 of a CPU run;
@@ -154,8 +166,10 @@ printing its seconds:
    ``evaluate_trace`` row: all 96 ``predictor/*`` rows of
    ``BENCH_fleet.json`` (gains within 0.006, rates within 2/S); the
    holt_winters campaign within 1e-5 of the CPU, every family's
-   ``evaluate_trace`` bins equal to the CPU's; µs, device kernels and busy
-   share per step of each family's streaming loop (16-step profile); a
+   ``evaluate_trace`` bins equal to the CPU's; µs, device kernels, host
+   launch calls and busy share per step of each family's streaming loop
+   (16-step profile), replayed as a CUDA graph and bit-equal to the eager
+   step loop; a
    seasonal trace whose dips drive the raw forecast to −1 through both
    fleet loops on ``cuda``, equal to the CPU;
 13. composition — ``benchmarks/run.py``'s composition search on ``cuda``
@@ -165,7 +179,9 @@ printing its seconds:
    repro_torch.launch.compose`` at its defaults but 512 steps with
    ``--cache-dir`` in an empty directory (it builds grid_argmin), then
    again with ``--warm``
-   over the same directory (it must build nothing);
+   over the same directory (it must build no kernel, and the fleet
+   programs it builds, its ``# traces=`` line, must be the cold process's:
+   the warmer builds the search's own keys);
 14. serving loop — the 5 ``hybrid/<accelerator>`` rows on ``cuda`` and
    ``hybrid/closed_loop_serving`` (``run_request_load``, λ = 1 for 4096
    steps): counts and latencies equal, gains within 0.006; then
@@ -381,6 +397,12 @@ FLASH_CASES = [
 # own width on the (80, 80) tile, in float32 with zero columns to 128; against the plain
 # version on the unpadded tensors: (B, S, KV, G, D, causal)
 FLASH_PADDED_CASES = [(2, 333, 4, 1, 80, True), (1, 500, 4, 1, 80, False)]
+# Widths of no tile, which the op pads to ``ops.kernel_widths`` itself (96 → 128; MLA's
+# REDUCED 24 / 16 → 32; float32 192 / 128 → 256), in both dtypes; against the plain
+# version on the unpadded tensors: (B, S, KV, G, D, Dv, causal)
+FLASH_BWD_ANY_WIDTH_CASES = [(2, 333, 2, 2, 80, 80, True), (1, 400, 2, 2, 192, 128, True)]
+FLASH_ANY_WIDTH_CASES = [(2, 333, 2, 2, 96, 96, True), (2, 300, 2, 2, 24, 16, True),
+                         (1, 500, 2, 2, 192, 128, True), (1, 260, 2, 1, 112, 64, False)]
 # B2's native-width tiles, bf16, q and k of D beside v of Dv: heads of 80 (zamba2's shared
 # block, hubert) and MLA's 192 / 128 (deepseek-v2).  (B, Sq, Sk, KV, G, D, Dv, causal,
 # window, softcap, q's scale): ragged lengths, non-causal with Sk != Sq, G > 1, a window,
@@ -966,6 +988,7 @@ def phase_main_path(dev) -> int:
     traces = {n: wl.generate_trace(wl.WorkloadConfig(
         n_steps=n, mean_load=0.40, lam=1000.0, hurst=0.76, idc=500.0, seed=0))
         for n in (2048, 1024)}
+    _batched_warm_traces(ctl, platforms, traces[BENCH_STEPS], dev)
     launches = {}
     results = {}
     for n, trace in traces.items():
@@ -1024,6 +1047,15 @@ def phase_main_path(dev) -> int:
         ctl.summarize_fleet(platforms, techniques, trace, params, cfg, res)
         t3 = time.perf_counter()
         stages.append((t1 - t0, t2 - t1, t3 - t2))
+    with ctl.eager_step_loops():          # the same step, its ops launched one by one
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eager = ctl.simulate_fleet(tables, trace, cfg, device=dev)
+        torch.cuda.synchronize()
+        eager_s = time.perf_counter() - t0
+    for f in ctl.TraceResult._fields[:-1]:
+        check(torch.equal(getattr(res, f), getattr(eager, f)),
+              f"simulate_fleet: the replayed graph's {f} differs from the eager step loop's")
     wall = float(np.median(walls))
     tab, loop, summ = (float(np.median(x)) for x in zip(*stages))
     print(f"[main] warm compare_all_batched cuda 2048 steps: {wall:.4f} s (median of "
@@ -1032,33 +1064,79 @@ def phase_main_path(dev) -> int:
           f"step loop {loop:.4f} s, summaries {summ * 1e3:.2f} ms; step loop "
           f"{loop / (tab + loop + summ):.1%} of the staged call, {loop / 2048 * 1e6:.1f} us "
           f"per step")
+    print(f"[main] step loop as a replayed CUDA graph {loop / 2048 * 1e6:.1f} us per step vs "
+          f"the eager step loop {eager_s / 2048 * 1e6:.1f} us per step (the same step's ops "
+          f"launched one by one; {eager_s / loop:.2f}x), every TraceResult field bit-equal")
     phase_profile(ctl, tables, trace[:64], cfg, dev, loop / 2048)
     return launches[2048]
+
+
+def _batched_warm_traces(ctl, platforms, trace, dev) -> None:
+    """``fleet/batched_warm``'s ``traces=``: the fleet programs a cold and
+    a warm ``compare_all_batched`` build (the benchmark's counts in a fresh
+    process, whose other calls build none), against BENCH_fleet.json."""
+    before = ctl.fleet_trace_counts()
+    t0 = time.perf_counter()
+    ctl.compare_all_batched(platforms, trace, device=dev)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ctl.compare_all_batched(platforms, trace, device=dev)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    after = ctl.fleet_trace_counts()
+    got = f"traces=tables:{after['tables'] - before['tables']}" \
+          f"/simulate:{after['simulate'] - before['simulate']}"
+    want = [t for t in _bench_derived(("fleet",))["fleet/batched_warm"].split(";")
+            if t.startswith("traces=")]
+    check([got] == want, f"fleet/batched_warm: {got}, BENCH_fleet.json {want}")
+    print(f"[main] fleet/batched_warm at {len(trace)} steps: {got} (BENCH_fleet.json: "
+          f"{want[0]}); cold call {cold_s:.3f} s (the tables' build and the loop's capture), "
+          f"warm {warm_s:.3f} s")
 
 
 def phase_profile(ctl, tables, trace, cfg, dev, step_s: float) -> None:
     """Device busy time of a short window of the step loop (torch.profiler)."""
     ctl.simulate_fleet(tables, trace, cfg, device=dev)
-    kernels = _device_kernels(lambda: ctl.simulate_fleet(tables, trace, cfg, device=dev))
+    kernels, host = _profile(lambda: ctl.simulate_fleet(tables, trace, cfg, device=dev))
     n = len(trace)
     if not kernels:
         print("[profile] the profiler saw no device work: device busy share not measured")
         return
     busy_us = sum(e.time_range.elapsed_us() for e in kernels) / n
     print(f"[profile] step loop, {n} steps: {len(kernels) / n:.1f} device kernels per "
-          f"step, {busy_us:.1f} us device busy per step = {busy_us / (step_s * 1e6):.1%} "
-          f"of the unprofiled {step_s * 1e6:.1f} us step")
+          f"step from {_launches_per_step(host, n)} host launches per step, {busy_us:.1f} us "
+          f"device busy per step = {busy_us / (step_s * 1e6):.1%} of the unprofiled "
+          f"{step_s * 1e6:.1f} us step")
 
 
-def _device_kernels(fn):
-    """CUDA kernel events of one run of ``fn`` under ``torch.profiler``."""
+def _launches_per_step(host: dict, n: int) -> str:
+    """Host launch calls by name, per step of an ``n``-step window."""
+    return ", ".join(f"{c / n:.2f} {name}" for name, c in sorted(host.items())) or "0"
+
+
+def _profile(fn) -> tuple:
+    """CUDA kernel events of one run of ``fn`` under ``torch.profiler``, and
+    the host's launch calls (``cudaLaunchKernel``, ``cudaGraphLaunch``, ...)
+    by name."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = prof.events()
+    host = {}
+    for e in events:
+        if e.device_type == torch.autograd.DeviceType.CPU and e.name.startswith("cu") \
+                and "Launch" in e.name:
+            host[e.name] = host.get(e.name, 0) + 1
+    return [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA], host
+
+
+def _device_kernels(fn):
+    """CUDA kernel events of one run of ``fn`` under ``torch.profiler``."""
+    return _profile(fn)[0]
 
 
 def _top_kernels(events, n_calls: int, k: int = 5) -> str:
@@ -1183,19 +1261,19 @@ def _flash_build_report(lib) -> None:
 def _flash_case_check(name, q, k, v, dtype, causal, window, cap,
                       padded=False) -> tuple[str, float]:
     """One call of the op against the plain version: it must launch the
-    kernel ``ops.route`` names, once (a tensor-core launch on the tile of
-    the widths the op got), and agree within FLASH_TOL.  With ``padded``
-    the call is the models' ``attention._padded_flash`` (in bf16 inference
-    q, k, v at their own widths; otherwise zero columns to the next
-    tensor-core head_dim at the scale of the unpadded one, the output cut
-    back), held to the plain version on the unpadded tensors."""
+    kernel ``ops.route`` names at ``ops.kernel_widths`` (the op pads q, k,
+    v with zero columns to them, at the scale of the unpadded D, and cuts
+    the output back), once (a tensor-core launch on the tile of those
+    widths), and agree within FLASH_TOL with the plain version on the
+    unpadded tensors.  With ``padded`` the call is the models'
+    ``attention._padded_flash``."""
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.models import attention as attn_mod
 
     d, dv = q.shape[-1], v.shape[-1]
-    native = not padded or attn_mod._native_widths([q], [k], v)
-    widths = (d, dv) if native else (attn_mod._flash_head_dim(max(d, dv)),) * 2
+    widths = ops.kernel_widths(dtype, d, dv)
+    native = widths == (d, dv)
     kernel = ops.route(dtype, *widths)
     before = dict(flash_attention.kernel_launches)
     tiles = dict(flash_attention.tile_launches)
@@ -1217,11 +1295,11 @@ def _flash_case_check(name, q, k, v, dtype, causal, window, cap,
     err = (out.float() - ref.float()).abs().max().item()
     check(err <= FLASH_TOL[dtype], f"{kernel} {name} {dtype}: max|Δ| {err} "
           f"> {FLASH_TOL[dtype]}")
-    if dtype == torch.float32 and not padded:  # no atomics: a second launch, the same bits
+    if dtype == torch.float32:    # no atomics: a second launch, the same bits
         check(torch.equal(out, flash_attention(q, k, v, causal=causal, window=window,
                                                softcap=cap)),
               f"{kernel} {name}: two launches differ")
-    how = f" padded to D = {widths[0]}" if padded and not native else (
+    how = f" padded to D = {widths[0]}" if not native else (
         f" at (D, Dv) = {widths}" if widths not in ((16, 16), (32, 32), (64, 64), (128, 128),
                                                     (256, 256)) else "")
     print(f"[flash] {name} {str(dtype)[6:]} on {kernel}{how}: max|Δ| vs plain {err:.3g} "
@@ -1327,6 +1405,14 @@ def phase_flash_kernels(dev) -> list:
             q, k, v = _flash_inputs((b, s, kv, g, d), dtype, gen, dev)
             kernel, err = _flash_case_check(f"the models' call {(b, s, kv, g, d, causal)}", q,
                                             k, v, dtype, causal, None, None, padded=True)
+            max_err[kernel] = max(max_err[kernel], err)
+    for b, s, kv, g, d, dv, causal in FLASH_ANY_WIDTH_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k = (torch.randn(b, s, h, d, generator=gen, device=dev).to(dtype)
+                    for h in (kv * g, kv))
+            v = torch.randn(b, s, kv, dv, generator=gen, device=dev).to(dtype)
+            kernel, err = _flash_case_check(f"(D, Dv) = ({d}, {dv}) {(b, s, kv, g)}", q, k, v,
+                                            dtype, causal, None, None)
             max_err[kernel] = max(max_err[kernel], err)
     native_err = _flash_native_cases(gen, dev)
     max_err[ops.TENSOR_CORE] = max(max_err[ops.TENSOR_CORE], *native_err.values())
@@ -1595,19 +1681,24 @@ def _flash_bwd_tol(dtype, max_g: float) -> float:
 
 def _flash_bwd_case(name, q, k, v, causal, window, cap, scale=None) -> float:
     """``FlashAttention``'s backward on the card against the plain backward:
-    the call must launch the backward kernel ``ops.bwd_route`` names, once;
-    dq, dk and dv within FLASH_BWD_TOL of ``flash_attention_bwd`` on the same
-    card tensors and forward stats; a second launch of the kernel bit-equal
-    to the first.  Returns the largest error as a share of its tolerance,
-    and the largest absolute error."""
+    the call must launch the backward kernel ``ops.bwd_route`` names at
+    ``ops.kernel_widths(..., grad=True)``, once (q, k, v padded with zero
+    columns by the op where no tile has their widths, each gradient cut
+    back); dq, dk and dv within FLASH_BWD_TOL of ``flash_attention_bwd`` on
+    the same card tensors, padded alike, and forward stats; a second launch
+    of the kernel bit-equal to the first.  Returns the largest error as a
+    share of its tolerance, and the largest absolute error."""
+    import torch.nn.functional as F
+
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd, ops
 
-    dtype, d = q.dtype, q.shape[-1]
+    dtype, d, dv = q.dtype, q.shape[-1], v.shape[-1]
     kw = dict(causal=causal, window=window, softcap=cap,
               scale=scale if scale is not None else d ** -0.5)
-    kernel = ops.bwd_route(dtype, d)
+    kd, kdv = ops.kernel_widths(dtype, d, dv, grad=True)
+    kernel = ops.bwd_route(dtype, kd, kdv)
     gen = torch.Generator(device=q.device).manual_seed(q.shape[1])
-    dout = torch.randn(q.shape, generator=gen, device=q.device).to(dtype)
+    dout = torch.randn(q.shape[:3] + (dv,), generator=gen, device=q.device).to(dtype)
     before = dict(flash_attention.bwd_kernel_launches)
     ins = [t.detach().clone().requires_grad_() for t in (q, k, v)]
     flash_attention(*ins, **kw).backward(dout)
@@ -1615,13 +1706,17 @@ def _flash_bwd_case(name, q, k, v, causal, window, cap, scale=None) -> float:
     served = {n: flash_attention.bwd_kernel_launches[n] - before[n] for n in before}
     check(served == {n: int(n == kernel) for n in served},
           f"{name} {dtype}: backward launched {served}, want one {kernel}")
+    pad = (lambda t, w: t if t.shape[-1] == w else F.pad(t, (0, w - t.shape[-1])))
+    qp, kp, vp, dp = pad(q, kd), pad(k, kd), pad(v, kdv), pad(dout, kdv)
     with torch.no_grad():
-        out, m, l = ops.flash_attention_fwd(q, k, v, **kw)
-        again = ops.flash_attention_bwd_kernel(q, k, v, out, m, l, dout, **kw)
-        ref = flash_attention_bwd(q, k, v, out, m, l, dout, q_chunk=1024, kv_chunk=1024, **kw)
+        out, m, l = ops.flash_attention_fwd(qp, kp, vp, **kw)
+        again = ops.flash_attention_bwd_kernel(qp, kp, vp, out, m, l, dp, **kw)
+        ref = flash_attention_bwd(qp, kp, vp, out, m, l, dp, q_chunk=1024, kv_chunk=1024, **kw)
     torch.cuda.synchronize()
+    cut = lambda gs: [g[..., :w] for g, w in zip(gs, (d, d, dv))]  # noqa: E731
     worst, worst_abs, report = 0.0, 0.0, []
-    for gname, got, twin, want in zip(("dq", "dk", "dv"), (t.grad for t in ins), again, ref):
+    for gname, got, twin, want in zip(("dq", "dk", "dv"), (t.grad for t in ins), cut(again),
+                                      cut(ref)):
         check(torch.equal(got, twin), f"{name} {dtype} {gname}: two launches differ")
         check(got.dtype == want.dtype and got.shape == want.shape, f"{name} {gname}: bad grad")
         mx = want.float().abs().max().item()
@@ -1630,7 +1725,8 @@ def _flash_bwd_case(name, q, k, v, causal, window, cap, scale=None) -> float:
         check(err <= tol, f"{kernel} {name} {dtype} {gname}: max|Δ| {err} > {tol}")
         worst, worst_abs = max(worst, err / tol), max(worst_abs, err)
         report.append(f"{gname} {err:.3g} (max |g| {mx:.3g})")
-    print(f"[flash-bwd] {name} {str(dtype)[6:]} on {kernel}: max|Δ| vs plain "
+    how = f" padded to D = {kd}" if (kd, kdv) != (d, dv) else ""
+    print(f"[flash-bwd] {name} {str(dtype)[6:]} on {kernel}{how}: max|Δ| vs plain "
           + ", ".join(report) + f"; {worst:.3f} of the tolerance; two launches bit-equal")
     return worst, worst_abs
 
@@ -1772,14 +1868,12 @@ def _fresh_thread_backward(gen, dev) -> None:
 
 def phase_flash_backward(dev) -> list:
     """5b. Both backward kernels against the plain backward on every phase-5
-    case in both dtypes (strided k, v, the padded heads of 80 as the models
-    pad them, the softcap in its nonlinear range, the serving shape), then
+    case in both dtypes (strided k, v, heads of 80 and (D, Dv) = (192, 128),
+    which the op pads to a backward tile itself, the softcap in its
+    nonlinear range, the serving shape), then
     the tensor-core kernel's times at llama's, qwen3-moe's and gemma2's
     training shapes beside their bounds; returns the kernels' records."""
-    import torch.nn.functional as F
-
     from repro_torch.kernels.flash_attention import ops
-    from repro_torch.models import attention as attn_mod
 
     _flash_bwd_build_report()
     gen = torch.Generator(device=dev).manual_seed(7)
@@ -1788,7 +1882,8 @@ def phase_flash_backward(dev) -> list:
     dtypes = (torch.float32, torch.bfloat16)
 
     def run(name, q, k, v, causal, window, cap, scale=None):
-        kernel = ops.bwd_route(q.dtype, q.shape[-1])
+        kernel = ops.bwd_route(q.dtype, *ops.kernel_widths(q.dtype, q.shape[-1], v.shape[-1],
+                                                           grad=True))
         got = _flash_bwd_case(name, q, k, v, causal, window, cap, scale)
         worst[kernel] = [max(a, b) for a, b in zip(worst[kernel], got)]
 
@@ -1804,12 +1899,15 @@ def phase_flash_backward(dev) -> list:
             run(f"strided k, v of [{b}, {s}, 2, {kv}, {d}]", q, packed[:, :, 0],
                 packed[:, :, 1], True, window, cap)
     for b, s, kv, g, d, causal in FLASH_PADDED_CASES:
-        hd = attn_mod._flash_head_dim(d)
-        for dtype in dtypes:
-            q, k, v = (F.pad(t, (0, hd - d))
-                       for t in _flash_inputs((b, s, kv, g, d), dtype, gen, dev))
-            run(f"{(b, s, kv, g, d, causal)} padded to D = {hd}", q, k, v, causal, None, None,
-                d ** -0.5)
+        for dtype in dtypes:        # the op pads heads of 80 to 128 itself
+            run(f"{(b, s, kv, g, d, causal)}", *_flash_inputs((b, s, kv, g, d), dtype, gen, dev),
+                causal, None, None)
+    for b, s, kv, g, d, dv, causal in FLASH_BWD_ANY_WIDTH_CASES:
+        for dtype in dtypes:        # no backward tile at (80, 80) or (192, 128): padded
+            q, k = (torch.randn(b, s, h, d, generator=gen, device=dev).to(dtype)
+                    for h in (kv * g, kv))
+            v = torch.randn(b, s, kv, dv, generator=gen, device=dev).to(dtype)
+            run(f"(D, Dv) = ({d}, {dv}) {(b, s, kv, g)}", q, k, v, causal, None, None)
     for b, s, kv, g, d, window, cap, q_scale in FLASH_SOFTCAP_CASES:
         for dtype in dtypes:
             q, k, v = _flash_inputs((b, s, kv, g, d), dtype, gen, dev)
@@ -2495,22 +2593,41 @@ def _stream_profile(dev, cells) -> tuple:
 def _profile_stream_loop(dev, tab, traces, avail, cfg) -> tuple:
     """``simulate_fleet_stream`` over ``tab`` ``[P, T, N, M]`` and the
     scenario suite's ``[N, S]`` traces (S ≥ 4·PROFILE_STEPS): seconds a
-    step, unprofiled (median of 3 runs of 4·PROFILE_STEPS steps), then the
-    device kernels and busy µs per step of a PROFILE_STEPS-step profile
-    (``None`` where the profiler saw no device work)."""
+    step, unprofiled (median of 3 runs of 4·PROFILE_STEPS steps, the
+    stream program a replayed CUDA graph); the same steps with three
+    per-step fields emitted, replayed and run eagerly (the graph's ops
+    launched one by one), which must agree bit for bit, and the eager
+    seconds a step; then the device kernels, busy µs and host launch calls
+    per step of a PROFILE_STEPS-step profile (``None`` where the profiler
+    saw no device work)."""
     from repro_torch.core import controller as ctl
 
-    def run(n):
-        ctl.simulate_fleet_stream(tab, traces[None, None, :, :n], cfg, chunk_size=n,
-                                  avail=avail[None, None, :, :n], device=dev)
+    def run(n, emit=()):
+        return ctl.simulate_fleet_stream(tab, traces[None, None, :, :n], cfg, chunk_size=n,
+                                         avail=avail[None, None, :, :n], emit=emit,
+                                         device=dev)
 
     run(PROFILE_STEPS)
     step_s = _median_s(lambda: run(4 * PROFILE_STEPS), 3) / (4 * PROFILE_STEPS)
-    kernels = _device_kernels(lambda: run(PROFILE_STEPS))
+    emit = ("power", "predicted_bin", "violations")
+    graph = run(4 * PROFILE_STEPS, emit)
+    with ctl.eager_step_loops():
+        eager_s = _median_s(lambda: run(4 * PROFILE_STEPS, emit), 1) / (4 * PROFILE_STEPS)
+        eager = run(4 * PROFILE_STEPS, emit)
+    for f in ctl.FleetSummary._fields:
+        if f in ("final_predictor", "n_steps", "emitted"):
+            continue
+        check(np.array_equal(getattr(graph, f), getattr(eager, f)),
+              f"simulate_fleet_stream: the replayed graph's {f} differs from the eager loop's")
+    for e in emit:
+        check(np.array_equal(graph.emitted[e], eager.emitted[e]),
+              f"simulate_fleet_stream: emitted {e} differs from the eager loop's")
+    kernels, host = _profile(lambda: run(PROFILE_STEPS))
     if not kernels:
-        return step_s, None, None
+        return step_s, None, None, None, eager_s
     busy = sum(e.time_range.elapsed_us() for e in kernels) / PROFILE_STEPS
-    return step_s, len(kernels) / PROFILE_STEPS, busy
+    return (step_s, len(kernels) / PROFILE_STEPS, busy,
+            _launches_per_step(host, PROFILE_STEPS), eager_s)
 
 
 def _derived_tokens(derived: str) -> list:
@@ -2527,7 +2644,8 @@ def _check_bench_row(name: str, got: str, want: str, n_steps: int) -> None:
     check([k for k, _ in g] == [k for k, _ in w], f"{name}: keys {got} vs {want}")
     rate_keys = ("qos_viol", "qos", "worst_tenant_qos", "t_viol", "t_starve")
     for (key, a), (_, b) in zip(g, w):
-        if key in ("front", "ok", "qos_ok", "samples", "interval_s"):
+        if key in ("front", "ok", "qos_ok", "samples", "interval_s", "retraces", "chunk",
+                   "width"):
             check(a == b, f"{name}: {key} {a} vs {b} ({got} vs {want})")
             continue
         rate = key in rate_keys or b.startswith("q")
@@ -2539,8 +2657,11 @@ def _check_bench_row(name: str, got: str, want: str, n_steps: int) -> None:
 
 def _bench_campaign_rows(dev) -> dict:
     """benchmarks/run.py's campaign, failure, replay and scheduler rows at
-    1024 steps through the port on ``dev``, numbers at full precision; the
-    retrace counters (``*/stream_reuse``) have no counterpart."""
+    1024 steps through the port on ``dev``, numbers at full precision, with
+    the benchmark's sequences around them: the five ``*/stream_reuse*``
+    rows count the stream programs a same-shaped sweep builds
+    (``controller.fleet_trace_counts()``), as the benchmark counts JAX's
+    retraces."""
     from repro_torch.core import controller as ctl
     from repro_torch.core import scenarios as scn
     from repro_torch.core import traces as tr
@@ -2557,10 +2678,17 @@ def _bench_campaign_rows(dev) -> dict:
                 for k in ("power_gain", "power_gain_vs_configured", "mean_avail_nodes",
                           "qos_violation_rate")}
 
+    def stream_built():
+        return ctl.fleet_trace_counts()["stream"]
+
     techs = ("proposed", "power_gating", "hybrid")
     names = ("burse", "diurnal", "flash_crowd", "node_failure")
     out = scn.run_campaign(two, scenario_names=names, techniques=techs, n_steps=n,
                            chunk_size=chunk, device=dev)
+    before = stream_built()
+    scn.run_campaign(two, scenario_names=names, techniques=techs, n_steps=n, chunk_size=chunk,
+                     seed=1, device=dev)
+    rows["campaign/stream_reuse"] = f"retraces={stream_built() - before};chunk={chunk}"
     for scen in names:
         g = {t: mean_cell(out, two, t, scen)["power_gain"] for t in techs}
         q = mean_cell(out, two, "proposed", scen)["qos_violation_rate"]
@@ -2569,8 +2697,12 @@ def _bench_campaign_rows(dev) -> dict:
 
     techs = ("proposed", "power_gating", "hybrid", "headroom")
     fails = ("node_failure", "rack_failure", "cascade", "flaky_fleet")
+    scn.run_campaign(two, scenario_names=("burse", "diurnal", "flash_crowd", "ramp", "decay"),
+                     techniques=techs, n_steps=n, chunk_size=chunk, device=dev)
+    before = stream_built()
     out = scn.run_campaign(two, scenario_names=("burse",) + fails, techniques=techs,
                            n_steps=n, chunk_size=chunk, device=dev)
+    rows["failure/stream_reuse"] = f"retraces={stream_built() - before};chunk={chunk}"
     for tech in techs:
         c = mean_cell(out, two, tech, "node_failure")
         rows[f"failure/node_failure/{tech}"] = (
@@ -2591,8 +2723,12 @@ def _bench_campaign_rows(dev) -> dict:
 
     replays = ("replay_azure_vm_cpu", "replay_google_cluster", "cloud_mix")
     techs = ("proposed", "power_gating", "hybrid")
+    scn.run_campaign(tabla, scenario_names=("burse", "diurnal", "ramp"), techniques=techs,
+                     n_steps=n, chunk_size=chunk, device=dev)
+    before = stream_built()
     out = scn.run_campaign(tabla, scenario_names=replays, techniques=techs, n_steps=n,
                            chunk_size=chunk, device=dev)
+    rows["replay/stream_reuse"] = f"retraces={stream_built() - before};chunk={chunk}"
     row = out["table"][tabla[0].name]
     for scen in replays:
         rows[f"replay/{scen}"] = (f"prop={row['proposed'][scen]['power_gain']:.6f}x"
@@ -2602,13 +2738,14 @@ def _bench_campaign_rows(dev) -> dict:
         rows[f"replay/source/{name}"] = (f"samples={src.n_samples};interval_s={src.interval_s:g}"
                                          f";mean={src.utilization.mean():.6f}")
 
-    cells = {}
+    cells, stream0 = {}, None
     for label, tech, sched in (("sched_dvfs", "hybrid", "priority"),
                                ("dvfs_only", "hybrid", "none"),
                                ("placement_only", "power_gating", "priority")):
         out = scn.run_campaign(tabla, techniques=(tech,), scheduler=sched,
                                scenario_names=("multi_tenant",), n_steps=n, chunk_size=chunk,
                                tenants=3, device=dev)
+        stream0 = stream_built() if stream0 is None else stream0
         c = cells[label] = out["table"][tabla[0].name][tech]["multi_tenant"]
         rows[f"scheduler/{label}"] = (
             f"power_w={c['mean_power_w']:.6f}"
@@ -2622,6 +2759,16 @@ def _bench_campaign_rows(dev) -> dict:
         f"power_vs_dvfs_only={s['mean_power_w'] / d['mean_power_w']:.6f}"
         f";power_vs_placement_only={s['mean_power_w'] / p['mean_power_w']:.6f}"
         f";qos_ok={int(qos_ok)}")
+    # power gating's tables differ from hybrid's in a weak flag (controller.WeakLeaf), so
+    # the on/off sweep builds one program, as the benchmark's JAX run traces one
+    rows["scheduler/stream_reuse_onoff"] = f"retraces={stream_built() - stream0};chunk={chunk}"
+    width = dict(techniques=("hybrid",), n_steps=n, chunk_size=chunk, tenants=4,
+                 scheduler="priority", device=dev)
+    scn.run_campaign(tabla, scenario_names=("multi_tenant",), **width)
+    before = stream_built()
+    scn.run_campaign(tabla, scenario_names=("flash_crowd",), **width)
+    rows["scheduler/stream_reuse_tenant_width"] = (f"retraces={stream_built() - before}"
+                                                   f";chunk={chunk};width=4")
     return rows
 
 
@@ -2668,15 +2815,18 @@ def phase_campaign(dev) -> dict:
           f"{steps} steps, chunk 1024) on cuda: {wall:.2f} s, {wall / steps * 1e6:.1f} us per "
           f"step, grid_argmin launches {launches}; on the CPU {cpu_s:.2f} s; every cell "
           f"within {SUMMARY_RTOL} (worst rel {worst:.3g}), miss rates and Pareto fronts equal")
-    step_s, per_step, busy = _stream_profile(dev, cells)
+    step_s, per_step, busy, host, eager_s = _stream_profile(dev, cells)
+    print(f"[campaign] streaming loop at {cells} cells as a replayed CUDA graph: "
+          f"{step_s * 1e6:.1f} us per step (median of 3 runs of {4 * PROFILE_STEPS} steps) vs "
+          f"the eager step loop {eager_s * 1e6:.1f} us per step ({eager_s / step_s:.2f}x); "
+          f"every FleetSummary field and 3 emitted fields bit-equal")
     if per_step is None:
         print("[campaign] the profiler saw no device work: kernels per step and busy share "
               "not measured")
     else:
-        print(f"[campaign] streaming loop at {cells} cells: {step_s * 1e6:.1f} us per step "
-              f"(median of 3 runs of {4 * PROFILE_STEPS} steps); profile of {PROFILE_STEPS} "
-              f"steps: {per_step:.1f} device kernels per step, {busy:.1f} us device busy per "
-              f"step = {busy / (step_s * 1e6):.1%} of the unprofiled step")
+        print(f"[campaign] profile of {PROFILE_STEPS} steps: {per_step:.1f} device kernels per "
+              f"step from {host} host launches per step, {busy:.1f} us device busy per step = "
+              f"{busy / (step_s * 1e6):.1%} of the unprofiled step")
 
     bench = _bench_derived(("campaign", "failure", "replay", "scheduler"))
     t0 = time.perf_counter()
@@ -2684,10 +2834,7 @@ def phase_campaign(dev) -> dict:
     got = _bench_campaign_rows(dev)
     torch.cuda.synchronize()
     rows_s, launches = time.perf_counter() - t0, grid_argmin.launches
-    skipped = sorted(k for k in bench if k.endswith(("/stream_reuse", "stream_reuse_onoff",
-                                                     "stream_reuse_tenant_width")))
-    check(sorted(got) == sorted(set(bench) - set(skipped)),
-          f"BENCH rows differ: {sorted(set(got) ^ (set(bench) - set(skipped)))}")
+    check(sorted(got) == sorted(bench), f"BENCH rows differ: {sorted(set(got) ^ set(bench))}")
     for name in sorted(got):
         _check_bench_row(name, got[name], bench[name], BENCH_STEPS)
     print(f"[campaign] {len(got)} campaign/failure/replay/scheduler rows of BENCH_fleet.json "
@@ -2695,8 +2842,8 @@ def phase_campaign(dev) -> dict:
           f"{launches}): gains within {GAIN_ATOL}, rates within 2/S, fronts and flags equal")
     for name in ("failure/headroom_gate", "scheduler/cooptimization"):
         print(f"[campaign]   {name}: {got[name]}")
-    print(f"[campaign] skipped {skipped}: they count JAX retraces, which the port has no "
-          f"counter for yet (ROADMAP A13)")
+    for name in sorted(k for k in got if "stream_reuse" in k):
+        print(f"[campaign]   {name}: {got[name]} (BENCH_fleet.json: {bench[name]})")
     return {"result": res["cuda"], "wall": wall, "cells": cells}
 
 
@@ -2890,15 +3037,18 @@ def phase_predictors(dev) -> None:
         tables = ctl.fleet_bin_tables(params, cfg, ("proposed",), device=dev)
         tab = ctl.BinTables(*[x[:, :, None].expand(x.shape[:2] + (len(names),) + x.shape[2:])
                               for x in tables])
-        step_s, per_step, busy = _profile_stream_loop(dev, tab, traces, avail, cfg)
+        step_s, per_step, busy, host, eager_s = _profile_stream_loop(dev, tab, traces, avail,
+                                                                     cfg)
         if per_step is None:
-            print(f"[predictors] {kind}: {step_s * 1e6:.1f} us per step; the profiler saw no "
-                  "device work: kernels per step and busy share not measured")
+            print(f"[predictors] {kind}: {step_s * 1e6:.1f} us per step (eager "
+                  f"{eager_s * 1e6:.1f}, bit-equal); the profiler saw no device work: kernels "
+                  "per step and busy share not measured")
             continue
         print(f"[predictors] {kind}{f' (season {season})' if season else ''} streaming loop "
-              f"at {len(names)} cells: {step_s * 1e6:.1f} us per step; {per_step:.1f} device "
-              f"kernels and {busy:.1f} us device busy per step = {busy / (step_s * 1e6):.1%} "
-              f"of the step")
+              f"at {len(names)} cells as a replayed graph: {step_s * 1e6:.1f} us per step "
+              f"(eager {eager_s * 1e6:.1f}, bit-equal); {per_step:.1f} device kernels from "
+              f"{host} host launches and {busy:.1f} us device busy per step = "
+              f"{busy / (step_s * 1e6):.1%} of the step")
     _seasonal_dips(dev)
 
 
@@ -2925,10 +3075,11 @@ def _compose_cli(args) -> tuple:
           f"{run.stdout[-2000:]}\n{run.stderr[-2000:]}")
     line = next(x for x in run.stdout.splitlines()
                 if x.startswith("# kernels built in this process: "))
-    built = line.split(": ", 1)[1].split(" — ")[0]
-    check("second-half retraces: 0" in line, f"launch.compose: {line}")
+    built = line.split(": ", 1)[1]
+    traces = next(x for x in run.stdout.splitlines() if x.startswith("# traces="))
+    check(traces.endswith("second-half retraces: 0"), f"launch.compose: {traces}")
     warmed = [x for x in run.stdout.splitlines() if x.startswith("# warmed fleet path")]
-    return wall, built, warmed
+    return wall, built, warmed + [traces[2:]]
 
 
 def phase_composition(dev) -> None:
@@ -2985,11 +3136,16 @@ def phase_composition(dev) -> None:
         warm = _compose_cli(args + ["--warm"])
     check(cold[1].startswith("grid_argmin "), f"the first compose process built {cold[1]!r}")
     check(warm[1] == "none", f"the second compose process built {warm[1]!r}, want none")
+    check(cold[2][-1].split(" — ")[0] == warm[2][-1].split(" — ")[0],
+          f"the warmed process built other fleet programs than the cold one: {cold[2][-1]} vs "
+          f"{warm[2][-1]}")
     print(f"[composition] python -m repro_torch.launch.compose (defaults: 200 candidates x 2 "
           f"platforms x 2 scenarios; --steps {COMPOSE_CLI_STEPS}) --cache-dir <empty dir>: "
           f"{cold[0]:.2f} s, "
           f"built {cold[1]}; again with --warm over the same dir: {warm[0]:.2f} s, built "
-          f"{warm[1]}; {warm[2][0][2:] if warm[2] else 'no warm line'}")
+          f"{warm[1]}; {warm[2][0][2:] if len(warm[2]) > 1 else 'no warm line'}; fleet "
+          f"programs built: {cold[2][-1]} (cold), {warm[2][-1]} (warmed: the warmer built them "
+          f"all)")
 
 
 def _request_load(dev, technique="hybrid", **kw):
@@ -3300,19 +3456,21 @@ def _plain_attention(q, k, v, heads: int = 16, q_chunk=None, kv_chunk=None,
     return out
 
 
-def _prefill_widths(cfg) -> tuple:
-    """(D, Dv) at which a bf16 prefill of ``cfg`` reaches the flash op: q, k
-    and v at their own widths where the tensor-core forward has the pair
-    (``attention._native_widths``), else padded as ``_padded_flash`` pads."""
-    from repro_torch.kernels.flash_attention import ops
-    from repro_torch.models import attention as attn_mod
-
+def _model_widths(cfg) -> tuple:
+    """(D, Dv) at which ``cfg``'s prefill calls the flash op: q, k and v at
+    their own widths (MLA's q·k of nope + rope beside v)."""
     a = cfg.attention
-    dqk, dv = ((a.qk_nope_dim + a.qk_rope_dim, a.v_head_dim) if a.kind == "mla"
-               else (a.head_dim, a.head_dim))
-    if (dqk, dv) in ops.TC_HEAD_DIM_PAIRS:
-        return dqk, dv
-    return (attn_mod._flash_head_dim(max(dqk, dv)),) * 2
+    return ((a.qk_nope_dim + a.qk_rope_dim, a.v_head_dim) if a.kind == "mla"
+            else (a.head_dim, a.head_dim))
+
+
+def _prefill_widths(cfg) -> tuple:
+    """(D, Dv) of the tile a bf16 prefill of ``cfg`` runs on: q, k and v at
+    their own widths where the tensor-core forward has the pair, else
+    padded by the op (``ops.kernel_widths``)."""
+    from repro_torch.kernels.flash_attention import ops
+
+    return ops.kernel_widths(torch.bfloat16, *_model_widths(cfg))
 
 
 def _tiles(counts: dict) -> dict:
@@ -3324,17 +3482,17 @@ def _tiles(counts: dict) -> dict:
 def _padded_flash_times(shapes: dict, seed: int, dev, tag: str) -> dict:
     """The tensor-core kernel at models' prefill layers, bf16: its time on
     q, k, v at their own widths (MLA's q, k of 192 and v of 128, heads of 80,
-    on their native tiles), beside the same function padded as the models
-    pad in float32 and under grad (``attention._padded_flash``: zero
-    columns to the next tensor-core head_dim, at the unpadded scale; the
-    earlier route), the model's whole call, the plain version,
+    on their native tiles), beside the same function padded as the op pads
+    in float32 and under grad (``ops.kernel_widths``: zero columns to the
+    next tensor-core head_dim, at the unpadded scale; the earlier route),
+    the model's whole call, the plain version,
     ``scaled_dot_product_attention`` and the bound, the last three of the
     unpadded function (the bound on its useful work); the plain version
     runs a batch row and 16 heads at a time (``_plain_attention``), and the
     kernel, the padded kernel and SDPA are each held to it first."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import flash_attention, ops
     from repro_torch.models import attention as attn_mod
 
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -3344,7 +3502,7 @@ def _padded_flash_times(shapes: dict, seed: int, dev, tag: str) -> dict:
         k = torch.randn(b, s, kv, dqk, generator=gen, device=dev).to(torch.bfloat16)
         v = torch.randn(b, s, kv, dv, generator=gen, device=dev).to(torch.bfloat16)
         scale = dqk ** -0.5
-        hd = attn_mod._flash_head_dim(max(dqk, dv))
+        hd = ops.kernel_widths(torch.bfloat16, dqk, dv, grad=True)[0]
         padded = hd != dqk or hd != dv
         pq, pk, pv = (F.pad(t, (0, hd - t.shape[-1])) for t in (q, k, v))
         kernel = lambda: flash_attention(q, k, v, causal=causal, scale=scale)  # noqa: E731
@@ -3605,8 +3763,10 @@ def phase_moe_serving(dev) -> tuple:
         check(by_kernel == want, f"one bf16 generate launched {by_kernel}, want {want}")
         widths = _prefill_widths(cfg)
         tiles = phase_generate.tiles
-        check(set(dims) == {widths} and tiles == {f"{widths[0]},{widths[1]}": n_layers},
-              f"flash (D, Dv) {sorted(set(dims))}, tiles {tiles}; want {widths} x{n_layers}")
+        check(set(dims) == {_model_widths(cfg)}
+              and tiles == {f"{widths[0]},{widths[1]}": n_layers},
+              f"flash (D, Dv) {sorted(set(dims))}, tiles {tiles}; want calls at "
+              f"{_model_widths(cfg)} on the {widths} tile x{n_layers}")
         print(f"[moe] {arch} flash launches per generate: {by_kernel} at (D, Dv) = {widths} "
               f"(tiles {tiles}); peak device memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (bf16 weights, activations, "
@@ -3633,24 +3793,18 @@ def phase_moe_serving(dev) -> tuple:
 
 def _model_flash_check(cfg, run, n_calls: int, tag: str) -> None:
     """Every flash call of one bf16 prefill or forward (``run()``) against
-    the plain version on the q, k, v the model gave it, and, where the model
-    padded them, cut back against the plain version on the unpadded
-    tensors; ``n_calls`` calls, each at ``_prefill_widths`` (MLA's 192 / 128
-    and heads of 80 at their own widths) and with the config's causality."""
+    the plain version on the q, k, v the model gave it (at their own
+    widths: the op pads where no tile has them and cuts back); ``n_calls``
+    calls, each at ``_model_widths`` (MLA's 192 / 128 and heads of 80) and
+    with the config's causality."""
     from repro_torch.models import attention as attn_mod
 
-    a = cfg.attention
-    dqk, dv = ((a.qk_nope_dim + a.qk_rope_dim, a.v_head_dim) if a.kind == "mla"
-               else (a.head_dim, a.head_dim))
-    real, errs, unpadded, calls = attn_mod.flash_attention, [], [], []
+    real, errs, calls = attn_mod.flash_attention, [], []
 
     def held(q, k, v, **kw):
         out = real(q, k, v, **kw)
         calls.append((q.shape[-1], v.shape[-1], kw["causal"]))
         errs.append((out.float() - _plain_attention(q, k, v, **kw)).abs().max().item())
-        if q.shape[-1] != dqk or v.shape[-1] != dv:
-            ref = _plain_attention(q[..., :dqk], k[..., :dqk], v[..., :dv], **kw)
-            unpadded.append((out[..., :dv].float() - ref).abs().max().item())
         return out
 
     attn_mod.flash_attention = held
@@ -3660,20 +3814,15 @@ def _model_flash_check(cfg, run, n_calls: int, tag: str) -> None:
     finally:
         attn_mod.flash_attention = real
     tol = FLASH_TOL[torch.bfloat16]
-    want = (*_prefill_widths(cfg), cfg.causal)
+    want = (*_model_widths(cfg), cfg.causal)
     check(len(calls) == n_calls and set(calls) == {want},
           f"{cfg.name}: flash calls {sorted(set(calls))} x{len(calls)}, want {n_calls} of {want}")
     check(max(errs) <= tol, f"{cfg.name}: the kernel at the model's inputs, max|Δ| vs plain "
           f"by call {errs}")
-    note = ""
-    if unpadded:
-        check(max(unpadded) <= tol, f"{cfg.name}: the padded call vs the unpadded plain "
-              f"attention, max|Δ| by call {unpadded}")
-        note = (f"; cut to {dv} columns vs the plain version on the unpadded q, k ({dqk}) and "
-                f"v ({dv}): {max(unpadded):.3g}")
-    print(f"{tag} {cfg.name} bf16, every flash call ({n_calls}, (D, Dv) = {want[:2]}, "
-          f"{'causal' if cfg.causal else 'non-causal'}) vs the plain version on the model's q, "
-          f"k, v: max|Δ| {max(errs):.3g} (tol {tol}, calls {min(errs):.3g}-{max(errs):.3g}){note}")
+    print(f"{tag} {cfg.name} bf16, every flash call ({n_calls}, (D, Dv) = {want[:2]} on the "
+          f"{_prefill_widths(cfg)} tile, {'causal' if cfg.causal else 'non-causal'}) vs the "
+          f"plain version on the model's q, k, v: max|Δ| {max(errs):.3g} (tol {tol}, calls "
+          f"{min(errs):.3g}-{max(errs):.3g})")
 
 
 def _ssd_share(engine, batch, prefill_s: float) -> None:
@@ -3799,7 +3948,7 @@ def _zamba2_cell(dev) -> dict:
     check(by_kernel == want, f"one bf16 generate launched {by_kernel}, want {want}")
     hd = _prefill_widths(cfg)
     tiles = phase_generate.tiles
-    check(set(dims) == {hd} and tiles == {f"{hd[0]},{hd[1]}": n_shared},
+    check(set(dims) == {_model_widths(cfg)} and tiles == {f"{hd[0]},{hd[1]}": n_shared},
           f"flash (D, Dv) {sorted(set(dims))}, tiles {tiles}; want {hd} x{n_shared}")
     layout = dict(common.tree_leaves(transformer.cache_layout(
         cfg, HYBRID_BATCH, HYBRID_PROMPT + HYBRID_NEW)))
@@ -3903,7 +4052,8 @@ def _internvl2_cell(dev) -> dict:
     want = {ops.TENSOR_CORE: cfg.n_layers, ops.CUDA_CORE: 0}
     check(by_kernel == want, f"one bf16 generate launched {by_kernel}, want {want}")
     hd, a = _prefill_widths(cfg)[0], cfg.attention
-    check(set(dims) == {hd}, f"flash head_dims {sorted(set(dims))}, want {hd}")
+    check(set(dims) == {_model_widths(cfg)[0]} and hd == _model_widths(cfg)[0],
+          f"flash head_dims {sorted(set(dims))}, want {hd}")
     print(f"[hybrid] internvl2 flash launches per generate: {by_kernel} at D = {hd}, G = "
           f"{a.n_heads // a.n_kv_heads}; peak "
           f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")

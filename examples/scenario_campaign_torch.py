@@ -12,13 +12,14 @@ the ``node_failure`` cell priced against the available fleet, a
 Azure-style day replayed to the same length.  The operating tables come
 from the grid-argmin kernel on the card (its plain version on the CPU).
 
-Where the JAX example counts compiled chunk programs and retraces, the
-port has none to count: its stream loop runs eagerly, step by step, and
-what it compiles is the CUDA kernels, built once a process from the
-sources.  So the twin prints the kernel libraries the process has loaded
-(``kernels._build.loaded()``) in their place.  ``--steps`` (campaign
-steps, default 2048) and ``--stream-steps`` (default 100,000) shrink a
-run.
+The "compiled chunk programs" and "stream retraces" lines count what the
+JAX example's count: the port builds one stream program per key (fleet
+shape, chunk, tenant width, config), as JAX compiles one chunk program
+per jit key, and ``controller.fleet_trace_counts()`` counts them; on the
+card each is a captured CUDA graph of the control step, on the CPU the
+same step run eagerly.  The replayed trace has the synthetic one's shape,
+so it builds none.  ``--steps`` (campaign steps, default 2048) and
+``--stream-steps`` (default 100,000) shrink a run.
 """
 
 import argparse
@@ -32,7 +33,6 @@ from repro_torch.core import scenarios as scn
 from repro_torch.core import traces
 from repro_torch.core.accelerators import ACCELERATORS
 from repro_torch.device import resolve_device
-from repro_torch.kernels import _build
 
 TECHNIQUES = ("proposed", "power_gating", "hybrid")
 
@@ -99,21 +99,21 @@ def main(argv=None) -> int:
         print(f"  {tech:9s} gain={nominal / fs.mean_power_w[0, j]:.2f}x "
               f"served={fs.served_fraction[0, j]:.4f} "
               f"qos_viol={fs.qos_violation_rate[0, j]:.3f}")
-    print(f"  kernel libraries loaded by this process: {list(_build.loaded())} (the "
-          f"stream loop runs eagerly: no chunk program is compiled, so none is counted)")
+    print(f"  compiled chunk programs (stream traces): "
+          f"{ctl.fleet_trace_counts()['stream']}")
 
     # --- replaying a recorded trace: the bundled Azure-style day resampled
     # to the controller's τ and tiled to the same length
     azure = traces.load_bundled("azure_vm_cpu")
     replayed = azure.replay(n_steps, tau_s=60.0)
-    before = _build.loaded()
+    before = ctl.fleet_trace_counts()["stream"]
     fs = ctl.simulate_fleet_stream(tables, replayed, cfg, chunk_size=8192, device=dev)
     print(f"\nreplayed {azure.name} ({azure.n_samples} samples @ "
           f"{azure.interval_s:g}s → {n_steps:,} steps @ 60s): "
           f"gain={nominal / fs.mean_power_w[0, 0]:.2f}x "
           f"qos_viol={fs.qos_violation_rate[0, 0]:.3f} "
-          f"(kernel libraries loaded since: "
-          f"{[k for k in _build.loaded() if k not in before]})")
+          f"(stream retraces: "
+          f"{ctl.fleet_trace_counts()['stream'] - before})")
     return 0
 
 

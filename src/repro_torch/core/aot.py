@@ -1,10 +1,11 @@
 """The port's cold path: a persistent kernel-build cache and a warmer.
 
 In the JAX package (``repro.core.aot``) the cold cost of the fleet path is
-tracing and XLA-compiling its two programs.  The port compiles nothing per
-shape; its cold cost is the ``nvcc`` build of the CUDA kernel the fleet
-path launches (``grid_argmin``), then the first table build and the first
-chunk of the stream (CUDA context, library loads, allocator).  So:
+tracing and XLA-compiling its programs.  The port's cold cost is the
+``nvcc`` build of the CUDA kernel the fleet path launches (``grid_argmin``)
+and the first call of each fleet program key: the table build, and the
+capture of the stream chunk's CUDA graph (``controller``'s program
+caches, counted by ``fleet_trace_counts``).  So:
 
 * :func:`enable_compilation_cache` points ``kernels._build``'s library
   directory at a directory of the caller's (``--cache-dir`` of
@@ -12,8 +13,11 @@ chunk of the stream (CUDA context, library loads, allocator).  So:
   is loaded, not rebuilt, by every later process that uses the same
   directory and the same kernel source;
 * :func:`warm_fleet_programs` builds and loads those kernels up front,
-  then runs one table build and one chunk of the stream at the caller's
-  fleet shape, and reports the seconds of each.
+  then builds the "tables" and "stream" programs of the caller's fleet
+  shape by running them once (keyed through the controller's own
+  ``_runtime_cfg``, as the JAX package's warmers are), so that the
+  caller's first same-shaped call builds none, and reports the seconds
+  of each.
 
 Nothing here runs at import time: call sites opt in.
 """
@@ -63,7 +67,7 @@ def warm_fleet_programs(params: char.PlatformParams,
                         chunk_size: int = 1024, n_tenants: int = 1,
                         emit: Sequence[str] = (),
                         device=None) -> Dict[str, float]:
-    """Build the fleet path's kernels and run it once at one fleet shape.
+    """Build the fleet path's kernels and its programs at one fleet shape.
 
     ``fleet_shape`` is the tables' leading axes as
     :func:`~repro_torch.core.controller.simulate_fleet_stream` sees them
@@ -71,9 +75,13 @@ def warm_fleet_programs(params: char.PlatformParams,
     with a scenario axis); ``n_tenants`` the width of the workload plane.
     On the card the kernels are built (or loaded from the build
     directory) before the table build; on the CPU there is nothing to
-    build.  Returns wall seconds: ``{"tables_compile_s"}`` for the kernel
-    build and one table build, ``{"stream_compile_s"}`` for one chunk of
-    ``chunk_size`` steps over an idle workload.
+    build.  The "tables" program of ``techniques`` and the "stream"
+    program of ``(fleet_shape, chunk_size, n_tenants, emit)`` and ``cfg``
+    are built here (their keys ignore the values), so a later same-shaped
+    call adds nothing to ``fleet_trace_counts()``.  Returns wall seconds:
+    ``{"tables_compile_s"}`` for the kernel build and one table build,
+    ``{"stream_compile_s"}`` for one chunk of ``chunk_size`` steps over an
+    idle workload (on the card, the graph's capture included).
     """
     dev = resolve_device(device)
     t0 = time.perf_counter()
@@ -90,9 +98,10 @@ def warm_fleet_programs(params: char.PlatformParams,
     fleet_shape = lead if fleet_shape is None else tuple(fleet_shape)
     rows = (torch.arange(int(np.prod(fleet_shape, dtype=np.int64)),
                          device=dev) % int(np.prod(lead, dtype=np.int64)))
+    # (each field keeps its table's weak flag: the program key holds it)
     fleet = ctl.BinTables(*[
         x.reshape((-1,) + x.shape[len(lead):])[rows]
-        .reshape(fleet_shape + x.shape[len(lead):]) for x in tables])
+        .reshape(fleet_shape + x.shape[len(lead):]).as_subclass(type(x)) for x in tables])
     q = max(1, int(n_tenants))
     c = max(1, int(chunk_size))
     t0 = time.perf_counter()

@@ -34,8 +34,6 @@ from repro_torch.core import characterization as char
 from repro_torch.core import controller as ctl
 from repro_torch.core import scenarios as scn
 from repro_torch.device import resolve_device
-from repro_torch.kernels import _build
-from repro_torch.kernels.grid_argmin import grid_argmin
 
 #: Techniques whose per-node §V operating points do not depend on the
 #: fleet's node count (no node-count gears, no active-set quantization).
@@ -71,8 +69,9 @@ class CompositionResult(NamedTuple):
     pareto: Dict[str, np.ndarray]   # scenario -> candidate indices of the
                                     #   Pareto set, sorted by mean power
     n_rejected: int                 # candidates dropped by the budget gates
-    #: Kernel libraries built or loaded plus grid_argmin launches during
-    #: the second half of the batch, which needs neither: must be 0.
+    #: Fleet programs built during the second half of the batch (the sum
+    #: of ``controller.fleet_trace_counts()``'s deltas), which reuses the
+    #: first half's: must be 0.
     retraces_second_half: int
 
 
@@ -112,11 +111,6 @@ def pareto_front(objectives: np.ndarray) -> np.ndarray:
     return ~dominated
 
 
-def _kernel_work() -> int:
-    """Kernel libraries loaded plus grid_argmin launches so far."""
-    return len(_build.loaded()) + grid_argmin.launches
-
-
 def search_fleet_composition(
         platforms: Sequence[ctl.PlatformSpec],
         candidates: np.ndarray,
@@ -133,10 +127,10 @@ def search_fleet_composition(
     :func:`enumerate_candidates`); ``node_cost`` / ``node_throughput`` are
     per-platform vectors (1.0 a node by default).  The batch runs in two
     equal halves (an odd batch repeats its last candidate, dropped from
-    the result); ``retraces_second_half`` counts what the second half
-    could wrongly redo — kernel libraries built or loaded and
-    ``grid_argmin`` launches — and is 0.  ``device`` follows the port's
-    rule (``None`` is the card).
+    the result); ``retraces_second_half`` counts the fleet programs the
+    second half built (``controller.fleet_trace_counts()``'s deltas), as
+    the JAX package counts its retraces, and is 0.  ``device`` follows the
+    port's rule (``None`` is the card).
     """
     if technique not in COMPOSABLE_TECHNIQUES:
         raise ValueError(
@@ -210,7 +204,9 @@ def search_fleet_composition(
             power=cell(per_node["node_power"]) * cnt,
             v_core=cell(per_node["v_core"]), v_bram=cell(per_node["v_bram"]),
             f_rel=cell(per_node["f_rel"]),
-            n_active=cnt.expand(shape),
+            # the tables' weak flag (controller.WeakLeaf), so that the
+            # warmer's program, built from the tables' rows, is this one
+            n_active=cnt.expand(shape).as_subclass(type(per_node["n_active"])),
             node_power=cell(per_node["node_power"]),
             gated_power=torch.zeros(shape, device=dev),
             headroom=torch.zeros(shape[:-1], device=dev))
@@ -222,9 +218,10 @@ def search_fleet_composition(
                                          avail=avail, device=dev)
 
     fs_a = run_half(counts[:half], scale[:half])
-    before = _kernel_work()
+    before = ctl.fleet_trace_counts()
     fs_b = run_half(counts[half:], scale[half:])
-    retraces = _kernel_work() - before
+    after = ctl.fleet_trace_counts()
+    retraces = sum(after[k] - before[k] for k in after)
 
     def merge(field: str) -> np.ndarray:
         return np.concatenate([getattr(fs_a, field),

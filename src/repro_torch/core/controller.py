@@ -10,8 +10,8 @@ Port of the materialized fleet path of ``repro.core.controller``:
   card, its plain PyTorch version on the CPU), plus the hybrid gear argmin
   and the closed forms for nominal and power gating;
 * :func:`simulate_fleet` runs the runtime loop for every fleet cell at
-  once: a Python loop over steps whose state is ``[K]``-batched tensors
-  that never leave the device until the last step;
+  once: one control step over ``[K]``-batched tensors that never leave
+  the device until the last step, replayed once a step;
 * :func:`compare_all_batched` reduces the runs to the paper's
   :class:`Summary` metrics on the host, in numpy, exactly as the JAX
   package does;
@@ -23,7 +23,11 @@ Port of the materialized fleet path of ``repro.core.controller``:
 * :func:`simulate_fleet_stream` is the streaming engine of every campaign:
   the trace goes to the device ``[K, C]`` (or ``[K, C, T]`` with a tenant
   plane) one chunk at a time, the ``Summary`` reductions ride the step
-  loop, and memory never grows with the trace length.
+  loop, and memory never grows with the trace length;
+* the three fleet programs (the table sweep, the materializing loop, the
+  streaming chunk) are built once per key, as the JAX package's jits are
+  compiled, and counted by :func:`fleet_trace_counts`; on the card the
+  two loops' programs are the control step captured as a CUDA graph.
 
 Entry points take ``device``: ``None`` means the CUDA card and raises on
 a machine without one; ``"cpu"`` runs the plain path.
@@ -31,11 +35,14 @@ a machine without one; ``"cpu"`` runs the plain path.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import warnings
 from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_flatten, tree_map
 
 from repro_torch.core import characterization as char
 from repro_torch.core import pll as pll_mod
@@ -235,6 +242,48 @@ class BinTables(NamedTuple):
     headroom: torch.Tensor
 
 
+class WeakLeaf(torch.Tensor):
+    """A table field the JAX package builds weakly typed (from a Python
+    scalar: ``jnp.full``, a product with a Python float).  A jit key holds
+    each input's weak type, so two same-shaped tables whose fields differ
+    in it are two programs there (a geared technique's ``headroom`` is
+    weak, power gating's is not).  The port keys its fleet programs on the
+    same flag (:func:`_signature`), carried by this subclass through views
+    and ops as JAX carries it: an op's result is weak only where every
+    tensor it reads is.  Values and arithmetic are a plain tensor's."""
+
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        ins = [x for x in tree_flatten((args, kwargs))[0] if isinstance(x, torch.Tensor)]
+        with torch._C.DisableTorchFunctionSubclass():
+            out = func(*args, **kwargs)
+        if not ins or not all(isinstance(x, WeakLeaf) for x in ins):
+            return out
+        return tree_map(lambda x: x.as_subclass(WeakLeaf)
+                        if isinstance(x, torch.Tensor) and not isinstance(x, WeakLeaf) else x,
+                        out)
+
+
+#: The fields of each technique's tables that the JAX package's
+#: ``fleet_bin_tables`` makes weakly typed; a stacked field is weak where
+#: every technique's is.
+_WEAK_FIELDS = {
+    **dict.fromkeys(("proposed", "core_only", "bram_only", "freq_only"),
+                    ("capacity", "v_core", "v_bram", "f_rel", "n_active")),
+    "power_gating": ("v_core", "v_bram"),
+    "nominal": ("v_core", "v_bram", "n_active"),
+    "hybrid": ("v_core", "v_bram", "headroom"),
+    "headroom": ("v_core", "v_bram", "headroom"),
+}
+
+
+def _weak_fields(tables: BinTables, technique: str) -> BinTables:
+    """``tables`` with ``_WEAK_FIELDS[technique]`` marked weak."""
+    return tables._replace(**{f: getattr(tables, f).as_subclass(WeakLeaf)
+                              for f in _WEAK_FIELDS[technique]})
+
+
 def nominal_node_watts(platform: PlatformSpec) -> float:
     """One node's watts at nominal rails and full frequency — the
     denominator of the paper's power-reduction factor."""
@@ -296,8 +345,10 @@ def fleet_bin_tables(params: char.PlatformParams, cfg: ControllerConfig,
     """§V synthesis-time tables for a stacked fleet: fields ``[P, T, M]``.
 
     DVFS techniques and the hybrid/headroom gears share one masked sweep
-    (one ``grid_argmin`` launch); nominal and power gating are closed
-    forms in the platform's nominal watts.
+    (one ``grid_argmin`` launch, the "tables" program, keyed on the
+    shapes of the stacked params, the row masks and levels and the grids);
+    nominal and power gating are closed forms in the platform's nominal
+    watts.
     """
     dev = resolve_device(device)
     params = params.to(dev)
@@ -316,8 +367,9 @@ def fleet_bin_tables(params: char.PlatformParams, cfg: ControllerConfig,
     if dvfs or geared:
         grids, levels, row_masks, row_levels = _sweep_rows(cfg, techniques)
         grids, levels = grids.to(dev), levels.to(dev)
-        pts = grid_argmin(params, row_masks.to(dev), row_levels.to(dev),
-                          grids.core, grids.bram)
+        ins = (params, row_masks.to(dev), row_levels.to(dev), grids.core, grids.bram)
+        # the "tables" program is one grid_argmin launch (B1), made directly
+        pts = _program("tables", (ins[1].device, _signature(*ins)), lambda: grid_argmin)(*ins)
         node_w = pts.power * params.watts_scale[:, None, None]   # [P, R, M]
         for i, t in enumerate(dvfs):
             per_tech[t] = BinTables(
@@ -389,6 +441,7 @@ def fleet_bin_tables(params: char.PlatformParams, cfg: ControllerConfig,
                 .expand(n_p, m),
                 headroom=torch.zeros(n_p, device=dev))
 
+    per_tech = {t: _weak_fields(x, t) for t, x in per_tech.items()}
     return BinTables(*[torch.stack([getattr(per_tech[t], f) for t in techniques],
                                    dim=1)
                        for f in BinTables._fields])
@@ -521,16 +574,17 @@ _Carry = Tuple[pred_mod.PredictorState, pred_mod.PredictorState, torch.Tensor,
 
 def _control_step(tables: BinTables, cfg: ControllerConfig, carry: _Carry,
                   w_t: torch.Tensor, avail_t: torch.Tensor,
-                  spec: sched_mod.TenantSpec, sched: torch.Tensor,
-                  any_headroom: bool) -> Tuple[_Carry, _StepOut]:
+                  spec: sched_mod.TenantSpec, sched: torch.Tensor
+                  ) -> Tuple[_Carry, _StepOut]:
     """One §V control step for all ``K`` cells: predict → schedule-shape →
     select → clamp to availability → serve → observe.
 
     ``w_t`` is ``[K, T]`` offered work per tenant and ``avail_t`` ``[K]``
     usable nodes.  A step violates QoS when its demand (offered work plus
     carried backlog; only admitted work with the scheduler on) exceeds the
-    delivered capacity.  ``any_headroom`` is False when no cell reserved
-    headroom, which skips a bump that would leave every bin unchanged.
+    delivered capacity.  The headroom bump always runs, as in the JAX
+    package: it leaves every bin of a cell without headroom unchanged, and
+    the step reads no value on the host.
     """
     mstate, astate, backlog_t, place = carry
     w_agg = (w_t * spec.active).sum(-1)
@@ -542,8 +596,7 @@ def _control_step(tables: BinTables, cfg: ControllerConfig, carry: _Carry,
     shaped = sched_mod.opportunistic_bin(tables.power, tables.capacity, shaped,
                                          backlog_agg)
     selected = torch.where(sched[0] > 0, shaped, base)
-    if any_headroom:
-        selected = _headroom_bump(tables, cfg, astate, selected, backlog_agg)
+    selected = _headroom_bump(tables, cfg, astate, selected, backlog_agg)
 
     n_act, cap, pwr = availability_point(tables, selected, avail_t)
 
@@ -571,33 +624,195 @@ def _control_step(tables: BinTables, cfg: ControllerConfig, carry: _Carry,
     return (mstate, astate, alloc.backlog, alloc.place), out
 
 
-def _scan_control_loop(tables: BinTables, cfg: ControllerConfig,
-                       traces: torch.Tensor, avail: torch.Tensor
-                       ) -> TraceResult:
-    """The §V runtime loop over ``[K]`` cells: tables ``[K, M]``, traces
-    and availability ``[K, S]``.  Aggregate only: each trace rides as one
-    default tenant with the scheduler off.  Nothing leaves the device
-    inside the loop."""
-    dev = traces.device
-    k, s = traces.shape
-    spec = sched_mod.default_tenants(1).to(dev)
-    sched = sched_mod.scheduler_values(sched_mod.SCHEDULERS["none"], dev)
-    any_headroom = bool((tables.headroom > 0).any())
-    carry = (pred_mod.init_state(cfg.predictor, k, dev),
-             pred_mod.init_state(cfg.avail_predictor, k, dev),
-             torch.zeros((k, 1), device=dev), torch.zeros((k, 1), device=dev))
-    outs = {e: [] for e in _EMITTABLE}
-    for t in range(s):
-        carry, out = _control_step(tables, cfg, carry, traces[:, t, None],
-                                   avail[:, t], spec, sched, any_headroom)
+# ---------------------------------------------------------------------------
+# The fleet's programs: one per (shapes, static config) key
+# ---------------------------------------------------------------------------
+#
+# The JAX package jit-compiles three fleet programs, each once per key (the
+# shapes of its inputs and the static ``ControllerConfig``), and counts its
+# traces (``fleet_trace_counts``).  The port builds one program per such
+# key and keeps it for the life of the process: on the card the §V control
+# step is captured as a CUDA graph over the program's static buffers and
+# replayed once a step, the step index a device tensor the graph reads and
+# advances; on the CPU the same step runs eagerly on the same buffers.  A
+# call copies its values into the buffers and gets copies of the outputs
+# back (the next replay overwrites the buffers).  The tables program is one
+# ``grid_argmin`` launch, made from the keyed program directly.
+
+_TRACE_COUNTS = {"tables": 0, "simulate": 0, "stream": 0}
+_PROGRAMS: Dict[str, dict] = {kind: {} for kind in _TRACE_COUNTS}
+_EAGER = [False]
+#: dtypes of the per-step fields that are not float32.
+_STEP_DTYPES = {"violation": torch.bool, "predicted_bin": torch.long,
+                "actual_bin": torch.long, "tenant_violation": torch.bool,
+                "tenant_starved": torch.bool}
+
+
+def _step_buffer(field: str, k: int, n_tenants: int, n_steps: int,
+                 dev: torch.device) -> torch.Tensor:
+    """A program's buffer of one per-step field: ``[K, S]``, a tenant
+    field ``[K, T, S]``."""
+    lead = (k, n_tenants) if field.startswith("tenant_") else (k,)
+    return torch.zeros(lead + (n_steps,), dtype=_STEP_DTYPES.get(field, torch.float32),
+                       device=dev)
+
+
+def _runtime_cfg(cfg: ControllerConfig) -> ControllerConfig:
+    """The static part of the runtime programs' key: the technique only
+    changed the tables, the scheduler rides as values and headroom's
+    fraction lives in ``BinTables.headroom``, so none of them may split the
+    program cache.  The predictor configs stay (a program per family), as
+    in the JAX package.  Shared with the warmer (``core.aot``)."""
+    return dataclasses.replace(cfg, technique="proposed", scheduler="none",
+                               headroom_frac=0.0)
+
+
+def fleet_trace_counts() -> Dict[str, int]:
+    """Programs built in this process for each of the three fleet programs:
+    ``{"tables", "simulate", "stream"}`` — the grid sweep of
+    :func:`fleet_bin_tables`, the materializing loop of
+    :func:`simulate_fleet` and the chunk of :func:`simulate_fleet_stream`.
+
+    The counterpart of the JAX package's trace counters, keyed as its jits
+    are: on the input shapes plus the static config (:func:`_runtime_cfg`),
+    never on platform constants, trace values, the scheduler or the
+    technique; the port adds the device.  Sweeping new accelerators, seeds,
+    scenarios or replayed traces at the same fleet shape ``[K]``, chunk
+    ``C`` and config leaves the counts unchanged.  On the card each
+    runtime program is a captured CUDA graph; on the CPU it is the eager
+    step, counted the same way."""
+    return dict(_TRACE_COUNTS)
+
+
+@contextlib.contextmanager
+def eager_step_loops():
+    """Run the card's captured steps eagerly inside this context: the same
+    ops on the same buffers, launched one by one instead of replayed, to
+    hold the graphs against the eager loop.  Programs are built and
+    counted as outside it."""
+    _EAGER[0] = True
+    try:
+        yield
+    finally:
+        _EAGER[0] = False
+
+
+def _leaves(tree) -> list:
+    """The tensors of a (nested) NamedTuple, in order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [x for sub in tree for x in _leaves(sub)]
+
+
+def _signature(*trees) -> tuple:
+    """Shape, dtype and weak flag (:class:`WeakLeaf`) of every tensor of
+    ``trees``: the abstract values a jit key holds."""
+    return tuple((tuple(x.shape), x.dtype, isinstance(x, WeakLeaf))
+                 for tree in trees for x in _leaves(tree))
+
+
+def _program(kind: str, key: tuple, build):
+    """The ``kind`` program of ``key``, built (and counted) on first use."""
+    cache = _PROGRAMS[kind]
+    prog = cache.get(key)
+    if prog is None:
+        prog = cache[key] = build()
+        _TRACE_COUNTS[kind] += 1
+    return prog
+
+
+def _buffers(tree, dev):
+    """Static buffers holding a copy of ``tree``'s tensors on ``dev``."""
+    return _tree_map(lambda x: x.detach().as_subclass(torch.Tensor)
+                     .to(dev, copy=True).contiguous(), tree)
+
+
+def _copy_into(dst, src) -> None:
+    for d, x in zip(_leaves(dst), _leaves(src)):
+        d.copy_(x)
+
+
+class _StepLoop:
+    """``step`` (a function of no arguments that reads and writes static
+    buffers) run ``n`` times a call: on a CUDA device captured once as a
+    CUDA graph, after one warm-up run on a side stream, and replayed; on
+    the CPU called eagerly.  A capture that fails, or captures nothing,
+    raises."""
+
+    def __init__(self, step, dev: torch.device):
+        self.step, self.dev, self.graph = step, dev, None
+        if dev.type == "cuda":
+            with torch.cuda.device(dev):
+                side = torch.cuda.Stream(dev)
+                side.wait_stream(torch.cuda.current_stream(dev))
+                with torch.cuda.stream(side):
+                    step()
+                torch.cuda.current_stream(dev).wait_stream(side)
+                self.graph = torch.cuda.CUDAGraph()
+                # a capture stream of this device (the default one is made once,
+                # on the first device that captures); an empty graph is an error
+                with warnings.catch_warnings():
+                    warnings.filterwarnings("error", message="The CUDA Graph is empty")
+                    with torch.cuda.graph(self.graph, stream=torch.cuda.Stream(dev),
+                                          capture_error_mode="thread_local"):
+                        step()
+
+    def run(self, n: int) -> None:
+        if self.graph is None or _EAGER[0]:
+            for _ in range(n):
+                self.step()
+            return
+        with torch.cuda.device(self.dev):
+            for _ in range(n):
+                self.graph.replay()
+
+
+class _SimulateProgram:
+    """``_simulate_fleet_jit``'s counterpart: the §V loop over ``[K]``
+    cells, tables ``[K, M]``, traces and availability ``[K, S]``, every
+    per-step field kept as ``[K, S]``.  Aggregate only: each trace rides
+    as one default tenant with the scheduler off."""
+
+    def __init__(self, cfg: ControllerConfig, tables: BinTables,
+                 traces: torch.Tensor, avail: torch.Tensor):
+        dev = traces.device
+        k, s = traces.shape
+        self.cfg = cfg
+        self.tables, self.traces, self.avail = (_buffers(x, dev)
+                                                for x in (tables, traces, avail))
+        self.spec = sched_mod.default_tenants(1).to(dev)
+        self.sched = sched_mod.scheduler_values(sched_mod.SCHEDULERS["none"], dev)
+        self.init = (pred_mod.init_state(cfg.predictor, k, dev),
+                     pred_mod.init_state(cfg.avail_predictor, k, dev),
+                     torch.zeros((k, 1), device=dev), torch.zeros((k, 1), device=dev))
+        self.carry = _buffers(self.init, dev)
+        self.t = torch.zeros(1, dtype=torch.long, device=dev)
+        self.outs = {e: _step_buffer(e, k, 1, s, dev) for e in _EMITTABLE}
+        self.loop = _StepLoop(self._step, dev)
+
+    def _step(self) -> None:
+        t = self.t
+        carry, out = _control_step(self.tables, self.cfg, self.carry,
+                                   self.traces.index_select(1, t),
+                                   self.avail.index_select(1, t)[:, 0],
+                                   self.spec, self.sched)
         for e in _EMITTABLE:
-            outs[e].append(getattr(out, e))
-    mstate = carry[0]
-    steps = {e: torch.stack(xs, dim=-1) for e, xs in outs.items()}
-    return TraceResult(violations=steps.pop("violation"), **steps,
-                       mispredictions=mstate.mispredictions,
-                       margin_misses=mstate.margin_misses,
-                       final_predictor=mstate)
+            self.outs[e].index_copy_(1, t, getattr(out, e)[:, None])
+        _copy_into(self.carry, carry)
+        t.add_(1)
+
+    def __call__(self, tables: BinTables, traces: torch.Tensor,
+                 avail: torch.Tensor) -> TraceResult:
+        _copy_into((self.tables, self.traces, self.avail, self.carry),
+                   (tables, traces, avail, self.init))
+        self.t.zero_()
+        self.loop.run(traces.shape[1])
+        mstate = _tree_map(torch.clone, self.carry[0])
+        steps = {e: x.clone() for e, x in self.outs.items()}
+        return TraceResult(violations=steps.pop("violation"), **steps,
+                           mispredictions=mstate.mispredictions,
+                           margin_misses=mstate.margin_misses,
+                           final_predictor=mstate)
 
 
 def _broadcast_traces(traces: np.ndarray, lead: Tuple[int, ...]) -> np.ndarray:
@@ -643,8 +858,10 @@ def simulate_fleet(tables: BinTables, traces, cfg: ControllerConfig,
     :func:`fleet_bin_tables`); ``traces`` is one shared trace ``[S]`` or
     per-cell traces broadcastable to ``[..., S]``; ``avail`` is an
     optional usable-nodes schedule with the same rules (``None``: all
-    ``cfg.n_nodes`` every step).  Returns ``[..., S]`` fields on
-    ``device``.
+    ``cfg.n_nodes`` every step, the same ``[K, S]`` input).  Returns
+    ``[..., S]`` fields on ``device``.  One program per key (the tables'
+    ``[K, M]``, ``S``, the config's runtime part and the device;
+    ``fleet_trace_counts()["simulate"]``).
     """
     dev = resolve_device(device)
     lead = tuple(tables.capacity.shape[:-1])
@@ -656,7 +873,10 @@ def simulate_fleet(tables: BinTables, traces, cfg: ControllerConfig,
     avail = _broadcast_avail(avail, lead, cfg.n_nodes, s)
     traces = torch.tensor(traces.reshape(k, s), device=dev)
     avail = torch.tensor(avail.reshape(k, s), device=dev)
-    return _unflatten(_scan_control_loop(flat, cfg, traces, avail), lead)
+    run_cfg = _runtime_cfg(cfg)
+    prog = _program("simulate", (traces.device, run_cfg, _signature(flat, traces, avail)),
+                    lambda: _SimulateProgram(run_cfg, flat, traces, avail))
+    return _unflatten(prog(flat, traces, avail), lead)
 
 
 def simulate(platform: PlatformSpec, cfg: ControllerConfig, trace,
@@ -721,11 +941,12 @@ def compare_all(platform: PlatformSpec, trace,
 
 
 def _tree_map(fn, x, *rest):
-    """``fn`` on every tensor of a (nested) NamedTuple, or on the tensors
-    at the same place in several of them."""
+    """``fn`` on every tensor of a (nested) NamedTuple or tuple, or on the
+    tensors at the same place in several of them."""
     if isinstance(x, torch.Tensor):
         return fn(x, *rest)
-    return type(x)(*[_tree_map(fn, *vs) for vs in zip(x, *rest)])
+    vals = [_tree_map(fn, *vs) for vs in zip(x, *rest)]
+    return type(x)(*vals) if hasattr(x, "_fields") else type(x)(vals)
 
 
 def _unflatten(x, lead: Tuple[int, ...]):
@@ -875,27 +1096,34 @@ class FleetSummary(NamedTuple):
     tenant_final_backlog: np.ndarray
 
 
-def _stream_chunk(tables: BinTables, cfg: ControllerConfig, acc: _StreamAcc,
-                  chunk: torch.Tensor, avail, spec: sched_mod.TenantSpec,
-                  sched: torch.Tensor, any_headroom: bool,
-                  emit: Tuple[str, ...]
-                  ) -> Tuple[_StreamAcc, Dict[str, torch.Tensor]]:
-    """One chunk of steps on the device: ``chunk`` is ``[K, C, T]``,
-    ``avail`` ``[K, C]`` or one ``[K]`` row for every step.  The sums
-    restart at zero; nothing goes back to the host."""
-    zero = torch.zeros_like(acc.power_sum)
-    zt = torch.zeros_like(acc.backlog)
-    acc = acc._replace(power_sum=zero, viol_sum=zero, backlog_sum=zero,
-                       offered_sum=zero, avail_sum=zero, t_viol_sum=zt,
-                       t_starve_sum=zt, t_served_sum=zt, t_offered_sum=zt)
-    ys = {e: [] for e in emit}
-    for i in range(chunk.shape[1]):
-        w_t = chunk[:, i]
-        a_t = avail if avail.dim() == 1 else avail[:, i]
+class _StreamProgram:
+    """``_fleet_stream_chunk_jit``'s counterpart: one chunk of ``C`` steps
+    over ``[K]`` cells, the workload ``[K, C, T]``, availability ``[K, C]``
+    (the tail chunk zero-padded), the ``[K, T]`` tenant spec and the
+    scheduler vector as values.  The sums restart at zero each chunk;
+    nothing goes back to the host."""
+
+    def __init__(self, cfg: ControllerConfig, emit: Tuple[str, ...],
+                 tables: BinTables, acc: _StreamAcc, chunk: torch.Tensor,
+                 avail: torch.Tensor, spec: sched_mod.TenantSpec,
+                 sched: torch.Tensor):
+        dev = chunk.device
+        self.cfg, self.emit = cfg, emit
+        self.tables, self.acc, self.chunk, self.avail, self.spec, self.sched = (
+            _buffers(x, dev) for x in (tables, acc, chunk, avail, spec, sched))
+        self.t = torch.zeros(1, dtype=torch.long, device=dev)
+        k, c, n_tenants = chunk.shape
+        self.ys = {e: _step_buffer(e, k, n_tenants, c, dev) for e in emit}
+        self.loop = _StepLoop(self._step, dev)
+
+    def _step(self) -> None:
+        t, acc, spec = self.t, self.acc, self.spec
+        w_t = self.chunk.index_select(1, t)[:, 0]
+        a_t = self.avail.index_select(1, t)[:, 0]
         (ms, ast, bl, pl), out = _control_step(
-            tables, cfg, (acc.mstate, acc.astate, acc.backlog, acc.place),
-            w_t, a_t, spec, sched, any_headroom)
-        acc = _StreamAcc(
+            self.tables, self.cfg, (acc.mstate, acc.astate, acc.backlog, acc.place),
+            w_t, a_t, spec, self.sched)
+        new = _StreamAcc(
             mstate=ms, astate=ast, backlog=bl, place=pl,
             power_sum=acc.power_sum + out.power,
             viol_sum=acc.viol_sum + out.violation.float(),
@@ -906,9 +1134,28 @@ def _stream_chunk(tables: BinTables, cfg: ControllerConfig, acc: _StreamAcc,
             t_starve_sum=acc.t_starve_sum + out.tenant_starved.float(),
             t_served_sum=acc.t_served_sum + out.tenant_served,
             t_offered_sum=acc.t_offered_sum + w_t * spec.active)
-        for e in emit:
-            ys[e].append(getattr(out, e))
-    return acc, {e: torch.stack(y, dim=-1) for e, y in ys.items()}
+        for e, y in self.ys.items():
+            y.index_copy_(y.dim() - 1, t, getattr(out, e)[..., None])
+        _copy_into(acc, new)
+        t.add_(1)
+
+    def __call__(self, tables: BinTables, acc: _StreamAcc, chunk: torch.Tensor,
+                 avail: torch.Tensor, valid: np.ndarray, spec: sched_mod.TenantSpec,
+                 sched: torch.Tensor) -> Tuple[_StreamAcc, Dict[str, torch.Tensor]]:
+        """The chunk's carry and sums, and the ``emit`` fields ``[K, C]``.
+        ``valid`` is the host ``[C]`` step mask, a prefix: the steps past it
+        are not run, so they leave the carry and the sums as they are."""
+        n = int(np.count_nonzero(valid))
+        if not valid[:n].all():
+            raise ValueError("the valid steps of a chunk must be a prefix")
+        _copy_into((self.tables, self.acc, self.chunk, self.avail, self.spec, self.sched),
+                   (tables, acc, chunk, avail, spec, sched))
+        for f in _StreamAcc._fields[4:]:
+            getattr(self.acc, f).zero_()
+        self.t.zero_()
+        self.loop.run(n)
+        return (_tree_map(torch.clone, self.acc),
+                {e: y.clone() for e, y in self.ys.items()})
 
 
 def _broadcast_tenant_traces(traces: np.ndarray, lead: Tuple[int, ...],
@@ -982,9 +1229,15 @@ def simulate_fleet_stream(tables: BinTables, traces, cfg: ControllerConfig,
     ``[..., S]``) and ``avail`` (the same rules; ``None`` is a healthy
     fleet) stay stride-0 numpy views: only a ``[K, C]`` chunk
     (``C = chunk_size``) is ever made dense and copied to the device, one
-    copy per input per chunk.  The tail chunk runs just its remaining
-    steps.  Per chunk the ``Summary`` sums accumulate in float32 on the
-    device from zero and are added on the host in float64 afterwards.
+    copy per input per chunk (a healthy fleet's ``[K, C]`` availability is
+    made once).  The tail chunk is zero-padded to ``C`` under a valid mask,
+    so it runs the same program; its steps past the trace are not run.
+    Each chunk runs the "stream" program of its key (``K``, ``C``, the
+    tenant width, ``emit``, the config's runtime part and the device;
+    ``fleet_trace_counts()["stream"]``): on the card a captured CUDA graph
+    of one step, replayed ``C`` times.  Per chunk the ``Summary`` sums
+    accumulate in float32 on the device from zero and are added on the
+    host in float64 afterwards.
     ``emit`` names per-step :class:`TraceResult` fields to keep as
     ``[..., S]`` host arrays in ``FleetSummary.emitted``.
 
@@ -1006,11 +1259,11 @@ def simulate_fleet_stream(tables: BinTables, traces, cfg: ControllerConfig,
     back; the memory bound is ``[K / d, C]`` a device.
 
     ``shard=True`` (the reference's default, which splits over every local
-    device) runs on ``device``, as ``False`` does, until a split is no
-    slower than one card.  The loop is bound by host launches and each
-    slice issues as many as the whole fleet: on 4 × H100 the default
-    campaign at 2048 steps took 29.96 s split from one host thread and
-    110.12 s from a thread a card, against 7.80 s and 5.34 s on one card.
+    device) runs on ``device``, as ``False`` does: each device runs its own
+    program, and a slice's step takes as long on its card as the whole
+    fleet's does on one (the step is a fixed count of small kernels), so
+    on 4 × H100 the default campaign at 2048 steps took 1.28 s split
+    against 1.16 s on one card.
     """
     alias = {"violations": "violation"}
     emit = tuple(emit)
@@ -1040,8 +1293,7 @@ def simulate_fleet_stream(tables: BinTables, traces, cfg: ControllerConfig,
     scfg = cfg.scheduler if tenant_spec is not None \
         else sched_mod.SCHEDULERS["none"]
     spec = _flatten_tenant_spec(spec_in, lead, k, dev)
-    # over all K, so that every slice takes the same branch
-    any_headroom = bool((flat.headroom > 0).any())
+    run_cfg = _runtime_cfg(cfg)
 
     mesh = _fleet_mesh_of(shard)
     devices = mesh.devices if mesh is not None else (dev,)
@@ -1058,8 +1310,15 @@ def simulate_fleet_stream(tables: BinTables, traces, cfg: ControllerConfig,
         parts = [(dev, flat, spec)]
     rows = k_pad // len(parts)
 
-    def host_rows(x: np.ndarray) -> np.ndarray:
-        """``[k, ...]`` host rows padded to ``k_pad`` with cell 0."""
+    def host_chunk(x: np.ndarray, s0: int) -> np.ndarray:
+        """Steps ``s0 : s0 + c`` of ``lead + (S, ...)`` rows as ``[k_pad, c,
+        ...]``: padded to ``k_pad`` rows with cell 0, and the tail chunk
+        with zero steps to ``c``.  Slicing the step axis keeps a stride-0
+        view: only k·C elements (k·C·T for a tenant plane) are made dense."""
+        x = np.array(x[..., s0:s0 + c, :] if x.ndim > len(lead) + 1 else x[..., s0:s0 + c])
+        x = x.reshape((k,) + x.shape[len(lead):])
+        if x.shape[1] < c:
+            x = np.concatenate([x, np.zeros((k, c - x.shape[1]) + x.shape[2:], x.dtype)], 1)
         if k_pad == k:
             return x
         return np.concatenate([x, np.broadcast_to(x[:1], (k_pad - k,) + x.shape[1:])])
@@ -1075,8 +1334,8 @@ def simulate_fleet_stream(tables: BinTables, traces, cfg: ControllerConfig,
             offered_sum=zk, avail_sum=zk, t_viol_sum=zt, t_starve_sum=zt,
             t_served_sum=zt, t_offered_sum=zt))
     scheds = [sched_mod.scheduler_values(scfg, d) for d, _, _ in parts]
-    # A healthy fleet's schedule is one constant row for every step.
-    av_const = ([torch.full((rows,), float(cfg.n_nodes), device=d) for d, _, _ in parts]
+    # A healthy fleet's schedule: one [rows, C] chunk of n_nodes, made once.
+    av_const = ([torch.full((rows, c), float(cfg.n_nodes), device=d) for d, _, _ in parts]
                 if avail is None else None)
 
     sum_fields = _StreamAcc._fields[4:]
@@ -1084,25 +1343,26 @@ def simulate_fleet_stream(tables: BinTables, traces, cfg: ControllerConfig,
             for f in sum_fields}
     emitted = {e: [] for e in emit}
     for s0 in range(0, s, c):
-        # Slicing the step axis keeps the stride-0 view: only k·C elements
-        # (k·C·T for a tenant plane) are made dense, then copied once.
-        chunk = host_rows(np.array(traces[..., s0:s0 + c, :]).reshape(k, -1, t))
-        av = None if av_const is not None else host_rows(
-            np.array(avail_full[..., s0:s0 + c]).reshape(k, -1))
-        ins = [(torch.from_numpy(chunk[i * rows:(i + 1) * rows]).to(d),
-                av_const[i] if av_const is not None
-                else torch.from_numpy(av[i * rows:(i + 1) * rows]).to(d))
-               for i, (d, _, _) in enumerate(parts)]
+        n_valid = min(c, s - s0)
+        valid = np.arange(c) < n_valid
+        chunk = host_chunk(traces, s0)
+        av = None if av_const is not None else host_chunk(avail_full, s0)
         ys_parts = []
-        for i, (_, ftab, fspec) in enumerate(parts):    # every device's chunk first
-            states[i], ys = _stream_chunk(ftab, cfg, states[i], *ins[i], fspec, scheds[i],
-                                          any_headroom, emit_internal)
+        for i, (d, ftab, fspec) in enumerate(parts):    # every device's chunk first
+            ins = (ftab, states[i], torch.from_numpy(chunk[i * rows:(i + 1) * rows]).to(d),
+                   av_const[i] if av_const is not None
+                   else torch.from_numpy(av[i * rows:(i + 1) * rows]).to(d))
+            key = (ins[2].device, run_cfg, emit_internal, _signature(*ins, fspec, scheds[i]))
+            prog = _program("stream", key, lambda: _StreamProgram(
+                run_cfg, emit_internal, *ins, fspec, scheds[i]))
+            states[i], ys = prog(*ins, valid, fspec, scheds[i])
             ys_parts.append(ys)
         for f in sum_fields:                             # then read the sums
             sums[f] += np.concatenate([getattr(a, f).cpu().numpy() for a in states]
                                       ).astype(np.float64)
         for e, ei in zip(emit, emit_internal):
-            emitted[e].append(np.concatenate([ys[ei].cpu().numpy() for ys in ys_parts]))
+            emitted[e].append(np.concatenate([ys[ei][:, :n_valid].cpu().numpy()
+                                              for ys in ys_parts]))
 
     def cut(x):
         x = np.asarray(x)[:k]

@@ -21,10 +21,18 @@ fixed rule on dtype and head_dim (``route``):
   on the CUDA cores above (the source picks by head_dim; ``CUDA_CORE``
   keeps its name).
 
-A bfloat16 pair outside ``TC_HEAD_DIM_PAIRS``, a float32 head_dim above
-``MAX_HEAD_DIM`` or a float32 v narrower than q, k raises on a CUDA
-tensor; the plain version takes any widths.  There is no fallback
-between the kernels or to the plain version.
+The op takes any widths 1 <= D, Dv <= ``MAX_HEAD_DIM`` on every device.  On
+a CUDA (or fake) tensor it runs the kernels at the widths ``kernel_widths``
+names: a bfloat16 call that needs no grad, at a pair of
+``TC_HEAD_DIM_PAIRS``, at its own widths; every other call at one width,
+the least of ``TC_HEAD_DIMS`` that holds max(D, Dv).  q, k and v are padded
+with zero columns to those widths inside the op (zero columns add exactly
+0 to every score and leave the row stats as they are), with the scale of
+the unpadded D, and the output and each gradient are cut back.  A width
+above ``MAX_HEAD_DIM`` raises on a CUDA tensor; the plain version takes
+the widths as they come, unpadded.  ``route`` and ``bwd_route`` are the
+fixed tables of the tiles that exist and raise for a pair without one.
+There is no fallback between the kernels or to the plain version.
 ``flash_attention.launches`` counts all kernel launches,
 ``flash_attention.kernel_launches`` the launches of each kernel and
 ``flash_attention.tile_launches`` the tensor-core kernel's by its
@@ -36,9 +44,8 @@ Its forward is the same kernel (or plain version) asked also for the row
 stats m and l, and saves (q, k, v, out, m, l).  Its backward follows the
 device in the same way: CUDA tensors launch the backward kernel that
 ``bwd_route`` names (``flash_attention_bwd_kernel``), by the same rule as
-the forward's, at one head_dim for q, k and v (``TC_HEAD_DIMS`` in
-bfloat16; a grad-requiring call at another pair raises on a CUDA tensor
-before its forward launches):
+the forward's, at one head_dim for q, k and v (``TC_HEAD_DIMS``: a
+grad-requiring call pads to one of them, ``kernel_widths(..., grad=True)``):
 
 * bfloat16 → ``flash_attention_bwd_wgmma``
   (``csrc/flash_attention_bwd_wgmma.cu``): dK/dV and dQ in two passes on
@@ -84,8 +91,8 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 MAX_HEAD_DIM = 256
 #: bfloat16 head_dims of both tensor-core kernels, forward and backward, at
 #: one width for q, k and v: a multiple of wgmma's depth of 16 whose
-#: swizzled TMA box row (D·2 bytes, at most 128) tiles D.  The models pad
-#: other widths to the least of these where they need the backward.
+#: swizzled TMA box row (D·2 bytes, at most 128) tiles D.  The op pads
+#: other widths to the least of these (``kernel_widths``).
 TC_HEAD_DIMS = (16, 32, 64, 128, 256)
 #: (q, k head_dim, v head_dim) pairs of the tensor-core forward, one tile
 #: each: ``TC_HEAD_DIMS`` at one width, heads of 80 (zamba2's shared block,
@@ -172,6 +179,39 @@ def bwd_route(dtype: torch.dtype, head_dim: int, v_head_dim: Optional[int] = Non
         raise ValueError(f"flash_attention: the bfloat16 backward kernel takes one "
                          f"head_dim in {TC_HEAD_DIMS} for q, k and v, got ({head_dim}, {dv})")
     return _BWD[kernel]
+
+
+def kernel_widths(dtype: torch.dtype, head_dim: int, v_head_dim: Optional[int] = None,
+                  grad: bool = False) -> Tuple[int, int]:
+    """The (q·k, v) widths at which the kernels run a CUDA call of ``dtype``
+    with q, k of ``head_dim`` and v of ``v_head_dim`` (``head_dim`` when
+    None); ``grad`` says whether the call is differentiated.  A bfloat16
+    call without grad at a pair of ``TC_HEAD_DIM_PAIRS`` runs at its own
+    widths; every other call at one width, the least of ``TC_HEAD_DIMS``
+    that holds the wider (80 → 128; 192 and 128 → 256).  Raises
+    ``ValueError`` above ``MAX_HEAD_DIM``."""
+    dv = head_dim if v_head_dim is None else v_head_dim
+    if dtype == torch.bfloat16 and not grad and (head_dim, dv) in TC_HEAD_DIM_PAIRS:
+        return head_dim, dv
+    width = max(head_dim, dv)
+    if not 1 <= min(head_dim, dv) or width > MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: the kernels take head_dims 1 to {MAX_HEAD_DIM} "
+                         f"for q, k and v, got ({head_dim}, {dv})")
+    hd = next(t for t in TC_HEAD_DIMS if t >= width)
+    return hd, hd
+
+
+def _at_kernel_widths(t: torch.Tensor) -> bool:
+    """Whether a call on ``t`` runs at ``kernel_widths``: a CUDA tensor, or
+    the dry run's fake one (the plain version takes CPU tensors' widths as
+    they come)."""
+    return t.device.type == "cuda" or op_cost.is_fake(t)
+
+
+def _pad_columns(t: torch.Tensor, width: int) -> torch.Tensor:
+    """``t`` with zero columns up to ``width`` (``t`` itself at that width:
+    a strided view reaches the kernel unchanged)."""
+    return t if t.shape[-1] == width else torch.nn.functional.pad(t, (0, width - t.shape[-1]))
 
 
 def bwd_kv_box_rows(head_dim: int) -> int:
@@ -278,7 +318,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     if softcap is not None and not softcap > 0:
         raise ValueError(f"softcap must be None or > 0, got {softcap}")
     if dev.type == "cuda" or op_cost.is_fake(q):
-        route(q.dtype, d, dv)
+        route(q.dtype, *kernel_widths(q.dtype, d, dv))
         if window is not None and sq != sk:
             raise ValueError(f"a windowed flash_attention kernel needs Sq == Sk (got {sq}, "
                              f"{sk}): it aligns the window at 0, the plain version on the "
@@ -305,21 +345,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (the kernels align masks at 0, the plain version on the right);
     ``window`` keeps keys with
     ``qpos − kpos < window``; ``softcap`` caps scores at ``c·tanh(s/c)``;
-    ``scale`` defaults to ``1/sqrt(D)``.  On a CUDA tensor (D, Dv) must be
-    a pair ``route`` takes, the head_dim axes must be contiguous and the
-    kernels read the other axes through their strides; a bfloat16 view
-    must also be one TMA can take (``tma_map_args``).  When grad is enabled
-    and an input requires grad, the call is differentiable
-    (:class:`FlashAttention`; on a CUDA tensor at a pair ``bwd_route``
-    takes), and its backward works in blocks of ``q_chunk`` query rows by
-    ``kv_chunk`` keys (the model config's).
+    ``scale`` defaults to ``1/sqrt(D)``.  On a CUDA tensor D and Dv are at
+    most ``MAX_HEAD_DIM`` and the op runs the kernels at ``kernel_widths``
+    (q, k, v padded with zero columns, the output cut back), the head_dim
+    axes must be contiguous and the kernels read the other axes through
+    their strides; a bfloat16 view the kernel takes at its own widths must
+    also be one TMA can take (``tma_map_args``).  When grad is enabled and
+    an input requires grad, the call is differentiable
+    (:class:`FlashAttention`), and its backward works in blocks of
+    ``q_chunk`` query rows by ``kv_chunk`` keys (the model config's).
     """
     _check(q, k, v, causal, window, softcap)
     scale = scale if scale is not None else 1.0 / (q.shape[-1] ** 0.5)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return FlashAttention.apply(q, k, v, causal, window, softcap, scale, q_chunk,
                                     kv_chunk)
-    return _forward(q, k, v, causal, window, softcap, scale, stats=False)[0]
+    return _padded_forward(q, k, v, causal, window, softcap, scale, stats=False)[0]
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -329,11 +370,25 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """The op's forward with the row stats: ``(out, m, l)``, out
     [B,Sq,H,Dv] as ``flash_attention``'s, m and l
     float32 [B,H,Sq] in the natural-log domain of the scaled scores (the
-    kernels store them; the plain version computes them).  Not
+    kernels store them; the plain version computes them; zero columns
+    padded to ``kernel_widths`` leave them as they are).  Not
     differentiable."""
     _check(q, k, v, causal, window, softcap)
     scale = scale if scale is not None else 1.0 / (q.shape[-1] ** 0.5)
-    return _forward(q, k, v, causal, window, softcap, scale, stats=True)
+    return _padded_forward(q, k, v, causal, window, softcap, scale, stats=True)
+
+
+def _padded_forward(q, k, v, causal, window, softcap, scale, stats: bool):
+    """``_forward`` at ``kernel_widths`` on a CUDA or fake tensor (q, k, v
+    padded with zero columns, the output cut back to v's width), at the
+    widths as they come on the CPU."""
+    dv = v.shape[-1]
+    if not _at_kernel_widths(q):
+        return _forward(q, k, v, causal, window, softcap, scale, stats)
+    kd, kdv = kernel_widths(q.dtype, q.shape[-1], dv)
+    out, m, l = _forward(_pad_columns(q, kd), _pad_columns(k, kd), _pad_columns(v, kdv),
+                         causal, window, softcap, scale, stats)
+    return (out if kdv == dv else out[..., :dv]), m, l
 
 
 def kept_scores(sq: int, sk: int, causal: bool, window: Optional[int]) -> int:
@@ -367,32 +422,42 @@ class FlashAttention(torch.autograd.Function):
     """The op under autograd: forward by the kernel (CUDA) or the plain
     version (CPU) with the row stats, backward by the backward kernel
     (CUDA, ``flash_attention_bwd_kernel``) or ``flash_attention_bwd``
-    (CPU)."""
+    (CPU).  On a CUDA or fake tensor q, k and v are padded to
+    ``kernel_widths(..., grad=True)`` inside, and the output and the
+    gradients are cut back to the caller's widths."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, softcap, scale, q_chunk, kv_chunk):
-        if q.device.type == "cuda" or op_cost.is_fake(q):
-            bwd_route(q.dtype, q.shape[-1], v.shape[-1])  # raises before the forward runs
+        d, dv = q.shape[-1], v.shape[-1]
+        if _at_kernel_widths(q):
+            kd, kdv = kernel_widths(q.dtype, d, dv, grad=True)
+            bwd_route(q.dtype, kd, kdv)          # raises before the forward runs
+            q, k, v = _pad_columns(q, kd), _pad_columns(k, kd), _pad_columns(v, kdv)
         out, m, l = _forward(q, k, v, causal, window, softcap, scale, stats=True)
         ctx.save_for_backward(q, k, v, out, m, l)
+        ctx.widths = (d, dv)
         ctx.opts = dict(causal=causal, window=window, softcap=softcap, scale=scale,
                         q_chunk=q_chunk, kv_chunk=kv_chunk)
-        return out
+        return out if out.shape[-1] == dv else out[..., :dv].contiguous()
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, m, l = ctx.saved_tensors
         o = ctx.opts
+        d, dv = ctx.widths
+        dout = _pad_columns(dout, v.shape[-1])
         # dq, dk, dv are written in q's, k's and v's sizes
         work = _work(q, k, v, o["causal"], o["window"], (q, k, v, out, m, l, dout, q, k, v),
                      backward=True)
         with op_cost.kernel("flash_attention_bwd", work):
             if q.device.type == "cpu" and not op_cost.is_fake(q):
-                dq, dk, dv = flash_attention_bwd(q, k, v, out, m, l, dout, **o)
+                dq, dk, dv_ = flash_attention_bwd(q, k, v, out, m, l, dout, **o)
             else:
                 opts = {n: o[n] for n in ("causal", "window", "softcap", "scale")}
-                dq, dk, dv = flash_attention_bwd_kernel(q, k, v, out, m, l, dout, **opts)
-        return dq, dk, dv, None, None, None, None, None, None
+                dq, dk, dv_ = flash_attention_bwd_kernel(q, k, v, out, m, l, dout, **opts)
+        if q.shape[-1] != d or v.shape[-1] != dv:        # cut the padding's columns off
+            dq, dk, dv_ = dq[..., :d], dk[..., :d], dv_[..., :dv]
+        return dq, dk, dv_, None, None, None, None, None, None
 
 
 def flash_attention_bwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

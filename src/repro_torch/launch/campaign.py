@@ -16,9 +16,12 @@ runs in memory independent of it.  The flags, the table printed and the
 ``--json`` output are those of the JAX package's ``scripts/campaign.py``,
 plus ``--device``.  ``--predictor`` takes every registered family.
 ``--cache-dir`` keeps the built kernel libraries in a directory that later
-processes reuse, and ``--warm`` builds them and runs the fleet path once
-at the campaign's shape first (``core.aot``: the port's cold cost is the
-kernel build, not a compile per shape).
+processes reuse, and ``--warm`` builds them and builds the fleet programs
+of the campaign's shape first (``core.aot``), so the campaign itself
+builds none.  The header's ``traces=`` is
+``controller.fleet_trace_counts()``: the fleet programs built in this
+process (on the card captured CUDA graphs), as the JAX script counts its
+traces.
 """
 
 from __future__ import annotations
@@ -217,7 +220,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                    if args.tenants else "")
     print(f"# {cells} cells × {args.steps} steps in {dt:.2f}s "
           f"(chunk={args.chunk}, predictor={args.predictor}"
-          f"{tenant_note}, device={args.device or 'cuda'})\n")
+          f"{tenant_note}, device={args.device or 'cuda'}, "
+          f"traces={ctl.fleet_trace_counts()})\n")
 
     for scen in out["scenarios"]:
         print(f"== scenario: {scen} ==")

@@ -16,8 +16,9 @@ violation rate, cost).  The flags, the table and the ``--json`` output are
 those of the JAX package's ``scripts/compose.py``, plus ``--device``.
 ``--cache-dir`` keeps the built kernel libraries in a directory that
 later processes reuse; ``--warm`` builds them and runs the fleet path
-once at the search's shape before the search.  ``--fail-on-retrace``
-exits 1 if the second half built, loaded or launched any kernel.
+once at the search's shape before the search.  The ``# traces=`` line is
+``controller.fleet_trace_counts()`` (the fleet programs built in this
+process), and ``--fail-on-retrace`` exits 1 if the second half built any.
 """
 
 from __future__ import annotations
@@ -68,8 +69,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                     help="build the fleet path's kernels and run it once "
                     "at the search's shape before the search")
     ap.add_argument("--fail-on-retrace", action="store_true",
-                    help="exit 1 if the second candidate half built, "
-                    "loaded or launched any kernel")
+                    help="exit 1 if the second candidate half built any "
+                    "fleet program (controller.fleet_trace_counts)")
     ap.add_argument("--json", type=str, default="",
                     help="write the full result table to this path")
     ap.add_argument("--device", default=None,
@@ -115,8 +116,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     built = _build.built()
     print("# kernels built in this process: "
           + (", ".join(f"{k} {v:.2f}s" for k, v in sorted(built.items()))
-             if built else "none")
-          + f" — second-half retraces: {res.retraces_second_half}\n")
+             if built else "none"))
+    print(f"# traces={ctl.fleet_trace_counts()} — "
+          f"second-half retraces: {res.retraces_second_half}\n")
 
     short = [p.split(":")[-1] for p in res.platform_names]
     for scen in res.scenario_names:
@@ -154,9 +156,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         print(f"# wrote {args.json}")
 
     if args.fail_on_retrace and res.retraces_second_half:
-        print(f"ERROR: the second candidate half built, loaded or launched "
-              f"{res.retraces_second_half} kernel(s) — the composition "
-              "sweep is supposed to need none after the first half")
+        print(f"ERROR: the second candidate half built "
+              f"{res.retraces_second_half} fleet program(s) — the composition "
+              "sweep is supposed to reuse the first half's")
         return 1
     return 0
 

@@ -10,20 +10,14 @@ Two compute paths for each kind:
   KV tiles, and the online softmax keeps p in fp32 as the Pallas kernel
   does.  MLA decompresses per-head k, v and sets ``[q_nope, q_rope]`` and
   ``[k_nope, k_rope]`` side by side, as the reference concatenates them.
-  Which widths reach the op is a fixed rule on (dtype, grad, widths), the
-  same on every device (``_native_widths``): in bfloat16, with no input
-  requiring grad, q, k of width D and v of Dv reach it unpadded wherever
-  (D, Dv) is a pair of the tensor-core forward (``ops.TC_HEAD_DIM_PAIRS``:
-  heads of 80, MLA's 192 / 128, and 16–256 at one width).  Otherwise —
-  float32 (one CUDA-core kernel width for q, k and v), or a differentiable
-  call (the backward kernels have tiles only at one width in
-  ``ops.TC_HEAD_DIMS``) — q, k and v are padded with zero columns to the
-  least of ``TC_HEAD_DIMS`` that holds the widest (``_flash_head_dim``:
-  80 → 128; 192 and 128 → 256), with the scale of the unpadded width;
-  zero columns add exactly 0 to every score, and the output is cut back
-  to v's width; at a width of ``TC_HEAD_DIMS`` that is the identity.
-  This is a route, not a fallback: a kernel that fails to build or launch
-  raises.  On CPU tensors the op runs its plain version.  (The JAX
+  The op takes q, k and v at their own widths; on a card it runs the
+  kernels at ``ops.kernel_widths`` (bfloat16 inference at a pair of the
+  tensor-core forward unpadded — heads of 80, MLA's 192 / 128 —, every
+  other call zero-padded to the least of ``ops.TC_HEAD_DIMS`` that holds
+  the widest: 80 → 128; 192 and 128 → 256), with the scale of the
+  unpadded width.  This is a route, not a fallback: a kernel that fails to
+  build or launch raises.  On CPU tensors the op runs its plain version
+  at the widths as they come.  (The JAX
   package's XLA twin ``full_attention`` rounds p to the activation dtype
   before p·v, so in bf16 the two agree to bf16 rounding, not bit for
   bit.)
@@ -40,8 +34,8 @@ package calls it (the flash op skips the same band tile by tile).
 Training differentiates the prefill path: the flash op runs as a
 ``torch.autograd.Function`` when an input requires grad, with the JAX
 package's ``_fa_bwd`` as its backward over the config's ``q_chunk`` ×
-``kv_chunk`` blocks; ``_padded_flash``'s zero columns and its cut stay
-ordinary differentiable tensor ops around it.
+``kv_chunk`` blocks; the op's zero columns and its cut are inside the
+Function, which cuts each gradient back to the caller's widths.
 """
 
 from __future__ import annotations
@@ -52,7 +46,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.flash_attention import flash_attention, ops
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import common
 from repro_torch.models.common import ParamDef, fan_in_def
 
@@ -217,55 +211,21 @@ def _prefill_gqa_cache(k: torch.Tensor, v: torch.Tensor, *, window: Optional[int
     return {"k": ck, "v": cv, "pos": cpos.repeat(b, 1)}
 
 
-def _flash_head_dim(d: int) -> int:
-    """The head_dim a prefill pads q, k and v to: the least of the
-    tensor-core kernel's ``TC_HEAD_DIMS`` that holds ``d`` (``d`` itself
-    past the largest; the op then raises on a CUDA tensor)."""
-    return next((t for t in ops.TC_HEAD_DIMS if t >= d), d)
-
-
-def _side_by_side(parts, width: int) -> torch.Tensor:
+def _side_by_side(parts) -> torch.Tensor:
     """The column blocks ``parts`` ([..., d_i], broadcast to the first's
-    shape) side by side, then zero columns up to ``width``.  One block
-    already ``width`` wide comes back as it is: no copy, so a strided view
-    (k, v as halves of one fused projection) reaches the op unchanged."""
-    if len(parts) == 1 and parts[0].shape[-1] == width:
+    shape) side by side.  One block comes back as it is: no copy, so a
+    strided view (k, v as halves of one fused projection) reaches the op
+    unchanged."""
+    if len(parts) == 1:
         return parts[0]
-    filled = sum(t.shape[-1] for t in parts) == width
-    out = (parts[0].new_empty if filled else parts[0].new_zeros)(parts[0].shape[:-1] + (width,))
-    col = 0
-    for t in parts:
-        out[..., col:col + t.shape[-1]] = t
-        col += t.shape[-1]
-    return out
-
-
-def _native_widths(q_parts, k_parts, v: torch.Tensor) -> bool:
-    """Whether the prefill hands the op q, k and v at their own widths (the
-    module docstring's rule): bfloat16, no input requiring grad, and (q·k
-    width, v width) a pair of the tensor-core forward."""
-    parts = (*q_parts, *k_parts, v)
-    grad = torch.is_grad_enabled() and any(t.requires_grad for t in parts)
-    dqk = sum(t.shape[-1] for t in q_parts)
-    return (v.dtype == torch.bfloat16 and not grad
-            and (dqk, v.shape[-1]) in ops.TC_HEAD_DIM_PAIRS)
+    return torch.cat([t.expand(parts[0].shape[:-1] + t.shape[-1:]) for t in parts], dim=-1)
 
 
 def _padded_flash(q_parts, k_parts, v: torch.Tensor, **kw) -> torch.Tensor:
     """The flash op on q and k (given as lists of column blocks, set side by
-    side) and v: at their own widths where ``_native_widths`` says so, else
-    each padded with zero columns to ``_flash_head_dim`` of the widest and
-    the output cut back to v's width.  The caller passes the scale of the
-    unpadded q·k width."""
-    dqk = sum(t.shape[-1] for t in q_parts)
-    dv = v.shape[-1]
-    if _native_widths(q_parts, k_parts, v):
-        return flash_attention(_side_by_side(q_parts, dqk), _side_by_side(k_parts, dqk), v,
-                               **kw)
-    hd = _flash_head_dim(max(dqk, dv))
-    o = flash_attention(_side_by_side(q_parts, hd), _side_by_side(k_parts, hd),
-                        _side_by_side([v], hd), **kw)
-    return o if dv == hd else o[..., :dv]
+    side) and v.  The op pads the widths to a kernel's tile itself
+    (``ops.kernel_widths``) and cuts its output back to v's width."""
+    return flash_attention(_side_by_side(q_parts), _side_by_side(k_parts), v, **kw)
 
 
 def gqa_apply(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig, *,

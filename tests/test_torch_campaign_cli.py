@@ -86,6 +86,7 @@ def test_same_table_and_json(name, capsys, tmp_path):
     assert _table(got) == _table(want)
     header = [line for line in got.splitlines() if line.startswith("# ") and "cells" in line]
     assert len(header) == 1 and "device=cpu" in header[0]
+    assert "traces={'tables': " in header[0]
     with open(tmp_path / "j.json") as fh:
         jout = json.load(fh)
     with open(tmp_path / "t.json") as fh:

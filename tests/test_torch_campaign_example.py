@@ -10,8 +10,8 @@ both registries in one order: other test files register derived
 scenarios (``with_failure_model``, ``register_replay``) in the same
 process, and those must not change what is compared.  Its
 ``main --device cpu`` at small ``--steps`` / ``--stream-steps`` prints
-the JAX example's lines, the kernel-library line in place of the
-retrace counts.
+the JAX example's lines, the compiled chunk programs and the stream
+retraces counted by ``controller.fleet_trace_counts()``.
 """
 
 import importlib.util
@@ -73,7 +73,7 @@ def test_twin_prints_the_example_lines(capsys):
                      r"gain \d+\.\d\dx vs available fleet", text)
     assert "streamed 3,000 steps × 2 cells" in text
     assert re.search(r"  proposed  gain=\d+\.\d\dx served=\d\.\d{4} qos_viol=\d\.\d{3}", text)
-    assert "kernel libraries loaded by this process: []" in text
+    assert re.search(r"  compiled chunk programs \(stream traces\): [1-9]\d*$", text, re.M)
     assert re.search(r"replayed azure_vm_cpu \(\d+ samples @ \d+s → 3,000 steps @ 60s\): "
-                     r"gain=\d+\.\d\dx .*\(kernel libraries loaded since: \[\]\)", text)
+                     r"gain=\d+\.\d\dx .*\(stream retraces: 0\)", text)
     assert np.isfinite([float(x) for x in re.findall(r"gain=(\d+\.\d+)x", text)]).all()

@@ -92,7 +92,10 @@ def test_same_table_and_json(name, capsys, tmp_path):
                capsys)
     assert _table(got) == _table(want)
     assert any("device=cpu" in line for line in got.splitlines() if line.startswith("#"))
-    assert "# kernels built in this process: none — second-half retraces: 0" in got
+    assert "# kernels built in this process: none" in got.splitlines()
+    traces = [line for line in got.splitlines() if line.startswith("# traces=")]
+    assert len(traces) == 1 and traces[0].endswith(" — second-half retraces: 0")
+    assert "'tables': " in traces[0] and "'stream': " in traces[0]
     with open(tmp_path / "j.json") as fh:
         jout = json.load(fh)
     with open(tmp_path / "t.json") as fh:
@@ -108,8 +111,9 @@ def test_same_table_and_json(name, capsys, tmp_path):
 def test_fail_on_retrace(monkeypatch, capsys):
     argv = ["--candidates", "6", "--steps", "32", "--device", "cpu", "--fail-on-retrace"]
     assert tcompose.main(argv) == 0
-    work = iter(range(100))
-    monkeypatch.setattr(tcomp, "_kernel_work", lambda: next(work))
+    built = iter(range(100))
+    monkeypatch.setattr(tcomp.ctl, "fleet_trace_counts",
+                        lambda: {"tables": 0, "simulate": 0, "stream": next(built)})
     assert tcompose.main(argv) == 1
     assert "ERROR: the second candidate half" in capsys.readouterr().out
 

@@ -192,11 +192,13 @@ PREFILL_CASES = [
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", PREFILL_CASES)
 def test_padded_prefill_matches_jax(case, dtype):
-    """The models' prefill call (``attention._padded_flash``): in bf16 (no
-    grad) q, k, v at their own width, a pair of the tensor-core forward; in
-    float32 with zero columns up to the least tensor-core head_dim, the
-    scale of the unpadded D, the output cut back; against the JAX package's
-    ``full_attention`` on the unpadded tensors (k, v GQA-repeated)."""
+    """The models' prefill call (``attention._padded_flash``) hands the op
+    q, k, v at their own width; on a card the op runs the kernels at
+    ``ops.kernel_widths``: in bf16 (no grad) at D, a pair of the
+    tensor-core forward, in float32 with zero columns up to the least
+    tensor-core head_dim, the scale of the unpadded D, the output cut back;
+    against the JAX package's ``full_attention`` on the unpadded tensors
+    (k, v GQA-repeated)."""
     from repro_torch.models import attention as tattn
 
     B, S, KV, G, D, causal = case
@@ -213,9 +215,9 @@ def test_padded_prefill_matches_jax(case, dtype):
         out = tattn._padded_flash([q], [k], v, causal=causal, scale=scale)
     finally:
         tattn.flash_attention = real
-    width = D if dtype == "bfloat16" else tattn._flash_head_dim(D)
-    assert calls == [(width,) * 3] and out.shape == q.shape
-    assert tattn._flash_head_dim(D) == (128 if D == 80 else D)
+    assert calls == [(D,) * 3] and out.shape == q.shape
+    width = D if dtype == "bfloat16" else (128 if D == 80 else D)
+    assert fa_ops.kernel_widths(q.dtype, D, D) == (width, width)
     ref = full_attention(jq, jnp.repeat(jk, G, axis=2), jnp.repeat(jv, G, axis=2),
                          causal=causal, scale=scale, q_chunk=S, kv_chunk=S)
     np.testing.assert_allclose(out.float().numpy(), np.asarray(ref, np.float32),
@@ -231,6 +233,7 @@ def test_padding_is_the_identity_at_kernel_head_dims():
     for d in fa_ops.TC_HEAD_DIMS:
         kv = torch.zeros(1, 8, 2, 2, d)
         k, v = kv[:, :, 0], kv[:, :, 1]
-        assert tattn._flash_head_dim(d) == d
-        assert tattn._side_by_side([k], d) is k and tattn._side_by_side([v], d) is v
-    assert tattn._side_by_side([torch.ones(1, 2, 80)], 128)[..., 80:].abs().sum() == 0
+        assert fa_ops.kernel_widths(torch.float32, d, d, grad=True) == (d, d)
+        assert tattn._side_by_side([k]) is k and tattn._side_by_side([v]) is v
+        assert fa_ops._pad_columns(k, d) is k and fa_ops._pad_columns(v, d) is v
+    assert fa_ops._pad_columns(torch.ones(1, 2, 80), 128)[..., 80:].abs().sum() == 0

@@ -121,9 +121,10 @@ def test_stats_match_jax_forward_chunks(name):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal", [True, False])
 def test_padded_head_dim_80_backward(causal, dtype):
-    """Heads of 80 reach the op padded with zero columns to 128
-    (``attention._padded_flash``); the grads through the padding and the
-    cut are those of the unpadded attention."""
+    """Heads of 80 reach the op at their own width
+    (``attention._padded_flash``), which on a card pads them with zero
+    columns to 128 inside; the grads are those of the unpadded
+    attention."""
     B, S, KV, G, D = 1, 96, 2, 2, 80
     (q, k, v, do), (jq, jk, jv, jdo) = _inputs(B, S, KV, G, D, 1.0, dtype, seed=3)
     scale = 1.0 / D ** 0.5

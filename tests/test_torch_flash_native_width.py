@@ -17,8 +17,8 @@ here:
   ``bwd_route`` over the pair table, ``op_cost`` at native widths;
 * the new tiles' shared memory and register pool, from the constants of
   ``csrc/flash_attention_wgmma.cu``;
-* ``attention._padded_flash``'s rule: bf16 without grad reaches the op
-  unpadded, float32 and grad-requiring calls padded as before; and
+* the op's width rule (``ops.kernel_widths``): bf16 without grad runs at
+  its own widths, float32 and grad-requiring calls padded as before; and
   ``mla_apply``, zamba2's shared block and hubert's encoder in bf16 at
   REDUCED size (heads at their full widths) against JAX.
 
@@ -249,7 +249,9 @@ def test_float32_routes_one_width_only():
 def test_fake_tensors_route_as_card_tensors():
     """The dry run's fake tensors: the (192, 128) and (80, 80) forwards pass
     and report 2·(D + Dv) a kept score; a grad-requiring call at such a pair
-    raises before its forward (no backward tile), as a float32 Dv != D."""
+    and a float32 Dv != D pass too, padded to one width of 256 (the op's
+    ``kernel_widths``), and report the padded kernel's work; a width past
+    256 raises before its forward."""
     with FakeTensorMode():
         q = torch.empty((2, 256, 16, 192), dtype=torch.bfloat16)
         k = torch.empty((2, 256, 16, 192), dtype=torch.bfloat16)
@@ -260,10 +262,16 @@ def test_fake_tensors_route_as_card_tensors():
         assert cost.bytes == 2 * (2 * q.numel() + v.numel() + 2 * 256 * 16 * 128)
         x = torch.empty((1, 64, 2, 80), dtype=torch.bfloat16)
         assert flash_attention(x, x, x).shape == x.shape
-        with pytest.raises(ValueError, match="backward kernel takes one head_dim"):
-            flash_attention(q.requires_grad_(), k, v)
-        with pytest.raises(ValueError, match="one head_dim <= 256"):
-            flash_attention(q.float().detach(), k.float(), v.float())
+        padded = 2 * (256 + 256) * kept
+        for grad, dt in ((True, torch.bfloat16), (False, torch.float32)):
+            qq = q.to(dt).detach().requires_grad_(grad)
+            cost = op_cost.analyze(lambda: flash_attention(qq, k.to(dt), v.to(dt)))
+            assert cost.flops_by_name["flash_attention_fwd"] == padded
+        wide = torch.empty((2, 256, 16, 320), dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="kernels take head_dims 1 to 256"):
+            flash_attention(wide.requires_grad_(), wide, wide)
+        with pytest.raises(ValueError, match="kernels take head_dims 1 to 256"):
+            flash_attention(wide.float().detach(), wide.float(), wide.float())
 
 
 @pytest.mark.parametrize("d, dv", [(192, 128), (80, 80)])
@@ -354,11 +362,14 @@ def _spy(monkeypatch):
 
 
 @pytest.mark.parametrize("dtype, grad, want", [
-    ("bfloat16", False, {"d80": (80, 80, 80), "mla": (192, 192, 128)}),
-    ("bfloat16", True, {"d80": (128, 128, 128), "mla": (256, 256, 256)}),
-    ("float32", False, {"d80": (128, 128, 128), "mla": (256, 256, 256)}),
+    ("bfloat16", False, {"d80": (80, 80), "mla": (192, 128)}),
+    ("bfloat16", True, {"d80": (128, 128), "mla": (256, 256)}),
+    ("float32", False, {"d80": (128, 128), "mla": (256, 256)}),
 ])
 def test_padded_flash_passes_native_widths_in_bf16_inference(monkeypatch, dtype, grad, want):
+    """The models hand the op q, k, v at their own widths; the op's
+    ``kernel_widths`` names the tile a card runs: native in bf16
+    inference, one padded width in float32 and under grad."""
     calls = _spy(monkeypatch)
     dt = getattr(torch, dtype)
     rng = np.random.default_rng(6)
@@ -375,7 +386,9 @@ def test_padded_flash_passes_native_widths_in_bf16_inference(monkeypatch, dtype,
     out = tattn._padded_flash([q_nope, q_rope], [k_nope, k_rope], v, causal=True,
                               scale=192 ** -0.5)
     assert out.shape == (1, 24, 2, 128)
-    assert calls == [want["d80"], want["mla"]]
+    assert calls == [(80, 80, 80), (192, 192, 128)]
+    assert [ops.kernel_widths(dt, d, dv, grad) for d, _, dv in calls] == [want["d80"],
+                                                                        want["mla"]]
     if grad:
         out.float().sum().backward()
         assert q_rope.grad is not None and k_rope.grad.shape == k_rope.shape
@@ -393,7 +406,7 @@ def test_native_and_padded_calls_agree(monkeypatch):
         q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(bf)
                    for s in ((1, 40, 2, d), (1, 40, 2, d), (1, 40, 2, dv)))
         native = tattn._padded_flash([q], [k], v, causal=True, scale=d ** -0.5)
-        hd = tattn._flash_head_dim(max(d, dv))
+        hd = ops.kernel_widths(bf, d, dv, grad=True)[0]
         pad = lambda x: torch.nn.functional.pad(x, (0, hd - x.shape[-1]))  # noqa: E731
         padded = flash_attention(pad(q), pad(k), pad(v), causal=True, scale=d ** -0.5)
         plain = attention_ref(q, k, v, causal=True, scale=d ** -0.5)

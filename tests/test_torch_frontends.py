@@ -29,6 +29,7 @@ from repro.serving.engine import ServeEngine as JaxEngine
 from repro_torch import convert
 from repro_torch.configs import base as tbase
 from repro_torch.configs import get_config
+from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.launch import serve as tserve
 from repro_torch.models import attention as tattn
 from repro_torch.models import common as tcommon
@@ -167,7 +168,8 @@ def test_audio_encoder_on_features(dtype):
 
 def test_audio_attention_pads_head_dim_80_and_is_non_causal(monkeypatch):
     """hubert's 80-wide heads (its full width's, in a REDUCED model) reach
-    the flash op padded to 128, non-causal, with the scale of 80."""
+    the flash op at 80, non-causal, with the scale of 80; in float32 the op
+    pads them to 128 on a card (``ops.kernel_widths``)."""
     assert get_config(AUDIO).attention.head_dim == 80
     j, t = (dataclasses.replace(c, attention=dataclasses.replace(c.attention, head_dim=80))
             for c in _cfgs(AUDIO))
@@ -183,7 +185,8 @@ def test_audio_attention_pads_head_dim_80_and_is_non_causal(monkeypatch):
     monkeypatch.setattr(tattn, "flash_attention", spy)
     jl, _, _ = jtf.forward(jp, j, {"features": jnp.asarray(feats)})
     tl, _, _ = ttf.forward(tp, t, {"features": torch.from_numpy(feats)})
-    assert calls == [(128, 128, 128, False, pytest.approx(80 ** -0.5))] * t.n_layers
+    assert calls == [(80, 80, 80, False, pytest.approx(80 ** -0.5))] * t.n_layers
+    assert fa_ops.kernel_widths(torch.float32, 80, 80) == (128, 128)
     _close(tl, jl, "float32", "logits")
 
 

@@ -67,26 +67,28 @@ def test_mla_layouts_match_jax(reduced):
 
 
 def test_flash_head_dim_pads_to_a_routable_width():
+    """The op's ``kernel_widths`` pads MLA's widths to a tile that exists:
+    (192, 128) to one width of 256 in float32 and under grad, natively in
+    bf16 inference; the REDUCED (24, 16) to 32."""
     a = get_config(ARCH).attention
-    assert tattn._flash_head_dim(a.qk_nope_dim + a.qk_rope_dim) == 256     # 192 and 128
-    assert tattn._flash_head_dim(a.v_head_dim) == 128
-    r = get_config(ARCH, reduced=True).attention
-    assert tattn._flash_head_dim(max(r.qk_nope_dim + r.qk_rope_dim, r.v_head_dim)) == 32
-    assert tattn._flash_head_dim(16) == 16
-    assert tattn._flash_head_dim(300) == 300             # past the op: it raises on CUDA
-    for d in (16, 24, 100, 192, 256):
-        assert ops.route(torch.bfloat16, tattn._flash_head_dim(d)) == ops.TENSOR_CORE
-    # the padding serves float32 and grad; bf16 inference reaches the (192, 128) tile
     qk, dv = a.qk_nope_dim + a.qk_rope_dim, a.v_head_dim
+    assert ops.kernel_widths(torch.float32, qk, dv) == (256, 256)       # 192 and 128
+    assert ops.kernel_widths(torch.bfloat16, qk, dv, grad=True) == (256, 256)
+    assert ops.kernel_widths(torch.float32, dv) == (128, 128)
+    r = get_config(ARCH, reduced=True).attention
+    assert ops.kernel_widths(torch.bfloat16, r.qk_nope_dim + r.qk_rope_dim,
+                             r.v_head_dim) == (32, 32)
+    assert ops.kernel_widths(torch.float32, 16) == (16, 16)
+    with pytest.raises(ValueError, match="kernels take head_dims 1 to 256"):
+        ops.kernel_widths(torch.bfloat16, 300)            # past the op: it raises on CUDA
+    for d in (16, 24, 100, 192, 256):
+        assert ops.route(torch.bfloat16, *ops.kernel_widths(torch.float32, d)) == \
+            ops.TENSOR_CORE
+    # the padding serves float32 and grad; bf16 inference reaches the (192, 128) tile
     assert ops.route(torch.bfloat16, qk, dv) == ops.TENSOR_CORE
-    parts = lambda dt, w, grad=False: [torch.zeros(1, 2, 1, w, dtype=dt,  # noqa: E731
-                                                   requires_grad=grad)]
-    assert tattn._native_widths(parts(torch.bfloat16, qk), parts(torch.bfloat16, qk),
-                                parts(torch.bfloat16, dv)[0])
-    assert not tattn._native_widths(parts(torch.float32, qk), parts(torch.float32, qk),
-                                    parts(torch.float32, dv)[0])
-    assert not tattn._native_widths(parts(torch.bfloat16, qk, True), parts(torch.bfloat16, qk),
-                                    parts(torch.bfloat16, dv)[0])
+    assert ops.kernel_widths(torch.bfloat16, qk, dv) == (qk, dv)
+    assert ops.kernel_widths(torch.float32, qk, qk) == (256, 256)
+    assert ops.kernel_widths(torch.bfloat16, qk, dv, grad=True) != (qk, dv)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -130,7 +132,7 @@ def test_padded_flash_call_equals_unpadded_attention(dtype):
     q's width (it takes one head_dim), cut back."""
     r = get_config(ARCH, reduced=True).attention
     qk, dv = r.qk_nope_dim + r.qk_rope_dim, r.v_head_dim
-    hd = tattn._flash_head_dim(qk)
+    hd = ops.kernel_widths(torch.float32, qk)[0]
     rng = np.random.default_rng(4)
     dt = getattr(torch, dtype)
     q, k = (torch.from_numpy(rng.standard_normal((2, 40, 4, qk)).astype(np.float32)).to(dt)

@@ -221,8 +221,8 @@ def test_b2_at_llamas_serving_shape_reports_68_8_gflop_on_fake_tensors():
 
 def test_a_fake_tensor_is_checked_as_a_card_tensor():
     with FakeTensorMode():
-        q = torch.empty((1, 64, 2, 96), dtype=torch.bfloat16)   # no tensor-core head_dim
-        with pytest.raises(ValueError, match="tensor-core kernel takes head_dim"):
+        q = torch.empty((1, 64, 2, 320), dtype=torch.bfloat16)   # past every kernel's width
+        with pytest.raises(ValueError, match="kernels take head_dims 1 to 256"):
             flash_attention(q, q, q)
 
 

@@ -93,7 +93,9 @@ def test_stream_matches_materialized(chunk, with_avail):
 
 
 def test_stream_copies_one_chunk_at_a_time(monkeypatch):
-    """Only [K, C] (here [K, C, 1]) arrays reach the device, never K·S."""
+    """Only [K, C] (here [K, C, 1]) arrays reach the device, never K·S;
+    the tail chunk is zero-padded to C (one program for every chunk, as
+    the JAX package pads it)."""
     cfg = tctl.ControllerConfig()
     tables = _fleet(cfg)
     trace, avail = _inputs()
@@ -107,7 +109,7 @@ def test_stream_copies_one_chunk_at_a_time(monkeypatch):
     monkeypatch.setattr(torch, "from_numpy", spy)
     tctl.simulate_fleet_stream(tables, trace, cfg, chunk_size=64, avail=avail, device="cpu")
     k = 2 * len(TECHS)
-    assert shapes == [(k, 64, 1), (k, 64)] * 3 + [(k, 8, 1), (k, 8)]
+    assert shapes == [(k, 64, 1), (k, 64)] * 4
 
 
 def test_tenant_plane_of_one_default_tenant_is_the_aggregate_run():
@@ -145,7 +147,8 @@ STEP_FIELDS = ("predicted_bin", "capacity", "violation", "power", "tenant_served
 def _tenant_steps(jtables, ttables, plane, avail, jspec, tspec, jcfg, tcfg, sched_name):
     """Every cell's per-step fields from both packages' chunk loops, one
     chunk of all S steps: the JAX package's compiled chunk scan and the
-    port's ``_stream_chunk``; ``[K, S]`` (tenant fields ``[K, T, S]``)."""
+    port's stream program (``_StreamProgram``); ``[K, S]`` (tenant fields
+    ``[K, T, S]``)."""
     from repro.core import predictors as jpred
     from repro_torch.core import predictors as tpred
 
@@ -167,10 +170,11 @@ def _tenant_steps(jtables, ttables, plane, avail, jspec, tspec, jcfg, tcfg, sche
     acc = tctl._StreamAcc(tpred.init_state(tcfg.predictor, k, "cpu"),
                           tpred.init_state(tcfg.avail_predictor, k, "cpu"), zt, zt,
                           zk, zk, zk, zk, zk, zt, zt, zt, zt)
-    _, port = tctl._stream_chunk(
-        tflat, tcfg, acc, torch.tensor(chunk), torch.tensor(av),
-        tctl._flatten_tenant_spec(tspec, lead, k, "cpu"),
-        tsched.scheduler_values(tsched.get(sched_name)), True, STEP_FIELDS)
+    ins = (tflat, acc, torch.tensor(chunk), torch.tensor(av))
+    spec_sched = (tctl._flatten_tenant_spec(tspec, lead, k, "cpu"),
+                  tsched.scheduler_values(tsched.get(sched_name)))
+    prog = tctl._StreamProgram(tctl._runtime_cfg(tcfg), STEP_FIELDS, *ins, *spec_sched)
+    _, port = prog(*ins, np.ones(plane.shape[0], bool), *spec_sched)
     ref = {f: np.moveaxis(np.asarray(y), 1, -1) for f, y in zip(STEP_FIELDS, ys)}
     return ref, {f: y.numpy() for f, y in port.items()}
 
