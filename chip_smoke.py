@@ -76,7 +76,16 @@ printing its seconds:
    layer is also timed without the softcap, on the kernel and on
    ``scaled_dot_product_attention``, for reference), and the float32
    kernel at gemma2's local layer (B = 1, S = 4160; head_dim 256 on the fp32
-   FMAs, both bounds printed);
+   FMAs, both bounds printed); the wide kernel (``ops.CUDA_CORE_WIDE``,
+   max(D, Dv) above 256, both dtypes): its ptxas report (no spill bytes) and
+   shared memory, the CPU tests' widths (257, 257), (320, 320), (576, 512),
+   (512, 512) and ragged ones with D != Dv, causal, windowed, softcapped,
+   non-causal and GQA / MQA cases and v as a view of k, against the plain
+   version (two launches bit-equal, the row stats), and DeepSeek-V2's
+   absorbed latent attention (B = 1, S = 4096, 16 / 1 heads, D = 576, Dv =
+   512, v the latent columns of k) against the plain version and timed
+   beside it, ``scaled_dot_product_attention`` (the backend it took) and its
+   bounds;
 5b. flash backward — both backward kernels' ptxas reports (no spill bytes
    in any instantiation; the tensor-core library's wgmma serialized by
    ptxas only in its D = 128 dK/dV kernel, for want of registers, the
@@ -99,7 +108,16 @@ printing its seconds:
    softcapped D = 256 global layer beside their bounds and the first
    design's times; the float32 backward (split TF32 up to head_dim 64) at
    llama's shape beside both bounds, its three kernels' times from a
-   profile, the plain backward and SDPA's float32 backward;
+   profile, the plain backward and SDPA's float32 backward; the wide
+   backward (``ops.CUDA_CORE_WIDE_BWD``): no spill bytes, every wide case of
+   phase 5 in both dtypes through ``FlashAttention`` against the plain
+   backward (two launches bit-equal), and at the absorbed-MLA shape in both
+   dtypes against the plain backward, timed beside it, SDPA's backward and
+   the bound, with its three kernels' times from a profile;
+5c. wide path — ``flash_attention`` under autograd at the absorbed-MLA shape
+   in bf16, forward and backward, with the launch counts set to 0 just
+   before: one launch of each wide kernel, none of another (no model path
+   reaches widths above 256);
 6. serving path — ``python -m repro_torch.launch.serve --no-reduced`` on
    ``cuda``; ``ServeEngine`` on full-width llama3.2-1b (random weights from
    a seed, bf16 activations) at B = 4, a 2048-token prompt and 32 new
@@ -434,6 +452,23 @@ SOFTCAP_EFFECT_MIN = 10 * FLASH_TOL[torch.bfloat16]
 # (B, S, KV, G, D, window, softcap)
 FLASH_STRIDED_CASES = [(1, 600, 4, 2, 256, 100, 50.0), (2, 520, 4, 2, 128, 64, None)]
 SERVING_SHAPE = (4, 2048, 8, 4, 64, True, None, None)   # llama3.2-1b prefill, bf16
+# The wide route (max(D, Dv) above 256, ``ops.CUDA_CORE_WIDE`` and its backward), in both
+# dtypes at the CPU tests' widths and ragged ones: (B, S, KV, G, D, Dv, causal, window,
+# softcap, q's scale); the softcap case's scores reach past the cap
+FLASH_WIDE_CASES = [
+    (2, 48, 2, 2, 257, 257, True, None, None, 1.0),
+    (1, 64, 1, 4, 320, 320, True, 24, None, 1.0),
+    (1, 48, 2, 1, 576, 512, True, None, 3.0, 4.0),
+    (1, 32, 1, 2, 576, 512, False, None, None, 1.0),
+    (2, 333, 2, 2, 300, 64, True, 100, None, 1.0),
+    (2, 130, 1, 3, 64, 300, True, None, None, 1.0),
+    (1, 200, 1, 2, 512, 512, False, None, None, 1.0),
+]
+# DeepSeek-V2's absorbed latent attention at the repo's deepseek_v2_236b widths: q·k over
+# kv_lora_rank 512 + qk_rope_dim 64 columns, v over the 512 latent ones (a view of k), 16
+# query heads on one KV head, causal: (B, S, KV, G, D, Dv).  A test width of the op: no
+# model path of the repo reaches it.
+FLASH_WIDE_MLA = (1, 4096, 1, 16, 576, 512)
 # The attention backward's kernels against the plain backward (``flash_attention_bwd``)
 # on the same card tensors and forward stats: bf16 within 2e-2 of max(1, max |g|) (P and dS
 # round to bf16 at other places than in the plain version), float32 within 1e-4 of max |g|
@@ -596,6 +631,16 @@ LLAMA405_F32_TOKENS = 256
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise AssertionError(msg)
+
+
+def _only(counts: dict, bwd: bool = False) -> dict:
+    """``counts`` over every flash kernel (the backward ones with ``bwd``),
+    the others at 0: what a path that runs only those kernels leaves in
+    ``flash_attention.kernel_launches`` (``bwd_kernel_launches``)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    every = flash_attention.bwd_kernel_launches if bwd else flash_attention.kernel_launches
+    return {**dict.fromkeys(every, 0), **counts}
 
 
 def device_time_ms(fn, n: int) -> float:
@@ -1367,10 +1412,153 @@ def _flash_native_cases(gen, dev) -> dict:
     return worst
 
 
+def _wide_build_report(name: str, tag: str) -> None:
+    """A wide kernel library's ptxas report: every instantiation's registers
+    and no spill bytes in any."""
+    from repro_torch.kernels import _build
+
+    lib = _build.library_path(name)
+    entries, entry = [], ""
+    for line in (lib.parent / "build.log").read_text().splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"(wide_kernel|prologue_kernel|dkdv_kernel|dq_kernel)"
+                          r"I(f|13__nv_bfloat16)E", line)
+            entry = f"{m[1]}<{'float' if m[2] == 'f' else 'bf16'}>" if m else line.strip()[:80]
+        elif "spill" in line:
+            spills = sum(int(n) for n in re.findall(r"(\d+) bytes spill", line))
+            entries.append([entry, "", spills])
+        elif "registers" in line and entries and entries[-1][0] == entry:
+            entries[-1][1] = line.split(":", 1)[-1].strip()
+    for entry, regs, spills in entries:
+        print(f"[{tag}] {name} {entry}: {regs}; {spills} bytes spill")
+    want = 2 if name.endswith("wide") else 6
+    check(len(entries) == want and not any(n for *_, n in entries),
+          f"{name}: ptxas entries {entries}, want {want} without spills")
+
+
+def _sdpa_backend(fn) -> str:
+    """Which of ``scaled_dot_product_attention``'s backends ran ``fn``, from
+    the names of the kernels a profile of one call shows."""
+    names = " ".join(e.name for e in _device_kernels(fn)).lower()
+    for backend, keys in (("flash", ("flash",)), ("cudnn", ("cudnn",)),
+                          ("efficient", ("fmha", "efficient", "mem_eff"))):
+        if any(k in names for k in keys):
+            return backend
+    return "math"
+
+
+def _flash_wide_inputs(gen, dev, dtype, b, s, kv, g, d, dv, q_scale=1.0, v_of_k=False):
+    """q, k, v of the wide route; with ``v_of_k`` v is the first ``dv``
+    columns of k (absorbed MLA's latent), a strided view."""
+    q = (torch.randn(b, s, kv * g, d, generator=gen, device=dev) * q_scale).to(dtype)
+    k = torch.randn(b, s, kv, d, generator=gen, device=dev).to(dtype)
+    v = k[..., :dv] if v_of_k else torch.randn(b, s, kv, dv, generator=gen, device=dev).to(dtype)
+    return q, k, v
+
+
+def _flash_wide_forward(gen, dev) -> dict:
+    """Phase 5's wide route: ``ops.CUDA_CORE_WIDE``'s ptxas report (no spill
+    bytes) and shared memory; every FLASH_WIDE_CASES case and v as a view
+    of k, in both dtypes, through the op against the plain version (one
+    launch of the wide kernel, FLASH_TOL, two launches bit-equal, the row
+    stats against the plain m and l); at the absorbed-MLA shape both dtypes
+    against the plain version and timed beside the plain version,
+    ``scaled_dot_product_attention`` (``enable_gqa``; the backend it took)
+    and the bounds.  Returns the kernel's record."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref, ops
+
+    _wide_build_report(ops.CUDA_CORE_WIDE, "flash")
+    limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    smem = _build.load(ops.CUDA_CORE_WIDE).flash_attention_wide_smem_bytes()
+    check(0 < smem <= limit, f"{ops.CUDA_CORE_WIDE}: {smem} bytes of shared memory")
+    print(f"[flash] {ops.CUDA_CORE_WIDE} dynamic shared memory {smem} bytes at every width (the "
+          f"card's opt-in limit {limit})")
+    worst = 0.0
+
+    def run(name, q, k, v, causal, window, cap):
+        nonlocal worst
+        kernel, err = _flash_case_check(name, q, k, v, q.dtype, causal, window, cap)
+        check(kernel == ops.CUDA_CORE_WIDE, f"{name}: routed to {kernel}")
+        kw = dict(causal=causal, window=window, softcap=cap)
+        o, m, l = ops.flash_attention_fwd(q, k, v, **kw)
+        check(torch.equal(o, ops.flash_attention_fwd(q, k, v, **kw)[0]),
+              f"{name} {q.dtype}: two launches of the wide kernel differ")
+        ro, rm, rl = flash_attention_ref(q, k, v, return_stats=True, **kw)
+        d, g = q.shape[-1], q.shape[2] // k.shape[2]
+        qn = q.float().norm(dim=-1).transpose(1, 2)
+        kn = k.float().norm(dim=-1).amax(1).repeat_interleave(g, 1)[..., None]
+        m_tol = TRAIN_M_RTOL * rm.abs() + 2 * d * 2.0 ** -24 * d ** -0.5 * qn * kn
+        m_err, l_err = ((m - rm).abs() / m_tol).max().item(), ((l - rl).abs() / rl).max().item()
+        check(m_err <= 1.0 and l_err <= TRAIN_L_RTOL and torch.equal(o, flash_attention(
+            q, k, v, **kw)), f"{name} {q.dtype} stats: m {m_err} of its tolerance, l {l_err}")
+        print(f"[flash]   two launches bit-equal; row stats: m at most {m_err:.3g} of its "
+              f"tolerance, l max relative {l_err:.3g} (tol {TRAIN_L_RTOL})")
+        worst = max(worst, err)
+
+    for b, s, kv, g, d, dv, causal, window, cap, q_scale in FLASH_WIDE_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = _flash_wide_inputs(gen, dev, dtype, b, s, kv, g, d, dv, q_scale)
+            run(f"wide {(b, s, kv, g, d, dv)}", q, k, v, causal, window, cap)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = _flash_wide_inputs(gen, dev, dtype, 2, 300, 2, 4, 576, 512, v_of_k=True)
+        run("wide, v the first 512 columns of k [2, 300, 2, 576]", q, k, v, True, None, None)
+
+    b, s, kv, g, d, dv = FLASH_WIDE_MLA
+    rec = None
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = _flash_wide_inputs(gen, dev, dtype, b, s, kv, g, d, dv, v_of_k=True)
+        kernel, err = _flash_case_check(f"absorbed MLA {FLASH_WIDE_MLA}", q, k, v, dtype, True,
+                                        None, None)
+        worst = max(worst, err)
+        out = flash_attention(q, k, v)
+        ms = device_time_ms(lambda: flash_attention(q, k, v), 5)
+        plain_ms = device_time_ms(lambda: flash_attention_ref(q, k, v), 2)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,  # noqa: E731
+                                                      enable_gqa=True)
+        try:
+            sdpa_err = (sdpa().transpose(1, 2).float() - out.float()).abs().max().item()
+            lib_ms, backend = device_time_ms(sdpa, 3), _sdpa_backend(sdpa)
+        except RuntimeError as e:        # no backend of the library takes the call
+            lib_ms, backend, sdpa_err = None, f"refused ({str(e)[:120]})", float("nan")
+        torch.cuda.empty_cache()
+        bound_ms, bound_by = _flash_bound(q, k, v, out, split_tf32=dtype == torch.float32)
+        fma_ms = _flash_bound(q, k, v, out)[0]
+        gflop = _causal_flops(q, dv=dv) / 1e9
+        work = ops.wide_flops_per_score(d, dv, False) * g * kv * b * s * (s + 1) // 2 / 1e9
+        print(f"[flash] {kernel} at absorbed MLA's shape q {tuple(q.shape)} k {tuple(k.shape)} v "
+              f"{tuple(v.shape)} (a view of k) {str(dtype)[6:]} causal, medians: kernel "
+              f"{ms:.4f} ms ({gflop / ms:.2f} TFLOP/s of the function's {gflop:.1f} GFLOP; it "
+              f"does {work:.1f} GFLOP, the scores once per v slab), {ms / bound_ms:.1f}x its "
+              f"bound {bound_ms:.4f} ms ({bound_by} at "
+              + (f"{BF16_OPS_PER_S / 1e12:g} TFLOP/s)" if dtype == torch.bfloat16 else
+                 f"3 x the products at {TF32_OPS_PER_S / 1e12:g} TF32 TFLOP/s; the fp32-FMA "
+                 f"bound {fma_ms:.4f} ms at {FP32_OPS_PER_S / 1e12:g} TFLOP/s)")
+              + f", plain {plain_ms:.4f} ms, scaled_dot_product_attention "
+              + (f"{lib_ms:.4f} ms on its {backend} backend (max|Δ| vs kernel {sdpa_err:.3g})"
+                 if lib_ms is not None else backend))
+        if dtype == torch.bfloat16:
+            rec = _record(ops.CUDA_CORE_WIDE, ops.CUDA_CORE_WIDE,
+                          "src/repro/kernels/flash_attention/kernel.py:38", worst, ms, plain_ms,
+                          bound_ms, bound_by, lib_ms)
+            rec.update(shape=list(FLASH_WIDE_MLA), dtype="bfloat16", sdpa_backend=backend)
+        else:
+            rec.update(f32_ms=ms, f32_plain_ms=plain_ms, f32_bound_ms=bound_ms,
+                       f32_fma_bound_ms=fma_ms, f32_library_ms=lib_ms, f32_sdpa_backend=backend,
+                       max_abs_err=worst)
+        del q, k, v, out, qt, kt, vt
+        torch.cuda.empty_cache()
+    return rec
+
+
 def phase_flash_kernels(dev) -> list:
     """Both flash kernels against the plain version on every case, each in
     the dtype ``ops.route`` gives it; their times at the serving shape and
-    the tensor-core kernel's at the gemma shapes."""
+    the tensor-core kernel's at the gemma shapes; then the wide kernel
+    (``_flash_wide_forward``), whose record comes last."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import _build
@@ -1476,6 +1664,7 @@ def phase_flash_kernels(dev) -> list:
                                                     gen, dev)
     records[1]["gemma_shapes"] = _gemma_flash_times(GEMMA_FLASH_F32_SHAPES, torch.float32,
                                                     gen, dev)
+    records.append(_flash_wide_forward(gen, dev))
     return records
 
 
@@ -1740,7 +1929,8 @@ def _flash_bwd_bound(q, k, v, out, causal=True, window=None,
     b, s, h, _ = q.shape
     n_bytes = (2 * sum(t.numel() * t.element_size() for t in (q, k, v))
                + 2 * out.numel() * out.element_size() + 2 * b * h * s * 4)
-    flops = 2.5 * (_causal_flops(q, window) if causal else _attention_flops(q, False))
+    dv = v.shape[-1]
+    flops = 2.5 * (_causal_flops(q, window, dv) if causal else _attention_flops(q, False, dv))
     peak = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else FP32_OPS_PER_S
     if split_tf32:
         flops, peak = 3 * flops, TF32_OPS_PER_S
@@ -1866,13 +2056,159 @@ def _fresh_thread_backward(gen, dev) -> None:
           "to a launch on the main thread")
 
 
+def _flash_wide_backward(gen, dev) -> dict:
+    """Phase 5b's wide route: ``ops.CUDA_CORE_WIDE_BWD``'s ptxas report (no
+    spill bytes) and shared memory; every FLASH_WIDE_CASES case and v as a
+    view of k, in both dtypes, through ``FlashAttention`` against the plain
+    backward (``_flash_bwd_case``: one launch, FLASH_BWD_TOL, two launches
+    bit-equal); at the absorbed-MLA shape both dtypes against the plain
+    backward and timed beside it, SDPA's backward and the bound (2.5 x the
+    forward's products).  Returns the kernel's record."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import flash_attention_bwd, ops
+
+    _wide_build_report(ops.CUDA_CORE_WIDE_BWD, "flash-bwd")
+    limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    lib = _build.load(ops.CUDA_CORE_WIDE_BWD)
+    smem = [lib.flash_attention_wide_bwd_smem_bytes(w) for w in (0, 1)]
+    check(all(0 < x <= limit for x in smem), f"{ops.CUDA_CORE_WIDE_BWD}: shared memory {smem}")
+    print(f"[flash-bwd] {ops.CUDA_CORE_WIDE_BWD} dynamic shared memory (dK/dV, dQ) {smem} bytes "
+          f"at every width (the card's opt-in limit {limit})")
+    worst = [0.0, 0.0]
+    for b, s, kv, g, d, dv, causal, window, cap, q_scale in FLASH_WIDE_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = _flash_wide_inputs(gen, dev, dtype, b, s, kv, g, d, dv, q_scale)
+            got = _flash_bwd_case(f"wide {(b, s, kv, g, d, dv)}", q, k, v, causal, window, cap)
+            worst = [max(a, x) for a, x in zip(worst, got)]
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = _flash_wide_inputs(gen, dev, dtype, 2, 300, 2, 4, 576, 512, v_of_k=True)
+        got = _flash_bwd_case("wide, v the first 512 columns of k [2, 300, 2, 576]", q, k, v,
+                              True, None, None)
+        worst = [max(a, x) for a, x in zip(worst, got)]
+
+    b, s, kv, g, d, dv = FLASH_WIDE_MLA
+    rec = None
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = _flash_wide_inputs(gen, dev, dtype, b, s, kv, g, d, dv, v_of_k=True)
+        kw = dict(causal=True, window=None, softcap=None, scale=d ** -0.5)
+        dout = torch.randn(b, s, kv * g, dv, generator=gen, device=dev).to(dtype)
+        with torch.no_grad():
+            out, m, l = ops.flash_attention_fwd(q, k, v, **kw)
+        fn = lambda: ops.flash_attention_bwd_kernel(q, k, v, out, m, l, dout, **kw)  # noqa: E731
+        grads, again = fn(), fn()
+        ref = flash_attention_bwd(q, k, v, out, m, l, dout, q_chunk=1024, kv_chunk=1024, **kw)
+        errs, abs_err = [], 0.0
+        for name, a, a2, r in zip(("dq", "dk", "dv"), grads, again, ref):
+            check(torch.equal(a, a2), f"absorbed MLA {dtype} {name}: two launches differ")
+            e = (a.float() - r.float()).abs().max().item()
+            errs.append(e / _flash_bwd_tol(dtype, r.float().abs().max().item()))
+            abs_err = max(abs_err, e)
+        check(max(errs) <= 1.0, f"absorbed MLA {dtype}: backward errors {errs} of the tolerance")
+        del grads, again, ref
+        torch.cuda.empty_cache()
+        ms = device_time_ms(fn, 3)
+        plain_ms = device_time_ms(lambda: flash_attention_bwd(
+            q, k, v, out, m, l, dout, q_chunk=1024, kv_chunk=1024, **kw), 1)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+        try:
+            sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                      enable_gqa=True)
+            dout_t = dout.transpose(1, 2)
+            sdpa_bwd = lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), dout_t,  # noqa: E731
+                                                   retain_graph=True)
+            lib_ms = device_time_ms(sdpa_bwd, 2)
+            backend = _sdpa_backend(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True))
+            del sdpa_out
+        except RuntimeError as e:
+            lib_ms, backend = None, f"refused ({str(e)[:120]})"
+        del qt, kt, vt
+        torch.cuda.empty_cache()
+        bound_ms, bound_by = _flash_bwd_bound(q, k, v, out, split_tf32=dtype == torch.float32)
+        fma_ms = _flash_bwd_bound(q, k, v, out)[0]
+        parts = {}
+        for e in _device_kernels(fn):
+            hit = re.search(r"(prologue|dkdv|dq)_kernel", e.name)
+            if hit:
+                parts[hit[1]] = parts.get(hit[1], 0.0) + e.time_range.elapsed_us() / 1e3
+        print(f"[flash-bwd] {ops.CUDA_CORE_WIDE_BWD} at absorbed MLA's shape "
+              f"{FLASH_WIDE_MLA} {str(dtype)[6:]} causal: max|Δ| vs plain {max(errs):.3g} of "
+              f"the tolerance, two launches bit-equal; medians: kernel {ms:.4f} ms "
+              f"({ms / bound_ms:.1f}x its bound {bound_ms:.4f} ms, {bound_by}: 2.5 x the "
+              f"forward's {_causal_flops(q, dv=dv) / 1e9:.1f} GFLOP"
+              + (f" at {BF16_OPS_PER_S / 1e12:g} TFLOP/s" if dtype == torch.bfloat16 else
+                 f", 3 x at {TF32_OPS_PER_S / 1e12:g} TF32 TFLOP/s; the fp32-FMA bound "
+                 f"{fma_ms:.4f} ms")
+              + f"), by kernel (ms, one profiled call) {parts}, plain backward "
+              f"{plain_ms:.4f} ms, SDPA's backward (torch.autograd.grad) "
+              + (f"{lib_ms:.4f} ms on its {backend} backend" if lib_ms is not None
+                 else backend))
+        if dtype == torch.bfloat16:
+            rec = _record(ops.CUDA_CORE_WIDE_BWD, ops.CUDA_CORE_WIDE_BWD,
+                          "none: the Pallas kernel src/repro/kernels/flash_attention/kernel.py:38 "
+                          "has no VJP (JAX differentiates full_attention at any width through "
+                          "_fa_bwd, src/repro/models/attention.py:244)", max(worst[1], abs_err),
+                          ms, plain_ms, bound_ms, bound_by, lib_ms)
+            rec.update(shape=list(FLASH_WIDE_MLA), dtype="bfloat16", sdpa_backend=backend,
+                       kernels_ms=parts, err_share_of_tol=max(worst[0], *errs))
+        else:
+            rec.update(f32_ms=ms, f32_plain_ms=plain_ms, f32_bound_ms=bound_ms,
+                       f32_fma_bound_ms=fma_ms, f32_library_ms=lib_ms, f32_kernels_ms=parts,
+                       max_abs_err=max(rec["max_abs_err"], abs_err),
+                       err_share_of_tol=max(rec["err_share_of_tol"], *errs))
+        del q, k, v, out, m, l, dout
+        torch.cuda.empty_cache()
+    return rec
+
+
+def phase_flash_wide_path(dev) -> tuple:
+    """5c. The wide route's path: ``flash_attention`` under autograd, as a
+    trainer calls it, at the absorbed-MLA shape in bf16 (v a view of k, so
+    dk and dv sum into one leaf), the forward with its row stats and the
+    backward, with every flash launch count set to 0 just before and read
+    just after: one launch of each wide kernel and none of another.  No
+    model path of the repo reaches these widths.  Returns the launches of
+    the forward and the backward kernel."""
+    from repro_torch.kernels.flash_attention import flash_attention, ops
+
+    b, s, kv, g, d, dv = FLASH_WIDE_MLA
+    gen = torch.Generator(device=dev).manual_seed(13)
+    q, k, _ = _flash_wide_inputs(gen, dev, torch.bfloat16, b, s, kv, g, d, dv)
+    q, k = q.requires_grad_(), k.requires_grad_()
+    dout = torch.randn(b, s, kv * g, dv, generator=gen, device=dev).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    for counts in (flash_attention.kernel_launches, flash_attention.bwd_kernel_launches):
+        counts.update(dict.fromkeys(counts, 0))
+    flash_attention.launches = flash_attention.bwd_launches = 0
+    t0 = time.perf_counter()
+    out = flash_attention(q, k, k[..., :dv], causal=True)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    fwd, bwd = dict(flash_attention.kernel_launches), dict(flash_attention.bwd_kernel_launches)
+    check(fwd == _only({ops.CUDA_CORE_WIDE: 1}) and bwd == _only({ops.CUDA_CORE_WIDE_BWD: 1},
+                                                                  bwd=True),
+          f"the wide path launched {fwd} and {bwd}, want one of each wide kernel")
+    check(out.shape == (b, s, kv * g, dv) and q.grad.shape == q.shape and k.grad.shape == k.shape
+          and all(bool(torch.isfinite(t).all()) for t in (out, q.grad, k.grad)),
+          "the wide path's output or gradients are not finite")
+    print(f"[wide] flash_attention forward + backward under autograd at {FLASH_WIDE_MLA} bf16 "
+          f"(v the first {dv} columns of k): {step_s * 1e3:.1f} ms, launches {fwd} and {bwd}; "
+          f"output and gradients finite")
+    return fwd[ops.CUDA_CORE_WIDE], bwd[ops.CUDA_CORE_WIDE_BWD]
+
+
 def phase_flash_backward(dev) -> list:
     """5b. Both backward kernels against the plain backward on every phase-5
     case in both dtypes (strided k, v, heads of 80 and (D, Dv) = (192, 128),
     which the op pads to a backward tile itself, the softcap in its
     nonlinear range, the serving shape), then
     the tensor-core kernel's times at llama's, qwen3-moe's and gemma2's
-    training shapes beside their bounds; returns the kernels' records."""
+    training shapes beside their bounds, then the wide backward
+    (``_flash_wide_backward``); returns the kernels' records, the wide
+    one's last."""
     from repro_torch.kernels.flash_attention import ops
 
     _flash_bwd_build_report()
@@ -1967,7 +2303,7 @@ def phase_flash_backward(dev) -> list:
                  f32["bound_by"], f32["library_ms"])
     cc.update(err_share_of_tol=worst[ops.CUDA_CORE_BWD][0], fma_bound_ms=f32["fma_bound_ms"],
               kernels_ms_at_llama=f32["kernels_ms"])
-    return [tc, cc]
+    return [tc, cc, _flash_wide_backward(gen, dev)]
 
 
 def _median_s(fn, n: int) -> float:
@@ -2012,7 +2348,7 @@ def phase_serving(dev) -> dict:
           f"{cfg.vocab_size}: {n_params} float32 parameters drawn in "
           f"{time.perf_counter() - t0:.2f} s")
     launches, by_kernel, _ = phase_generate(cfg, params, dev, flash_attention, "[serve]")
-    want = {ops.TENSOR_CORE: cfg.n_layers, ops.CUDA_CORE: 0}
+    want = _only({ops.TENSOR_CORE: cfg.n_layers})
     check(by_kernel == want, f"one bf16 generate launched {by_kernel}, want {want}")
     flash_attention.kernel_launches.update(dict.fromkeys(want, 0))
     phase_float32_cuda_vs_cpu(cfg, params, dev, "[serve]")
@@ -3400,7 +3736,7 @@ def phase_gemma_serving(dev) -> dict:
             attn_mod.flash_attention = real
         _gemma_cache_check(cfg, cache, GEMMA_BATCH, GEMMA_CAPACITY)
         del cache
-        want = {ops.TENSOR_CORE: cfg.n_layers, ops.CUDA_CORE: 0}
+        want = _only({ops.TENSOR_CORE: cfg.n_layers})
         check(by_kernel == want, f"one bf16 generate launched {by_kernel}, want {want}")
         # every prefill of the phase (the timed generate's among them) had one call a
         # layer, windowed exactly where the layer is local
@@ -3427,7 +3763,7 @@ def phase_gemma_serving(dev) -> dict:
         flash_attention.kernel_launches.update(dict.fromkeys(flash_attention.kernel_launches, 0))
         phase_float32_cuda_vs_cpu(cut, few, dev, "[gemma]", s=f32_prompt)
         f32 = dict(flash_attention.kernel_launches)
-        check(f32 == {ops.CUDA_CORE: f32_layers, ops.TENSOR_CORE: 0},
+        check(f32 == _only({ops.CUDA_CORE: f32_layers}),
               f"the float32 check launched {f32}, want {f32_layers} on the CUDA-core kernel")
         print(f"[gemma] {arch} float32 check: {f32_layers} layers ({sum(local[:f32_layers])} "
               f"local), prompt {f32_prompt} past the window {a.sliding_window}; flash launches "
@@ -3682,7 +4018,7 @@ def _moe_float32_check(arch, cfg, few, dev) -> None:
     finally:
         moe_mod.route = real
     f32 = dict(flash_attention.kernel_launches)
-    check(f32 == {ops.CUDA_CORE: n_layers, ops.TENSOR_CORE: 0},
+    check(f32 == _only({ops.CUDA_CORE: n_layers}),
           f"the float32 check launched {f32}, want {n_layers} on the CUDA-core kernel")
     check(len(calls["cuda"]) == len(calls["cpu"]) > 0, f"MoE calls {len(calls['cuda'])} "
           f"on cuda, {len(calls['cpu'])} on the CPU")
@@ -3759,7 +4095,7 @@ def phase_moe_serving(dev) -> tuple:
         finally:
             attn_mod.flash_attention = real
         del cache
-        want = {ops.TENSOR_CORE: n_layers, ops.CUDA_CORE: 0}
+        want = _only({ops.TENSOR_CORE: n_layers})
         check(by_kernel == want, f"one bf16 generate launched {by_kernel}, want {want}")
         widths = _prefill_widths(cfg)
         tiles = phase_generate.tiles
@@ -3944,7 +4280,7 @@ def _zamba2_cell(dev) -> dict:
             n_new=HYBRID_NEW, per_generate=n_shared)
     finally:
         attn_mod.flash_attention = real
-    want = {ops.TENSOR_CORE: n_shared, ops.CUDA_CORE: 0}
+    want = _only({ops.TENSOR_CORE: n_shared})
     check(by_kernel == want, f"one bf16 generate launched {by_kernel}, want {want}")
     hd = _prefill_widths(cfg)
     tiles = phase_generate.tiles
@@ -3995,7 +4331,7 @@ def _zamba2_cell(dev) -> dict:
         finally:
             ssm_mod._bf16 = kept
         f32 = dict(flash_attention.kernel_launches)
-        check(f32 == {ops.CUDA_CORE: 1, ops.TENSOR_CORE: 0}, f"the float32 check launched "
+        check(f32 == _only({ops.CUDA_CORE: 1}), f"the float32 check launched "
               f"{f32}, want the shared block's 1 on the CUDA-core kernel")
         print(f"[hybrid] zamba2 float32 check {label}: the first period ({layers} Mamba-2 "
               f"layers and the shared block), prompt {prompt}; flash launches {f32}")
@@ -4049,7 +4385,7 @@ def _internvl2_cell(dev) -> dict:
     finally:
         attn_mod.flash_attention = real
     del cache
-    want = {ops.TENSOR_CORE: cfg.n_layers, ops.CUDA_CORE: 0}
+    want = _only({ops.TENSOR_CORE: cfg.n_layers})
     check(by_kernel == want, f"one bf16 generate launched {by_kernel}, want {want}")
     hd, a = _prefill_widths(cfg)[0], cfg.attention
     check(set(dims) == {_model_widths(cfg)[0]} and hd == _model_widths(cfg)[0],
@@ -4065,7 +4401,7 @@ def _internvl2_cell(dev) -> dict:
     phase_float32_cuda_vs_cpu(cut, few, dev, "[hybrid]", s=prompt,
                               extra={"patches": patches[:1].cpu()})
     f32 = dict(flash_attention.kernel_launches)
-    check(f32 == {ops.CUDA_CORE: layers, ops.TENSOR_CORE: 0},
+    check(f32 == _only({ops.CUDA_CORE: layers}),
           f"the float32 check launched {f32}, want {layers} on the CUDA-core kernel")
     print(f"[hybrid] internvl2 float32 check: {layers} layers, prompt {prompt} with "
           f"{HYBRID_PATCHES} patch positions; flash launches {f32}")
@@ -4099,7 +4435,7 @@ def _hubert_cell(dev) -> dict:
         by_kernel, total = dict(flash_attention.kernel_launches), flash_attention.launches
         tiles = _tiles(flash_attention.tile_launches)
         fwd_s = _median_s(run, 3)
-    want = {ops.TENSOR_CORE: cfg.n_layers, ops.CUDA_CORE: 0}
+    want = _only({ops.TENSOR_CORE: cfg.n_layers})
     hd = _prefill_widths(cfg)
     check(by_kernel == want and total == cfg.n_layers
           and tiles == {f"{hd[0]},{hd[1]}": cfg.n_layers},
@@ -4131,7 +4467,7 @@ def _hubert_cell(dev) -> dict:
     _float32_forward_cuda_vs_cpu(cut, few, {"features": feats[:1, :prompt].float().cpu()}, dev,
                                  "[hybrid]")
     f32 = dict(flash_attention.kernel_launches)
-    check(f32 == {ops.CUDA_CORE: layers, ops.TENSOR_CORE: 0},
+    check(f32 == _only({ops.CUDA_CORE: layers}),
           f"the float32 check launched {f32}, want {layers} on the CUDA-core kernel")
     return {"tensor_core": by_kernel[ops.TENSOR_CORE],
             "head_dim": list(hd), "tiles": tiles, "layers": cfg.n_layers,
@@ -4319,7 +4655,7 @@ def _train_flash_checks(cfg, params, batch, dev) -> None:
         del ins
         torch.cuda.empty_cache()
     served = {n: flash_attention.bwd_kernel_launches[n] - bwd_before[n] for n in bwd_before}
-    check(served == {ops.TENSOR_CORE_BWD: 1, ops.CUDA_CORE_BWD: 0},
+    check(served == _only({ops.TENSOR_CORE_BWD: 1}, bwd=True),
           f"the Function's backward launched {served}, want one {ops.TENSOR_CORE_BWD}")
     report = []
     for name, a, r in zip(("dq", "dk", "dv"), *grads):
@@ -4640,7 +4976,7 @@ def phase_training(dev, b2_bwd: dict) -> dict:
     check(launches == n_steps * 2 * cfg.n_layers and by_kernel[ops.CUDA_CORE] == 0,
           f"{n_steps} remat steps launched {launches} {by_kernel}, want "
           f"{2 * cfg.n_layers} a step on the tensor-core kernel")
-    want_bwd = {ops.TENSOR_CORE_BWD: n_steps * cfg.n_layers, ops.CUDA_CORE_BWD: 0}
+    want_bwd = _only({ops.TENSOR_CORE_BWD: n_steps * cfg.n_layers}, bwd=True)
     check(bwd_by_kernel == want_bwd and flash_attention.bwd_launches == n_steps * cfg.n_layers,
           f"{n_steps} steps launched backward kernels {bwd_by_kernel}, want {want_bwd}")
     check(all(np.isfinite(losses)), f"losses {losses}")
@@ -4786,7 +5122,7 @@ def phase_llama405b_serving(dev) -> tuple:
         cfg, params, dev, flash_attention, "[405b]", b=LLAMA405_BATCH, s=LLAMA405_PROMPT,
         n_new=LLAMA405_NEW, capacity=LLAMA405_PROMPT + LLAMA405_NEW)
     del cache
-    want = {ops.TENSOR_CORE: cfg.n_layers, ops.CUDA_CORE: 0}
+    want = _only({ops.TENSOR_CORE: cfg.n_layers})
     check(by_kernel == want, f"one bf16 generate launched {by_kernel}, want {want}")
     peak = torch.cuda.max_memory_allocated()
     check(peak <= 75 * 2**30, f"peak device memory {peak / 2**30:.2f} GiB > 75 GiB")
@@ -5246,8 +5582,9 @@ def _phases(dev, t0: float, smi: str, name: str, dry) -> int:
     """Phases 3-21 and the closing lines (``main``)."""
     argmin = _timed("3 kernels", phase_kernels, dev)
     argmin["launches"] = _timed("4 main path", phase_main_path, dev)
-    flash = _timed("5 flash kernels", phase_flash_kernels, dev)
-    flash_bwd = _timed("5b flash backward", phase_flash_backward, dev)
+    *flash, wide = _timed("5 flash kernels", phase_flash_kernels, dev)
+    *flash_bwd, wide_bwd = _timed("5b flash backward", phase_flash_backward, dev)
+    wide["launches"], wide_bwd["launches"] = _timed("5c wide path", phase_flash_wide_path, dev)
     flash_launches = _timed("6 serving path", phase_serving, dev)
     for record in flash:
         record["launches"] = flash_launches[record["name"]]
@@ -5279,7 +5616,7 @@ def _phases(dev, t0: float, smi: str, name: str, dry) -> int:
     _timed("20 multi-device path", phase_multi_device, dev, campaign, train)
     _timed("21 dry run", phase_dryrun, dev, dry)
     native = _native_tile_records(flash[0])
-    records = [argmin, *flash, *native, *flash_bwd, scan, scan_bwd]
+    records = [argmin, *flash, *native, wide, *flash_bwd, wide_bwd, scan, scan_bwd]
     print(f"[time] all phases: {time.perf_counter() - t0:.2f} s")
     print("kernels: " + ", ".join(r["name"] for r in records))
     print(json.dumps({"kernels": records}))

@@ -44,6 +44,8 @@ SOURCES: Dict[str, str] = {
     "flash_attention_wgmma": "flash_attention/csrc/flash_attention_wgmma.cu",
     "flash_attention_bwd": "flash_attention/csrc/flash_attention_bwd.cu",
     "flash_attention_bwd_wgmma": "flash_attention/csrc/flash_attention_bwd_wgmma.cu",
+    "flash_attention_wide": "flash_attention/csrc/flash_attention_wide.cu",
+    "flash_attention_wide_bwd": "flash_attention/csrc/flash_attention_wide_bwd.cu",
     "ssm_scan": "ssm_scan/csrc/selective_scan.cu",
     "ssm_scan_bwd": "ssm_scan/csrc/selective_scan_bwd.cu",
 }

@@ -1,6 +1,6 @@
 """Online-softmax attention forward (the prefill attention of every layer).
 
-Both kernels replace the TPU kernel ``_fa_kernel``
+The forward kernels replace the TPU kernel ``_fa_kernel``
 (``src/repro/kernels/flash_attention/kernel.py:38``); ``ops.route`` picks
 one by dtype and head_dim, a fixed rule:
 
@@ -23,6 +23,12 @@ one by dtype and head_dim, a fixed rule:
       (0.42 ms at llama's shape at the TF32 peak for the three products);
       above 128 fp32 FMAs on the CUDA cores (the split tiles do not fit);
       within 2e-5;
+  csrc/flash_attention_wide.cu — either dtype with a q, k or v wider than
+      256 (the Pallas kernel takes any width; DeepSeek-V2's absorbed latent
+      attention is 576 / 512): fp32 FMAs on the CUDA cores, one block per
+      (query head, 256-column slab of v, batch, 64-row query tile), q·kᵀ
+      streamed over D in 64-column chunks and recomputed in every slab, so
+      shared memory does not grow with the widths;
   ops.py — ``flash_attention``: the kernels for CUDA tensors, the plain
       version for CPU tensors, input checks, the TMA map arguments
       (``tma_map_args``) and launch counts, in total and per kernel; under
@@ -40,6 +46,10 @@ one by dtype and head_dim, a fixed rule:
       as split TF32 on wgmma up to head_dim 64 (two consumer warpgroups
       taking alternate items, a producer splitting the walked tiles natural
       and transposed), as fp32 FMAs on the CUDA cores above;
+  csrc/flash_attention_wide_bwd.cu — the backward above 256 in either
+      dtype: the same prologue and two passes on the CUDA cores, s and dP
+      streamed over D and Dv, dK / dV in 128-column slabs and dQ in
+      256-column ones, each slab recomputing s and dP, no atomics;
   ref.py — ``attention_ref`` / ``flash_attention_ref``: the plain version,
       with the same stats on request;
   backward.py — ``flash_attention_bwd``: the JAX package's ``_fa_bwd`` in
@@ -47,7 +57,7 @@ one by dtype and head_dim, a fixed rule:
       backward, the tests' and ``chip_smoke.py``'s reference for the
       backward kernels, and on no card's training path.
 
-Both are GQA-folded (query head h reads KV head h / G), align the causal
+All are GQA-folded (query head h reads KV head h / G), align the causal
 mask at 0, take a sliding window and a softcap, mask ragged ends and read
 their inputs through their strides.
 """

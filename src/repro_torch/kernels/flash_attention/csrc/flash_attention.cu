@@ -105,10 +105,6 @@ constexpr int kTC = 4;         // score columns per thread (tx, tx+16, tx+32, tx
 constexpr int kLdP = kBK + 4;  // P row stride: the two row groups of a warp on other banks
 constexpr float kNegInf = -2.0e38f;
 
-struct Strides {
-  long long b, s, h;  // element strides of the batch, sequence and head axes
-};
-
 // Shared-memory geometry of the split-TF32 kernel at padded head_dim DP.
 template <int DP>
 struct Split {
@@ -379,9 +375,6 @@ int launch_split_cap(const float* q, const float* k, const float* v, float* o, f
   return launch_split<DP, false>(q, k, v, o, m_out, l_out, B, Sq, Sk, H, KV, D, qs, ks, vs,
                                  scale, causal, window, cap, vec, stream);
 }
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
 
 __host__ __device__ constexpr size_t smem_floats(int d) {
   return static_cast<size_t>(kBQ) * (d + 1) + static_cast<size_t>(kBK) * (d + 1) +

@@ -125,15 +125,6 @@ constexpr int kSlabCols = 128;  // dK/dV: output columns a block at most
 constexpr int kRowsPerBlock = 8;   // prologue: one row a warp
 constexpr int kSmemBudget = 232448;
 
-struct Strides {
-  long long b, s, h;  // element strides of the batch, sequence and head axes
-};
-
-struct Opts {
-  float scale, cap;
-  int causal, window, has_cap;
-};
-
 // Shared floats of each kernel at head_dim D with BO-row walked tiles.
 __host__ __device__ constexpr int dkdv_floats(int d, int bo) {
   return 2 * kOwn * (d + 1) + 2 * bo * (d + 1) + 2 * kOwn * (bo + kPad) + 3 * bo;
@@ -145,25 +136,8 @@ static_assert(dkdv_floats(256, kOther256) * 4 <= kSmemBudget, "dK/dV tiles at D 
 static_assert(dq_floats(256, kOther256) * 4 <= kSmemBudget, "dQ tiles at D = 256");
 static_assert(dkdv_floats(128, kOther) * 4 <= kSmemBudget, "dK/dV tiles at D = 128");
 
-__device__ __forceinline__ bool kept(int qpos, int kpos, int Sq, int Sk, const Opts& o) {
-  return qpos < Sq && kpos < Sk && (!o.causal || qpos >= kpos) &&
-         (o.window <= 0 || qpos - kpos < o.window);
-}
-
-// The score s of one (query, key) pair from its raw product q·k, and in *dfac the factor
-// (1 − t²) that the softcap puts on ds (1 without one).
-__device__ __forceinline__ float score(float raw, const Opts& o, float* dfac) {
-  const float x = raw * o.scale;
-  if (!o.has_cap) {
-    *dfac = 1.0f;
-    return x;
-  }
-  const float t = tanhf(x / o.cap);
-  *dfac = 1.0f - t * t;
-  return o.cap * t;
-}
-
-// The same with the softcap known at compile time (the split kernels' instantiations).
+// The score (tensor_core.cuh) with the softcap known at compile time (the split kernels'
+// instantiations).
 template <bool kCap>
 __device__ __forceinline__ float score(float raw, const Opts& o, float* dfac, Bool<kCap>) {
   const float x = raw * o.scale;

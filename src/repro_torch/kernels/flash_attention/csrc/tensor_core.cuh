@@ -1,8 +1,10 @@
-// The helpers of the port's tensor-core attention kernels on Hopper (sm_90a), shared by
+// The helpers of the port's attention kernels on Hopper (sm_90a), shared by
 // flash_attention_wgmma.cu, flash_attention_bwd_wgmma.cu (bf16), flash_attention.cu and
-// flash_attention_bwd.cu (float32 as split TF32): shared-memory addresses, mbarriers, TMA
+// flash_attention_bwd.cu (float32 as split TF32), and flash_attention_wide.cu and
+// flash_attention_wide_bwd.cu (widths above 256): shared-memory addresses, mbarriers, TMA
 // and bulk copies, cp.async, wgmma descriptors and fences, the bf16 and TF32 wgmma
-// products, the TF32 split, and the run-time lookup of cuTensorMapEncodeTiled.  Each
+// products, the TF32 split, the run-time lookup of cuTensorMapEncodeTiled, and the
+// CUDA-core paths' strides, loads, rounding, mask and score.  Each
 // source that includes it is its own library (kernels/_build.py), so everything here sits
 // in an anonymous namespace; _build hashes this header into the key of every library
 // whose source includes it.
@@ -681,6 +683,47 @@ __device__ __forceinline__ void split_frag(uint32_t (&hi)[KC][4], uint32_t (&lo)
     tf32_split(f[4 * c + 1], hi[c][2], lo[c][2]);
     tf32_split(f[4 * c + 3], hi[c][3], lo[c][3]);
   }
+}
+
+// The pieces the CUDA-core attention paths share (flash_attention.cu and
+// flash_attention_bwd.cu above their split-TF32 widths, and the wide kernels): the element
+// strides of a [B, S, heads, D] input, the backward's options, fp32 loads and stores of
+// float or bf16 values, rounding to the operand dtype, the mask and the score.
+struct Strides {
+  long long b, s, h;  // element strides of the batch, sequence and head axes
+};
+
+struct Opts {
+  float scale, cap;
+  int causal, window, has_cap;
+};
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+// x rounded to the dtype `tag` points to and widened back (the identity in float32)
+__device__ __forceinline__ float round_to(float x, const float*) { return x; }
+__device__ __forceinline__ float round_to(float x, const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
+__device__ __forceinline__ bool kept(int qpos, int kpos, int Sq, int Sk, const Opts& o) {
+  return qpos < Sq && kpos < Sk && (!o.causal || qpos >= kpos) &&
+         (o.window <= 0 || qpos - kpos < o.window);
+}
+
+// The score s of one (query, key) pair from its raw product q·k, and in *dfac the factor
+// (1 − t²) that the softcap puts on ds (1 without one).
+__device__ __forceinline__ float score(float raw, const Opts& o, float* dfac) {
+  const float x = raw * o.scale;
+  if (!o.has_cap) {
+    *dfac = 1.0f;
+    return x;
+  }
+  const float t = tanhf(x / o.cap);
+  *dfac = 1.0f - t * t;
+  return o.cap * t;
 }
 
 }  // namespace

@@ -2,7 +2,7 @@
 
 The op follows its inputs' device.  CPU tensors run the plain PyTorch
 version in ``ref.py``, which is how a caller asks for the CPU.  CUDA
-tensors launch one of two kernels (built on first use by
+tensors launch one of three kernels (built on first use by
 ``kernels._build``) on the current stream, without synchronizing, by a
 fixed rule on dtype and head_dim (``route``):
 
@@ -19,20 +19,27 @@ fixed rule on dtype and head_dim (``route``):
   (each operand hi + lo, three TF32 products a product, float32's
   accuracy; one TF32 pass would miss 2e-5) up to head_dim 128, fp32 FMAs
   on the CUDA cores above (the source picks by head_dim; ``CUDA_CORE``
-  keeps its name).
+  keeps its name);
+* either dtype with max(D, Dv) above ``MAX_HEAD_DIM`` (the widest tile of
+  those two) → ``flash_attention_wide`` (``csrc/flash_attention_wide.cu``):
+  fp32 FMAs on the CUDA cores at the widths as they come, q·kᵀ streamed
+  over D in 64-column chunks and the output in ``WIDE_V_SLAB``-column slabs
+  of v, each slab's block recomputing its rows' scores, so its shared
+  memory does not grow with the widths.
 
-The op takes any widths 1 <= D, Dv <= ``MAX_HEAD_DIM`` on every device.  On
-a CUDA (or fake) tensor it runs the kernels at the widths ``kernel_widths``
-names: a bfloat16 call that needs no grad, at a pair of
-``TC_HEAD_DIM_PAIRS``, at its own widths; every other call at one width,
-the least of ``TC_HEAD_DIMS`` that holds max(D, Dv).  q, k and v are padded
-with zero columns to those widths inside the op (zero columns add exactly
-0 to every score and leave the row stats as they are), with the scale of
-the unpadded D, and the output and each gradient are cut back.  A width
-above ``MAX_HEAD_DIM`` raises on a CUDA tensor; the plain version takes
-the widths as they come, unpadded.  ``route`` and ``bwd_route`` are the
-fixed tables of the tiles that exist and raise for a pair without one.
-There is no fallback between the kernels or to the plain version.
+The op takes any widths D, Dv >= 1 on every device, as the Pallas kernel
+does.  On a CUDA (or fake) tensor it runs the kernels at the widths
+``kernel_widths`` names: a bfloat16 call that needs no grad, at a pair of
+``TC_HEAD_DIM_PAIRS``, at its own widths; a call with max(D, Dv) above
+``MAX_HEAD_DIM`` at its own widths too (the wide kernels); every other call
+at one width, the least of ``TC_HEAD_DIMS`` that holds max(D, Dv).  q, k
+and v are padded with zero columns to those widths inside the op (zero
+columns add exactly 0 to every score and leave the row stats as they are),
+with the scale of the unpadded D, and the output and each gradient are cut
+back.  The plain version takes the widths as they come, unpadded.
+``route`` and ``bwd_route`` are the fixed tables of the tiles that exist
+and raise for a pair without one.  There is no fallback between the
+kernels or to the plain version.
 ``flash_attention.launches`` counts all kernel launches,
 ``flash_attention.kernel_launches`` the launches of each kernel and
 ``flash_attention.tile_launches`` the tensor-core kernel's by its
@@ -52,7 +59,12 @@ grad-requiring call pads to one of them, ``kernel_widths(..., grad=True)``):
   wgmma, fed by TMA, no atomics;
 * float32 → ``flash_attention_bwd`` (``csrc/flash_attention_bwd.cu``): the
   same two passes, float32, split TF32 on the tensor cores up to head_dim
-  64, fp32 FMAs on the CUDA cores above.
+  64, fp32 FMAs on the CUDA cores above;
+* either dtype above ``MAX_HEAD_DIM`` → ``flash_attention_wide_bwd``
+  (``csrc/flash_attention_wide_bwd.cu``): the same two passes on the CUDA
+  cores at the widths as they come, s and dP streamed over D and Dv, dK /
+  dV in ``WIDE_KV_SLAB``-column slabs and dQ in ``WIDE_Q_SLAB``-column
+  ones, each slab's block recomputing s and dP.
 
 CPU tensors run ``backward.flash_attention_bwd``, the JAX package's
 ``_fa_bwd`` in plain PyTorch over ``q_chunk`` × ``kv_chunk`` blocks.
@@ -67,7 +79,9 @@ Both entries (``_forward``, reached from ``flash_attention``,
 ``FlashAttention.backward``) report their work to a running
 ``analysis.op_cost`` counter on every route: 2·B·H·(D + Dv) FLOPs a kept
 score forward and 2.5× that backward (``kept_scores``), each input read
-once and each output written once.  On a fake tensor (the dry run's) they
+once and each output written once; the wide kernels report their own
+products (``wide_flops_per_score``: the scores recomputed in each slab).
+On a fake tensor (the dry run's) they
 return empty outputs and run nothing; a fake tensor stands for a card
 tensor, so it is checked as one.
 """
@@ -85,9 +99,10 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.backward import flash_attention_bwd
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
-#: Largest head_dim the kernels take (the float32 kernel's 16 output columns
-#: a thread on the CUDA cores above head_dim 128; the tensor-core kernel's
-#: four 64-column TMA boxes).
+#: The widest tile of the tiled kernels (the float32 kernel's 16 output
+#: columns a thread on the CUDA cores above head_dim 128; the tensor-core
+#: kernel's four 64-column TMA boxes).  A call with a wider q, k or v takes
+#: the wide kernels (``CUDA_CORE_WIDE``, ``CUDA_CORE_WIDE_BWD``).
 MAX_HEAD_DIM = 256
 #: bfloat16 head_dims of both tensor-core kernels, forward and backward, at
 #: one width for q, k and v: a multiple of wgmma's depth of 16 whose
@@ -103,6 +118,13 @@ TC_HEAD_DIM_PAIRS = ((16, 16), (32, 32), (64, 64), (80, 80), (128, 128), (192, 1
 TMA_WIDTHS = tuple(sorted({w for pair in TC_HEAD_DIM_PAIRS for w in pair}))
 #: The two kernels, by their ``_build.SOURCES`` names.
 TENSOR_CORE, CUDA_CORE = "flash_attention_wgmma", "flash_attention"
+#: The kernels of widths above ``MAX_HEAD_DIM``, forward and backward, in
+#: both dtypes, by their ``_build.SOURCES`` names.
+CUDA_CORE_WIDE, CUDA_CORE_WIDE_BWD = "flash_attention_wide", "flash_attention_wide_bwd"
+#: Output columns a block of the wide forward owns (``kSlab``), and of each
+#: of dK and dV (``kKvSlab``) and of dQ (``kQSlab``) in the wide backward;
+#: every slab's block recomputes its scores.
+WIDE_V_SLAB, WIDE_KV_SLAB, WIDE_Q_SLAB = 256, 128, 256
 #: Query rows per TMA box of q in the tensor-core kernel (a consumer
 #: warpgroup's rows).
 Q_BOX_ROWS = 64
@@ -120,7 +142,8 @@ _NO_ENCODER, _ENCODE_FAILED = 9999, 10000
 #: The backward kernels, by their ``_build.SOURCES`` names, and the forward
 #: kernel whose calls each differentiates.
 TENSOR_CORE_BWD, CUDA_CORE_BWD = "flash_attention_bwd_wgmma", "flash_attention_bwd"
-_BWD = {TENSOR_CORE: TENSOR_CORE_BWD, CUDA_CORE: CUDA_CORE_BWD}
+_BWD = {TENSOR_CORE: TENSOR_CORE_BWD, CUDA_CORE: CUDA_CORE_BWD,
+        CUDA_CORE_WIDE: CUDA_CORE_WIDE_BWD}
 #: Rows of the TMA boxes of q and dO in the tensor-core backward (its dK/dV
 #: kernel's 64-query tiles, its dQ kernel's 64 query rows a warpgroup); its
 #: k, v boxes are ``bwd_key_block_rows`` (dK/dV) and ``bwd_kv_box_rows`` (dQ).
@@ -138,18 +161,28 @@ _BWD_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_longlon
 _BWD_WGMMA_ARGTYPES = ([ctypes.c_void_p] * 12 + [_MapArg] * 6 + [ctypes.c_int] * 7
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                           ctypes.c_float, ctypes.c_void_p])
+# the wide kernels: D and Dv, and a last int that says bfloat16
+_WIDE_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 9
+                  + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                     ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+_WIDE_BWD_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 9
+                      + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                         ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
 def route(dtype: torch.dtype, head_dim: int, v_head_dim: Optional[int] = None) -> str:
     """The kernel that serves CUDA inputs of ``dtype`` with q, k of
     ``head_dim`` and v of ``v_head_dim`` (``head_dim`` when None):
-    ``TENSOR_CORE`` for bfloat16 at a pair of ``TC_HEAD_DIM_PAIRS``,
-    ``CUDA_CORE`` for float32 at one head_dim up to ``MAX_HEAD_DIM`` (the
+    ``CUDA_CORE_WIDE`` for either dtype where the wider is above
+    ``MAX_HEAD_DIM``, else ``TENSOR_CORE`` for bfloat16 at a pair of
+    ``TC_HEAD_DIM_PAIRS``, ``CUDA_CORE`` for float32 at one head_dim (the
     float32 kernel: split TF32 on the tensor cores up to head_dim 128, fp32
     FMAs on the CUDA cores above, by its source's fixed rule).  A fixed
     table, not a fallback: a pair the dtype's kernel has no tile for raises
     ``ValueError``."""
     dv = head_dim if v_head_dim is None else v_head_dim
+    if dtype in _DTYPES and min(head_dim, dv) >= 1 and max(head_dim, dv) > MAX_HEAD_DIM:
+        return CUDA_CORE_WIDE
     if dtype == torch.float32:
         if not 1 <= head_dim <= MAX_HEAD_DIM or dv != head_dim:
             raise ValueError(f"flash_attention: the float32 kernel takes one "
@@ -170,9 +203,10 @@ def bwd_route(dtype: torch.dtype, head_dim: int, v_head_dim: Optional[int] = Non
     ``head_dim`` and v of ``v_head_dim`` (``head_dim`` when None): the one
     beside the forward kernel ``route`` names (``TENSOR_CORE_BWD`` for
     bfloat16, ``CUDA_CORE_BWD`` for float32), at one head_dim for q, k and
-    v, in bfloat16 one of ``TC_HEAD_DIMS``.  Raises ``ValueError`` for a pair
-    it has no tile for (the forward's (80, 80) and (192, 128) among them),
-    and as ``route`` does."""
+    v, in bfloat16 one of ``TC_HEAD_DIMS``; ``CUDA_CORE_WIDE_BWD`` above
+    ``MAX_HEAD_DIM``, at any pair.  Raises ``ValueError`` for a pair it has
+    no tile for (the forward's (80, 80) and (192, 128) among them), and as
+    ``route`` does."""
     dv = head_dim if v_head_dim is None else v_head_dim
     kernel = route(dtype, head_dim, dv)
     if kernel == TENSOR_CORE and (dv != head_dim or head_dim not in TC_HEAD_DIMS):
@@ -187,16 +221,19 @@ def kernel_widths(dtype: torch.dtype, head_dim: int, v_head_dim: Optional[int] =
     with q, k of ``head_dim`` and v of ``v_head_dim`` (``head_dim`` when
     None); ``grad`` says whether the call is differentiated.  A bfloat16
     call without grad at a pair of ``TC_HEAD_DIM_PAIRS`` runs at its own
-    widths; every other call at one width, the least of ``TC_HEAD_DIMS``
-    that holds the wider (80 → 128; 192 and 128 → 256).  Raises
-    ``ValueError`` above ``MAX_HEAD_DIM``."""
+    widths, and so does every call whose wider is above ``MAX_HEAD_DIM``
+    (the wide kernels: padding would only add work); every other call at
+    one width, the least of ``TC_HEAD_DIMS`` that holds the wider (80 →
+    128; 192 and 128 → 256).  Raises ``ValueError`` for a width below 1."""
     dv = head_dim if v_head_dim is None else v_head_dim
     if dtype == torch.bfloat16 and not grad and (head_dim, dv) in TC_HEAD_DIM_PAIRS:
         return head_dim, dv
     width = max(head_dim, dv)
-    if not 1 <= min(head_dim, dv) or width > MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention: the kernels take head_dims 1 to {MAX_HEAD_DIM} "
-                         f"for q, k and v, got ({head_dim}, {dv})")
+    if not 1 <= min(head_dim, dv):
+        raise ValueError(f"flash_attention: the kernels take head_dims >= 1 for q, k and "
+                         f"v, got ({head_dim}, {dv})")
+    if width > MAX_HEAD_DIM:
+        return head_dim, dv
     hd = next(t for t in TC_HEAD_DIMS if t >= width)
     return hd, hd
 
@@ -345,8 +382,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (the kernels align masks at 0, the plain version on the right);
     ``window`` keeps keys with
     ``qpos − kpos < window``; ``softcap`` caps scores at ``c·tanh(s/c)``;
-    ``scale`` defaults to ``1/sqrt(D)``.  On a CUDA tensor D and Dv are at
-    most ``MAX_HEAD_DIM`` and the op runs the kernels at ``kernel_widths``
+    ``scale`` defaults to ``1/sqrt(D)``.  On a CUDA tensor the op runs the
+    kernels at ``kernel_widths``
     (q, k, v padded with zero columns, the output cut back), the head_dim
     axes must be contiguous and the kernels read the other axes through
     their strides; a bfloat16 view the kernel takes at its own widths must
@@ -402,19 +439,39 @@ def kept_scores(sq: int, sk: int, causal: bool, window: Optional[int]) -> int:
     return int(np.maximum(hi - lo, 0).sum())
 
 
+def wide_flops_per_score(d: int, dv: int, backward: bool) -> int:
+    """FLOPs a kept score of the wide kernels, as they do the work: the
+    forward sums q·kᵀ (2·D) in each of its ceil(Dv / ``WIDE_V_SLAB``) slabs
+    and p·v (2·Dv) once, 2·(D·ceil(Dv / 256) + Dv); the backward recomputes
+    s and dP (2·(D + Dv)) in each of its ceil(max(D, Dv) / ``WIDE_KV_SLAB``)
+    dK/dV slabs and ceil(D / ``WIDE_Q_SLAB``) dQ slabs, and sums dV (2·Dv),
+    dK (2·D) and dQ (2·D) once, 2·(D + Dv)·(ceil(max(D, Dv) / 128) +
+    ceil(D / 256)) + 2·Dv + 4·D."""
+    if not backward:
+        return 2 * (d * -(-dv // WIDE_V_SLAB) + dv)
+    slabs = -(-max(d, dv) // WIDE_KV_SLAB) + -(-d // WIDE_Q_SLAB)
+    return 2 * (d + dv) * slabs + 2 * dv + 4 * d
+
+
 def _work(q, k, v, causal, window, tensors, backward: bool, stats: bool = False):
     """``op_cost.kernel``'s work of a forward (or backward) call: products,
     the bytes of ``tensors`` (each read or written once; a forward's
     ``[B,Sq,H,Dv]`` output besides, and with ``stats`` its m and l),
-    exponentials."""
+    exponentials.  Products: 2·(D + Dv) a kept score forward and 2.5× that
+    backward, or on a card's wide route (max(D, Dv) above ``MAX_HEAD_DIM``)
+    ``wide_flops_per_score``."""
     def work():
         b, sq, h, d = q.shape
+        dv = v.shape[-1]
         kept = b * h * kept_scores(sq, k.shape[1], causal, window)
-        flops = 2.0 * (d + v.shape[-1]) * kept
+        if _at_kernel_widths(q) and max(d, dv) > MAX_HEAD_DIM:
+            flops = float(wide_flops_per_score(d, dv, backward) * kept)
+        else:
+            flops = 2.0 * (d + dv) * kept * (2.5 if backward else 1.0)
         n_bytes = op_cost.tensor_bytes(*tensors) + (2 * 4 * b * h * sq if stats else 0)
         if not backward:
-            n_bytes += b * sq * h * v.shape[-1] * q.element_size()
-        return (2.5 * flops if backward else flops), n_bytes, float(kept)
+            n_bytes += b * sq * h * dv * q.element_size()
+        return flops, n_bytes, float(kept)
     return work
 
 
@@ -480,14 +537,14 @@ def flash_attention_bwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
         raise ValueError(f"flash_attention_bwd_kernel takes CUDA tensors, got {dev}; the "
                          "CPU's backward is backward.flash_attention_bwd")
     b, sq, h, d = q.shape
-    sk, kvh = k.shape[1], k.shape[2]
-    kernel = bwd_route(q.dtype, d, v.shape[-1])
+    sk, kvh, dv_w = k.shape[1], k.shape[2], v.shape[-1]
+    kernel = bwd_route(q.dtype, d, dv_w)
     if fake:   # the dry run: the gradients' shapes, nothing launched
         return (torch.empty_like(q, memory_format=torch.contiguous_format),
                 torch.empty_like(k, memory_format=torch.contiguous_format),
                 torch.empty_like(v, memory_format=torch.contiguous_format))
-    for name, t, shape, dtype in (("out", out, q.shape, q.dtype),
-                                  ("dout", dout, q.shape, q.dtype),
+    for name, t, shape, dtype in (("out", out, (b, sq, h, dv_w), q.dtype),
+                                  ("dout", dout, (b, sq, h, dv_w), q.dtype),
                                   ("m", m, (b, h, sq), torch.float32),
                                   ("l", l, (b, h, sq), torch.float32)):
         if t.device != dev or tuple(t.shape) != tuple(shape) or t.dtype != dtype:
@@ -502,7 +559,7 @@ def flash_attention_bwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
         out, dout = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (out, dout))
     dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=dev)
     dk = torch.empty((b, sk, kvh, d), dtype=k.dtype, device=dev)
-    dv = torch.empty((b, sk, kvh, d), dtype=v.dtype, device=dev)
+    dv = torch.empty((b, sk, kvh, dv_w), dtype=v.dtype, device=dev)
     # the row scratch: Δ, and for the tensor-core kernel the log-sum-exp, padded
     pad = -(-sq // BWD_STATS_PAD) * BWD_STATS_PAD if kernel == TENSOR_CORE_BWD else sq
     scratch = [torch.empty((b, h, pad), dtype=torch.float32, device=dev)
@@ -515,6 +572,9 @@ def flash_attention_bwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                  (v, bwd_key_block_rows(d)), (k, bwd_kv_box_rows(d)), (v, bwd_kv_box_rows(d)))]
         fn = _build.load(kernel).flash_attention_bwd_wgmma_launch
         fn.argtypes, fn.restype = _BWD_WGMMA_ARGTYPES, ctypes.c_int
+    elif kernel == CUDA_CORE_WIDE_BWD:
+        fn = _build.load(kernel).flash_attention_wide_bwd_launch
+        fn.argtypes, fn.restype = _WIDE_BWD_ARGTYPES, ctypes.c_int
     else:
         fn = _build.load(kernel).flash_attention_bwd_launch
         fn.argtypes, fn.restype = _BWD_ARGTYPES, ctypes.c_int
@@ -524,6 +584,9 @@ def flash_attention_bwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
         if kernel == TENSOR_CORE_BWD:
             rc = fn(*ptrs, *(mp.as_c() for mp in maps), b, sq, sk, h, kvh, d, pad,
                     *options, stream)
+        elif kernel == CUDA_CORE_WIDE_BWD:
+            rc = fn(*ptrs, b, sq, sk, h, kvh, d, dv_w, *q.stride()[:3], *k.stride()[:3],
+                    *v.stride()[:3], *options, int(q.dtype == torch.bfloat16), stream)
         else:
             rc = fn(*ptrs, b, sq, sk, h, kvh, d, *q.stride()[:3], *k.stride()[:3],
                     *v.stride()[:3], *options, stream)
@@ -573,6 +636,9 @@ def _launch(q, k, v, causal, window, softcap, scale, stats: bool):
                 tma_map_args(v, kv_box_rows(d, dv)).as_c()]
         fn = _build.load(TENSOR_CORE).flash_attention_wgmma_launch
         fn.argtypes, fn.restype = _WGMMA_ARGTYPES, ctypes.c_int
+    elif kernel == CUDA_CORE_WIDE:
+        fn = _build.load(CUDA_CORE_WIDE).flash_attention_wide_launch
+        fn.argtypes, fn.restype = _WIDE_ARGTYPES, ctypes.c_int
     else:
         fn = _build.load(CUDA_CORE).flash_attention_launch
         fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
@@ -587,6 +653,10 @@ def _launch(q, k, v, causal, window, softcap, scale, stats: bool):
                 None if m is None else m.data_ptr(), None if l is None else l.data_ptr())
         if kernel == TENSOR_CORE:
             rc = fn(*ptrs, *maps, b, sq, k.shape[1], h, k.shape[2], d, dv, *options, stream)
+        elif kernel == CUDA_CORE_WIDE:
+            rc = fn(*ptrs, b, sq, k.shape[1], h, k.shape[2], d, dv, *q.stride()[:3],
+                    *k.stride()[:3], *v.stride()[:3], *options,
+                    int(q.dtype == torch.bfloat16), stream)
         else:
             rc = fn(*ptrs, b, sq, k.shape[1], h, k.shape[2], d,
                     *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *options, stream)
@@ -605,7 +675,8 @@ def _launch(q, k, v, causal, window, softcap, scale, stats: bool):
 
 
 flash_attention.launches = 0
-flash_attention.kernel_launches = {TENSOR_CORE: 0, CUDA_CORE: 0}
+flash_attention.kernel_launches = {TENSOR_CORE: 0, CUDA_CORE: 0, CUDA_CORE_WIDE: 0}
 flash_attention.tile_launches = dict.fromkeys(TC_HEAD_DIM_PAIRS, 0)
 flash_attention.bwd_launches = 0
-flash_attention.bwd_kernel_launches = {TENSOR_CORE_BWD: 0, CUDA_CORE_BWD: 0}
+flash_attention.bwd_kernel_launches = {TENSOR_CORE_BWD: 0, CUDA_CORE_BWD: 0,
+                                       CUDA_CORE_WIDE_BWD: 0}

@@ -70,6 +70,13 @@ def stacked(layout: Any, n: int) -> Any:
                     layout)
 
 
+def param_count(layout: Any) -> int:
+    """Parameters a layout holds: the product of each :class:`ParamDef`
+    leaf's shape, summed."""
+    return int(sum(np.prod(d.shape) for _, d in tree_leaves(layout)
+                   if isinstance(d, ParamDef)))
+
+
 def init_params(generator: torch.Generator, layout: Any,
                 dtype: torch.dtype = torch.float32,
                 keep: Optional[Callable[[str, torch.Tensor], torch.Tensor]] = None) -> Any:

@@ -181,3 +181,24 @@ def test_generate_trace_is_bit_identical(cfg):
     out = twl.generate_trace(twl.WorkloadConfig(**cfg))
     assert out.dtype == ref.dtype and out.shape == ref.shape
     np.testing.assert_array_equal(out, ref)
+
+
+_PLL_CONFIGS = {"default": {}, "single": dict(dual=False),
+                "other": dict(t_lock=50e-6, p_pll=0.3, p_design=35.0, dual=False)}
+
+
+@pytest.mark.parametrize("cfg_name", list(_PLL_CONFIGS))
+@pytest.mark.parametrize("tau", ["1e-4", "1e-3", "breakeven-10%", "breakeven+10%", "1", "60"])
+@pytest.mark.parametrize("dual", [True, False])
+def test_pll_energy_overheads_and_breakeven_match(cfg_name, tau, dual):
+    """Eq. 4-5: every function of ``core/pll`` equals the reference's, exactly."""
+    kw = dict(_PLL_CONFIGS[cfg_name], dual=dual)
+    j_cfg, t_cfg = jpll.PllConfig(**kw), tpll.PllConfig(**kw)
+    assert dataclasses.asdict(j_cfg) == dataclasses.asdict(t_cfg)
+    be = jpll.breakeven_tau(j_cfg)
+    assert tpll.breakeven_tau(t_cfg) == be
+    t = {"breakeven-10%": 0.9 * be, "breakeven+10%": 1.1 * be}.get(tau) or float(tau)
+    for fn in ("energy_overhead_single", "energy_overhead_dual", "energy_overhead",
+               "stall_fraction", "should_use_dual"):
+        assert getattr(tpll, fn)(t_cfg, t) == getattr(jpll, fn)(j_cfg, t), fn
+    assert tpll.should_use_dual(t_cfg, t) == tau.startswith(("breakeven-", "1e-"))

@@ -21,7 +21,8 @@ plain version takes the widths as they come.  Held here:
   produces, equal to the rule the models' ``_padded_flash`` applied (a copy
   kept here);
 * fake tensors: the op accepts those widths and ``op_cost`` reports the
-  padded kernel's work; above 256 it raises.
+  padded kernel's work; above 256 the wide kernels' work at the widths as
+  they come (``tests/test_torch_flash_wide.py`` holds that route).
 """
 
 import jax
@@ -195,10 +196,12 @@ def test_fake_tensors_take_every_width_and_report_the_padded_kernel():
                     assert cost.flops_by_name["flash_attention_fwd"] == 2 * (kd + kdv) * kept
                     out = flash_attention(q, k, v)
                     assert out.shape == (b, s, h, dv)
-        for shape in ((b, s, h, 320), (b, s, h, 257)):
-            x = torch.empty(shape, dtype=torch.bfloat16)
-            with pytest.raises(ValueError, match="kernels take head_dims 1 to 256"):
-                flash_attention(x, x, x)
-        x = torch.empty((b, s, h, 64), dtype=torch.bfloat16)
-        with pytest.raises(ValueError, match="kernels take head_dims 1 to 256"):
-            flash_attention(x, x, torch.empty((b, s, h, 300), dtype=torch.bfloat16))
+        # past 256: the wide kernels, at the widths as they come, and their own work
+        for d, dv in ((320, 320), (257, 257), (64, 300)):
+            x = torch.empty((b, s, h, d), dtype=torch.bfloat16)
+            v = torch.empty((b, s, h, dv), dtype=torch.bfloat16)
+            assert ops.kernel_widths(torch.bfloat16, d, dv) == (d, dv)
+            cost = op_cost.analyze(lambda: flash_attention(x, x, v))
+            assert cost.flops_by_name["flash_attention_fwd"] == \
+                2 * (d * -(-dv // 256) + dv) * kept
+            assert flash_attention(x, x, v).shape == (b, s, h, dv)

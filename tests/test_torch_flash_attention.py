@@ -119,8 +119,9 @@ def test_op_checks_raise_and_cpu_leaves_launches_at_zero():
         flash_attention(q, k[:, :16], v[:, :16], causal=True)
     big = torch.zeros(1, 8, 2, 160)           # the plain version takes any head_dim
     assert flash_attention(big, big[:, :, :1], big[:, :, :1]).shape == big.shape
+    assert fa_ops.route(torch.float32, 320) == fa_ops.CUDA_CORE_WIDE   # past the widest tile
     with pytest.raises(ValueError, match="head_dim <= 256"):
-        fa_ops.route(torch.float32, 320)       # what a CUDA call checks first
+        fa_ops.route(torch.float32, 160, 128)  # what a CUDA call checks first
     with pytest.raises(ValueError, match="head_dim in"):
         fa_ops.route(torch.bfloat16, 160)
     with pytest.raises(ValueError, match="span devices"):

@@ -453,19 +453,25 @@ def test_design_constants_match_the_wrapper():
 def test_backward_route():
     """The backward's route follows the forward's: bf16 at a tensor-core
     head_dim to the tensor-core kernel, float32 up to 256 to the CUDA-core
-    one; any other dtype or head_dim raises."""
+    one, either dtype past 256 to the wide one; any other dtype or head_dim
+    raises."""
     for d in ops.TC_HEAD_DIMS:
         assert ops.bwd_route(torch.bfloat16, d) == ops.TENSOR_CORE_BWD
     for d in (1, 16, 80, 256):
         assert ops.bwd_route(torch.float32, d) == ops.CUDA_CORE_BWD
-    for dtype, d in ((torch.bfloat16, 80), (torch.bfloat16, 512), (torch.float32, 257)):
+    for dtype, d in ((torch.bfloat16, 512), (torch.float32, 257)):
+        assert ops.bwd_route(dtype, d) == ops.CUDA_CORE_WIDE_BWD
+    for dtype, d in ((torch.bfloat16, 80), (torch.float32, 0)):
         with pytest.raises(ValueError, match="head_dim"):
             ops.bwd_route(dtype, d)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         ops.bwd_route(torch.float16, 64)
-    assert set(flash_attention.bwd_kernel_launches) == {ops.TENSOR_CORE_BWD, ops.CUDA_CORE_BWD}
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ops.bwd_route(torch.float16, 512)
+    assert set(flash_attention.bwd_kernel_launches) == {ops.TENSOR_CORE_BWD, ops.CUDA_CORE_BWD,
+                                                        ops.CUDA_CORE_WIDE_BWD}
     from repro_torch.kernels import _build
-    assert {ops.TENSOR_CORE_BWD, ops.CUDA_CORE_BWD} <= set(_build.SOURCES)
+    assert set(flash_attention.bwd_kernel_launches) <= set(_build.SOURCES)
 
 
 def test_bwd_kernel_wrapper_refuses_cpu_and_bad_inputs():

@@ -251,7 +251,8 @@ def test_fake_tensors_route_as_card_tensors():
     and report 2·(D + Dv) a kept score; a grad-requiring call at such a pair
     and a float32 Dv != D pass too, padded to one width of 256 (the op's
     ``kernel_widths``), and report the padded kernel's work; a width past
-    256 raises before its forward."""
+    256 takes the wide kernels at its own widths, forward and backward, and
+    reports their work (``ops.wide_flops_per_score``)."""
     with FakeTensorMode():
         q = torch.empty((2, 256, 16, 192), dtype=torch.bfloat16)
         k = torch.empty((2, 256, 16, 192), dtype=torch.bfloat16)
@@ -268,10 +269,20 @@ def test_fake_tensors_route_as_card_tensors():
             cost = op_cost.analyze(lambda: flash_attention(qq, k.to(dt), v.to(dt)))
             assert cost.flops_by_name["flash_attention_fwd"] == padded
         wide = torch.empty((2, 256, 16, 320), dtype=torch.bfloat16)
-        with pytest.raises(ValueError, match="kernels take head_dims 1 to 256"):
-            flash_attention(wide.requires_grad_(), wide, wide)
-        with pytest.raises(ValueError, match="kernels take head_dims 1 to 256"):
-            flash_attention(wide.float().detach(), wide.float(), wide.float())
+        for grad, dt in ((True, torch.bfloat16), (False, torch.float32)):
+            w = wide.to(dt).detach().requires_grad_(grad)
+
+            def call():
+                out = flash_attention(w, wide.to(dt), wide.to(dt))
+                assert out.shape == wide.shape
+                if grad:
+                    out.sum().backward()
+            cost = op_cost.analyze(call)
+            assert cost.flops_by_name["flash_attention_fwd"] == \
+                ops.wide_flops_per_score(320, 320, False) * kept
+            if grad:
+                assert cost.flops_by_name["flash_attention_bwd"] == \
+                    ops.wide_flops_per_score(320, 320, True) * kept
 
 
 @pytest.mark.parametrize("d, dv", [(192, 128), (80, 80)])

@@ -27,15 +27,26 @@ def test_route_float32_stays_on_the_cuda_core_kernel(d):
 
 @pytest.mark.parametrize("d", [8, 48, 96, 112, 160, 192, 320])
 def test_route_refuses_bf16_head_dims_tma_cannot_box(d):
+    """The tensor-core kernel refuses them; past the widest tile (320) the
+    wide kernel takes them instead, with no TMA box."""
+    if d > ops.MAX_HEAD_DIM:
+        assert ops.route(torch.bfloat16, d) == ops.CUDA_CORE_WIDE
+        with pytest.raises(ValueError, match="head_dim in"):
+            ops.tma_map_args(torch.empty(1, 8, 1, d, dtype=torch.bfloat16), 64)
+        return
     with pytest.raises(ValueError, match="head_dim in"):
         ops.route(torch.bfloat16, d)
 
 
 @pytest.mark.parametrize("d", [0, 257, 320, 512])
 def test_route_refuses_float32_head_dims_past_the_cuda_core_kernel(d):
-    """The CUDA-core kernel holds 16 output columns a thread: D <= 256."""
-    with pytest.raises(ValueError, match="head_dim <= 256"):
-        ops.route(torch.float32, d)
+    """The CUDA-core kernel holds 16 output columns a thread: D <= 256.
+    Wider head_dims go to the wide kernel; 0 to none."""
+    if d == 0:
+        with pytest.raises(ValueError, match="head_dim <= 256"):
+            ops.route(torch.float32, d)
+        return
+    assert ops.route(torch.float32, d) == ops.CUDA_CORE_WIDE != ops.CUDA_CORE
 
 
 def test_route_refuses_other_dtypes():
@@ -138,10 +149,10 @@ def test_cpu_calls_leave_every_counter_at_zero():
     counter moves."""
     g = torch.Generator().manual_seed(0)
     before = dict(flash_attention.kernel_launches)
-    assert set(before) == {ops.TENSOR_CORE, ops.CUDA_CORE}
+    assert set(before) == {ops.TENSOR_CORE, ops.CUDA_CORE, ops.CUDA_CORE_WIDE}
     for dtype in (torch.float32, torch.bfloat16):
         q = torch.randn(1, 64, 4, 64, generator=g).to(dtype)
         k = torch.randn(1, 64, 2, 64, generator=g).to(dtype)
         flash_attention(q, k, k)
-    assert flash_attention.kernel_launches == before == {ops.TENSOR_CORE: 0, ops.CUDA_CORE: 0}
+    assert flash_attention.kernel_launches == before == dict.fromkeys(before, 0)
     assert flash_attention.launches == 0

@@ -8,7 +8,7 @@ import shutil
 from repro_torch.kernels import _build
 
 ATTENTION = ("flash_attention", "flash_attention_wgmma", "flash_attention_bwd",
-             "flash_attention_bwd_wgmma")
+             "flash_attention_bwd_wgmma", "flash_attention_wide", "flash_attention_wide_bwd")
 
 
 def test_attention_sources_include_the_tensor_core_header():

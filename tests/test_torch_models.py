@@ -96,6 +96,15 @@ def test_model_layout_matches_jax(reduced):
     assert {p: d.shape for p, d in jc.items()} == {p: d.shape for p, d in tc.items()}
 
 
+@pytest.mark.parametrize("reduced", [True, False])
+@pytest.mark.parametrize("arch", ARCH_NAMES)
+def test_param_count_matches_jax(arch, reduced):
+    """``common.param_count`` of every arch's layout, REDUCED and full size."""
+    j, t = jax_config(arch, reduced), get_config(arch, reduced)
+    want = jcommon.param_count(jtf.model_layout(j))
+    assert tcommon.param_count(ttf.model_layout(t)) == want > 0
+
+
 def test_model_params_from_numpy_checks_every_leaf():
     jcfg, tcfg = _cfgs()
     jp, tp = _params(jcfg, tcfg)

@@ -220,10 +220,21 @@ def test_b2_at_llamas_serving_shape_reports_68_8_gflop_on_fake_tensors():
 
 
 def test_a_fake_tensor_is_checked_as_a_card_tensor():
+    """Past the widest tile a fake tensor takes the card's wide route and
+    reports its work (``fa_ops.wide_flops_per_score``: the scores recomputed
+    in each slab), which the CPU's plain version does not do; a check the
+    card makes and the CPU does not (a windowed call with Sq != Sk) raises."""
+    kept = 2 * fa_ops.kept_scores(64, 64, True, None)
     with FakeTensorMode():
-        q = torch.empty((1, 64, 2, 320), dtype=torch.bfloat16)   # past every kernel's width
-        with pytest.raises(ValueError, match="kernels take head_dims 1 to 256"):
-            flash_attention(q, q, q)
+        q = torch.empty((1, 64, 2, 320), dtype=torch.bfloat16)   # past every tile's width
+        cost = op_cost.analyze(lambda: flash_attention(q, q, q))
+        assert cost.flops == 2 * (320 * 2 + 320) * kept == fa_ops.wide_flops_per_score(
+            320, 320, False) * kept
+        with pytest.raises(ValueError, match="Sq == Sk"):
+            flash_attention(q, q[:, :32], q[:, :32], causal=False, window=8)
+    x = torch.zeros((1, 64, 2, 320))
+    cost = op_cost.analyze(lambda: flash_attention(x, x, x))
+    assert cost.flops == 2 * (320 + 320) * kept
 
 
 def test_scan_entries_report_their_formula():
